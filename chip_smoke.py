@@ -11,18 +11,19 @@ Phases (any failure exits non-zero and prints no result line):
              through the wrapper the main path calls: every input dtype at
              all five gemma-2b decode shapes (lm_head on the full 256000-
              column `embed.T` view), a bm = 2 geometry, a non-power-of-two
-             geometry, a ragged shape and a strided B; every kernel variant
-             must be reached;
+             geometry, a ragged shape and a strided B; both stream kernels
+             must be reached split and unsplit, and the tile kernel;
 4. serve   — full-width, full-depth gemma-2b (random weights from a seed)
              through `repro_torch.launch.serve`: batch 4, prompt 32, gen
              32. Asserts plan-resolve rate 1.0, no silent degrade, one
              `mmad` launch per routed GEMM dispatch, finite logits, and
              first-step logits that match an unrouted run; then the device
              busy share of the same decode steps, read from one profiled
-             window;
+             window, in which every routed GEMM must be one mmad kernel and
+             no split-K reduce kernel may run;
 5. timing  — per decode shape the kernel's time (held to the tolerance
-             again) beside the plain version's, one `torch.matmul` call's
-             and the bound;
+             again) beside the plain version's, one `torch.matmul` call's,
+             the bound and the roofline share (bound / kernel time);
 6. report  — one JSON line per kernel, the nvidia-smi line, and last the
              `{"ok": true, "device": ...}` line.
 
@@ -149,7 +150,8 @@ def check_kernels(torch, mmad_mod, ref) -> float:
         (4, 2048, 16384, (4, 512, 256), False),     # gate, up
         (4, 16384, 2048, (4, 128, 512), False),     # down
         (4, 2048, 256000, (4, 512, 256), True),     # lm_head: embed.T, unsplit
-        (4, 2048, 1000, (4, 512, 256), True),       # column stream, split K
+        (4, 2048, 256, (4, 512, 256), True),        # column stream, split K
+        (4, 512, 270336, (4, 512, 256), False),     # row stream, no fixup
         (2, 512, 384, (2, 128, 128), False),        # bm = 2
         (48, 120, 192, (24, 96, 40), False),        # tile: non-power-of-two
         (5, 130, 7, (8, 128, 128), False),          # tile: ragged
@@ -185,10 +187,10 @@ def check_kernels(torch, mmad_mod, ref) -> float:
                          f"{float((got.float() - want.float()).abs().max()):.3e}"
                          f" exceeds tolerance (ratio {ratio:.2f})")
             del a, b, got, want
-    # every variant, and both ways a stream kernel writes C (directly, or
-    # through split-K partials and the reduce kernel)
-    need = {(mmad_mod.ROW_STREAM, False), (mmad_mod.COL_STREAM, False),
-            (mmad_mod.COL_STREAM, True)}
+    # every variant, and both ways each stream kernel writes C: directly,
+    # or through split-K partials that its last split sums in the same launch
+    need = {(v, unsplit) for v in (mmad_mod.ROW_STREAM, mmad_mod.COL_STREAM)
+            for unsplit in (False, True)}
     if not need <= reached or not any(v == mmad_mod.TILE for v, _ in reached):
         fail(f"kernel variants reached {sorted(reached)}, need {sorted(need)} "
              f"and the tile kernel")
@@ -246,6 +248,7 @@ def time_decode_shapes(torch, mmad_mod, ref, cfg, launches_per_step, dev):
                "kernel_call_wall_ms": call_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "roofline_share": max(t_bytes, t_ops) / kernel_ms,
                "max_abs_err": err, "err_over_tolerance": ratio}
         print(json.dumps(row), flush=True)
         rows.append(row)
@@ -253,13 +256,15 @@ def time_decode_shapes(torch, mmad_mod, ref, cfg, launches_per_step, dev):
 
 
 def busy_share(torch, params, cfg, planner, prompts, dev,
-               unprofiled_step_ms: float) -> None:
+               unprofiled_step_ms: float, gemms_per_step: int) -> None:
     """Device busy time and wall time per decode step, both read from one
     window: the main run's batch, prompts and positions (prefill token by
     token through a fresh routed context, then its GEN decode steps under
     the profiler, the wall clock read inside the profiled window). Only
     device activity is traced: tracing every host op would slow the host,
-    and with it the window, severalfold."""
+    and with it the window, severalfold. Fails unless each of the step's
+    `gemms_per_step` mmad calls ran as one kernel and none of them as the
+    tile kernel's separate split-K reduce."""
     from repro_torch.launch import serve
     from repro_torch.models import shard_ctx
     from repro_torch.models.model import decode_init
@@ -286,6 +291,13 @@ def busy_share(torch, params, cfg, planner, prompts, dev,
     if not kernels:
         fail("torch.profiler recorded no device time")
     busy_ms = sum(us for us, _, _ in kernels) / 1e3 / GEN
+    reduce = [name for _, _, name in kernels if "mmad_splitk_reduce" in name]
+    if reduce:
+        fail(f"the decode window launched {reduce}")
+    mmad_calls = sum(count for _, count, name in kernels if "mmad" in name)
+    if mmad_calls != gemms_per_step * GEN:
+        fail(f"{mmad_calls} mmad kernels ran in {GEN} decode steps of "
+             f"{gemms_per_step} routed GEMMs")
     mmad_ms = sum(us for us, _, name in kernels if "mmad" in name) / 1e3 / GEN
     for us, count, name in kernels[:8]:
         print(f"  device {us / 1e3 / GEN:8.3f} ms/step  {count / GEN:7.1f} "
@@ -363,7 +375,7 @@ def serve_gemma(torch, mmad_mod, cfg, dev):
         fail(f"mmad launched {launches} times for "
              f"{stats.executed_gemm} routed GEMM dispatches")
     busy_share(torch, params, cfg, planner, prompts, dev,
-               out["t_gen"] / GEN * 1e3)
+               out["t_gen"] / GEN * 1e3, launches // (PROMPT + GEN))
 
     tok_s = BATCH * GEN / out["t_gen"]
     card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"

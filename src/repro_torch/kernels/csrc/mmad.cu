@@ -3,40 +3,52 @@
 // Replaces the Pallas TPU kernel `repro/kernels/mmad.py:_mmad_kernel`. That
 // kernel walks an (M/bm, N/bn, K/bk) grid in order on one TensorCore and
 // carries an fp32 VMEM accumulator across the sequential K axis. Here CTAs
-// run in parallel and in no order, so:
+// run in parallel and in no order, so a CTA loops over its K range itself,
+// and where K is split across CTAs the partial sums meet in fp32 in a fixed
+// order. Ragged edges are masked and A and B are read through their strides,
+// so the wrapper never pads or copies (the tied lm_head weight is the
+// strided view embed.T).
 //
-//   * one CTA owns one output tile and loops over its K range itself (the
-//     sequential K grid axis becomes a loop inside the CTA);
-//   * when too few output tiles exist to fill the card (decode: M = 4,
-//     N = 256..2048), K is split over a third grid axis; each split writes
-//     an fp32 partial and a second kernel sums the partials in split order
-//     and casts (deterministic, no atomics);
-//   * the ragged edge is masked in the loads and stores, and A and B are read
-//     through their strides, so the wrapper never pads or copies (the tied
-//     lm_head weight is the strided view embed.T).
+// Three variants. Two stream kernels for up to 16 rows of A with a weight
+// whose rows (row stream) or columns (column stream, embed.T) are contiguous
+// and 16-byte aligned: every decode GEMM. A 64 x 64 tile kernel for the
+// rest, which stages fp32 tiles in shared memory, takes any strides, and
+// sums a K split in a second kernel (mmad_splitk_reduce).
 //
-// Three variants: two stream kernels for few rows of A (decode), which read
-// the weight once with 16-byte vector loads straight into registers — the
-// row stream when B's rows are contiguous, the column stream when its
-// columns are (embed.T) — and a 64 x 64 tile kernel that stages fp32 tiles
-// in shared memory and takes any strides.
+// What bounds the decode GEMMs on this card: at M = 4 the product reads the
+// weight B once and does 8 FLOPs per weight element, far below the H100's
+// ~295 FLOP/byte ridge, so device-memory bytes bound it (3.35 TB/s); tensor
+// cores would buy nothing. The small ones (a 1-8 MB weight) are bound by
+// fixed costs: the launch, A's staging, the first loads' latency, the split
+// hand-off. What the stream kernels do about it:
 //
-// Numerics: every operand element converts exactly to fp32 on load (fp32,
-// bf16, fp16, fp8 e4m3, int8), products and sums are IEEE fp32 FMAs on the
-// CUDA cores (never TF32), and the output is rounded once to out_dtype.
+//   * A staged once: a CTA converts its rows of A x its whole K range (at
+//     most 2048 k) to fp32 in shared memory before it streams, so no
+//     barrier stops the weight's loads;
+//   * bytes in flight: the row stream loads the weight straight into
+//     registers, 8 rows of 16 bytes per thread per batch with the next batch
+//     in flight (32 KB per CTA, two CTAs per SM); its first batch is issued
+//     before A is staged. The column stream feeds one shared-memory ring per
+//     consumer warp from a producer warp with 1-D bulk copies
+//     (cp.async.bulk, completion counted in bytes on an mbarrier), one 2 KB
+//     copy per column of an item;
+//   * a full-card grid with the split fixed up in the same launch: the row
+//     stream's tile is 128 bytes of a k row, so a (K, N) weight has N / 64
+//     (bf16) tiles, and K splits only until the tiles fill the SMs; the
+//     column stream likewise. Every split writes an fp32 partial and counts
+//     its arrival on its output tile's counter; the last to arrive sums the
+//     partials in split order, writes C with one rounding and resets the
+//     counter to zero: one kernel per call, bitwise repeatable results.
 //
-// Bound on this card: at decode batch sizes the product streams the weight
-// B once and does 2*M FLOPs per weight element, far below the ~295 FLOP/byte
-// ridge of an H100, so it is bound by device-memory bytes. The stream
-// kernels therefore spend nothing on B but the load: 16-byte vectors,
-// coalesced along B's contiguous dim, several in flight per lane, fp32 FMAs
-// against the few rows of A broadcast from shared memory, and a K split
-// until the grid covers the SMs. The plan's block geometry does not shape
-// these kernels (the tile kernel reads only bk, as its split-K unit);
-// wgmma/TMA, the plan's geometry and its pipeline depth are later work.
+// The plan's block geometry does not shape the stream kernels (the tile
+// kernel reads only bk, as its split-K unit).
+//
+// Numerics: every operand element converts exactly to fp32 (fp32, bf16,
+// fp16, fp8 e4m3, int8), products and sums are IEEE fp32 FMAs on the CUDA
+// cores (never TF32), and the output is rounded once to out_dtype.
 //
 // Plain C interface (bound with ctypes); launches on the caller's stream and
-// returns cudaGetLastError().
+// returns the launch's cudaError.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -220,250 +232,512 @@ __global__ void mmad_splitk_reduce(const float* __restrict__ ws, void* __restric
 }
 
 // ---------------------------------------------------------------------------
-// Skinny-M kernels for decode (M = batch rows): the weight B is streamed
-// once with 16-byte vector loads and never staged; the few rows of A are
-// staged in shared memory as fp32 and broadcast. Each CTA handles SK_MT rows
-// of A (grid.y walks M).
+// Stream kernels for few rows of A (decode): the weight B is read once, and
+// the CTA's rows of A x its K range are staged once as fp32 in shared
+// memory. A K split is fixed up in the same launch: every split writes an
+// fp32 partial, counts its arrival on its output tile's counter, and the
+// last to arrive sums the partials in split order and writes C.
 // ---------------------------------------------------------------------------
 
-constexpr int SK_MT = 4;        // rows of A per CTA
-constexpr int SK_WARPS = 8;     // warps per CTA
-constexpr int SK_NT = SK_WARPS * 32;
-constexpr int SK_COLS = 8;      // columns per warp in the column-stream kernel
+constexpr int SK_MT = 4;                     // rows of A per CTA
+constexpr int SK_WARPS = 8;                  // consumer warps per CTA
+constexpr int SK_CONSUMERS = SK_WARPS * 32;
+constexpr int SK_NT = SK_CONSUMERS + 32;     // + one producer warp
+constexpr int SK_COLS = 4;                   // columns per column-stream item
+constexpr int COL_STAGE_BYTES = 8192, COL_STAGES = 2;   // one ring per consumer warp
+constexpr int ROW_NT = SK_CONSUMERS;         // row stream: no producer warp
+constexpr int ROW_VECS = 8;                  // row-stream tile: 8 vectors, 128 B of a k row
+constexpr int ROW_BATCH = 8;                 // k rows a row-stream thread has in flight
 
+struct StreamArgs {
+  const void* A;
+  const void* B;
+  void* C;
+  float* ws;          // fp32 partials of a K split: (splits, M, N)
+  int* counters;      // one arrival counter per output tile; zero between launches
+  int a_dt, c_dt;
+  long long M, N, K, sam, sak, sbk, sbn;
+  long long kps;      // k per split
+  int splits;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+// Returns once the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// One contiguous global -> shared copy, completing `bytes` on the barrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Counts one arrival of a split on its output tile's counter at device
+// scope, releasing the split's partial (its stores are ordered before the
+// call by the caller's barrier) and acquiring the earlier splits'; true for
+// the last of `splits`, which resets the counter to zero for the next
+// launch and may then read every split's partial once its barrier has
+// ordered its readers after the call.
+__device__ __forceinline__ bool arrive_last(int* counter, int splits) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(old)
+               : "l"(counter)
+               : "memory");
+  if (old != splits - 1) return false;
+  *counter = 0;
+  return true;
+}
+
+// The sum, in split order 0..splits-1, of the partials at[z * step]: eight
+// loads in flight, all issued before any is added (more cost the row stream
+// registers, and it spilled).
+__device__ __forceinline__ float sum_splits(const float* at, long long step, int splits) {
+  constexpr int B = 8;
+  float sum = 0.f;
+  for (int z0 = 0; z0 < splits; z0 += B) {
+    float v[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i) v[i] = z0 + i < splits ? __ldcg(at + (z0 + i) * step) : 0.f;
+#pragma unroll
+    for (int i = 0; i < B; ++i)
+      if (z0 + i < splits) sum += v[i];
+  }
+  return sum;
+}
+
+// The consumer warps only (the producer may still be issuing copies).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(SK_CONSUMERS) : "memory");
+}
+
+// A ring of `stages` slots with a full and an empty barrier each. Stage s
+// goes to slot s % stages; every consumer of the ring consumes its stages in
+// order, so a wait never runs a whole phase ahead of its barrier.
+struct Ring {
+  unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int stage_bytes, stages;
+  __device__ Ring(unsigned char* slots_, uint64_t* bars, int stage_bytes_, int stages_)
+      : slots(slots_), full(bars), empty(bars + stages_), stage_bytes(stage_bytes_),
+        stages(stages_) {}
+  __device__ void init(int empty_arrivals) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], empty_arrivals);
+    }
+  }
+  __device__ unsigned char* slot(int s) const {
+    return slots + static_cast<long long>(s % stages) * stage_bytes;
+  }
+  // The producer waits until stage s's slot is free, then arms it.
+  __device__ void produce(int s, uint32_t bytes) {
+    mbar_wait(&empty[s % stages], ((s / stages) & 1) ^ 1);
+    if ((threadIdx.x & 31) == 0) mbar_expect_tx(&full[s % stages], bytes);
+    __syncwarp();
+  }
+  __device__ void wait_full(int s) { mbar_wait(&full[s % stages], (s / stages) & 1); }
+  __device__ void release(int s) {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[s % stages]);
+  }
+};
+
+// The CTA's rows m0.. of A x its K range [kbeg, kbeg + klen) as fp32 at
+// As[dst(row, k)], by threads 0..SK_CONSUMERS-1: each issues SA loads before it
+// converts and stores any, so the staging costs a few memory latencies.
+template <typename TA, typename Dst>
+__device__ __forceinline__ void stage_a_typed(const StreamArgs& p, float* As, long long m0,
+                                              long long kbeg, int klen, Dst dst) {
+  constexpr int SA = 16;
+  const TA* A = static_cast<const TA*>(p.A);
+  const int total = SK_MT * klen;
+  for (int base = threadIdx.x; base < total; base += SA * SK_CONSUMERS) {
+    TA v[SA];
+#pragma unroll
+    for (int u = 0; u < SA; ++u) {
+      const int idx = base + u * SK_CONSUMERS;
+      const int r = idx / klen, kk = idx - r * klen;
+      v[u] = (idx < total && m0 + r < p.M) ? A[(m0 + r) * p.sam + (kbeg + kk) * p.sak] : TA();
+    }
+#pragma unroll
+    for (int u = 0; u < SA; ++u) {
+      const int idx = base + u * SK_CONSUMERS;
+      const int r = idx / klen;
+      if (idx < total) As[dst(r, idx - r * klen)] = to_f32<TA>(v[u]);
+    }
+  }
+}
+
+template <typename Dst>
+__device__ __forceinline__ void stage_a(const StreamArgs& p, float* As, long long m0,
+                                        long long kbeg, int klen, Dst dst) {
+  switch (p.a_dt) {
+    case F32: stage_a_typed<float>(p, As, m0, kbeg, klen, dst); break;
+    case BF16: stage_a_typed<__nv_bfloat16>(p, As, m0, kbeg, klen, dst); break;
+    case F16: stage_a_typed<__half>(p, As, m0, kbeg, klen, dst); break;
+    case F8E4M3: stage_a_typed<__nv_fp8_e4m3>(p, As, m0, kbeg, klen, dst); break;
+    default: stage_a_typed<int8_t>(p, As, m0, kbeg, klen, dst); break;
+  }
+}
+
+// The 16 bytes of one vector of B as fp32.
 template <typename TB>
-__device__ __forceinline__ void load_vec(const TB* p, float (&out)[16 / sizeof(TB)]) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+__device__ __forceinline__ void to_f32_vec(const uint4& raw, float (&out)[16 / sizeof(TB)]) {
   TB e[16 / sizeof(TB)];
   memcpy(e, &raw, 16);
 #pragma unroll
   for (int v = 0; v < 16 / static_cast<int>(sizeof(TB)); ++v) out[v] = to_f32<TB>(e[v]);
 }
 
-__device__ __forceinline__ void emit(void* C, float* ws, int c_dt, int splits, long long M,
-                                     long long N, long long m, long long n, float v) {
-  if (splits == 1) {
-    store_any(C, m * N + n, c_dt, v);
-  } else {
-    ws[(static_cast<long long>(blockIdx.z) * M + m) * N + n] = v;
-  }
+__device__ __forceinline__ float* partial(const StreamArgs& p, long long m, long long n) {
+  return p.ws + (static_cast<long long>(blockIdx.z) * p.M + m) * p.N + n;
 }
 
-// B row-major (n contiguous, 16-byte aligned rows): a lane owns VEC
-// consecutive columns and reads them from one k row per 16-byte load, so a
-// warp reads 512 contiguous bytes per row. The CTA's warps take interleaved
-// k rows of the same 32*VEC columns; their partials are summed through
-// shared memory at the end.
+// B row-major (n contiguous, 16-byte aligned rows). A CTA owns a tile of
+// ROW_VECS column vectors (128 bytes of each k row) over a split's K range;
+// thread t loads column vector t % ROW_VECS of every G-th k row (row group
+// t / ROW_VECS) straight into registers, U rows per batch, the next batch
+// in flight while the current one is summed. The first batch is issued
+// before A is staged, so the weight is already on its way. Row groups meet
+// in warp shuffles, then warps in shared memory, in a fixed order. A split
+// CTA writes an fp32 partial and the last of the tile's splits to arrive
+// sums them in split order and writes C.
 template <typename TB>
-__global__ void __launch_bounds__(SK_NT)
-mmad_rows_kernel(const void* __restrict__ A, const TB* __restrict__ B, void* __restrict__ C,
-                 float* __restrict__ ws, int a_dt, int c_dt, long long M, long long N,
-                 long long K, long long sam, long long sak, long long sbk, long long kps,
-                 int splits) {
+__global__ void __launch_bounds__(ROW_NT, sizeof(TB) == 1 ? 1 : 2)
+    mmad_rows_kernel(const StreamArgs p) {
   constexpr int VEC = 16 / sizeof(TB);
-  constexpr int KC = 256;                       // rows of A staged per chunk
-  __shared__ float As[SK_MT][KC];
-  __shared__ float red[SK_WARPS][VEC][32];
-
+  constexpr int TILE = ROW_VECS * VEC;          // columns per CTA
+  constexpr int G = ROW_NT / ROW_VECS;          // row groups
+  constexpr int U = ROW_BATCH;                  // k rows per thread per batch
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float4* As = reinterpret_cast<const float4*>(smem);   // [k - kbeg]: rows m0..m0+3
+  float* red = reinterpret_cast<float*>(smem + 16 * p.kps);   // [warp][SK_MT][TILE]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int cv = threadIdx.x % ROW_VECS;
+  const int rg = threadIdx.x / ROW_VECS;
   const long long m0 = static_cast<long long>(blockIdx.y) * SK_MT;
-  const long long c0 = static_cast<long long>(blockIdx.x) * (32 * VEC);
-  const long long n = c0 + lane * VEC;
-  const long long kbeg = static_cast<long long>(blockIdx.z) * kps;
-  const long long kend = (kbeg + kps < K) ? kbeg + kps : K;
+  const long long c0 = static_cast<long long>(blockIdx.x) * TILE;
+  const long long kbeg = static_cast<long long>(blockIdx.z) * p.kps;
+  const int klen = static_cast<int>((kbeg + p.kps < p.K) ? p.kps : p.K - kbeg);
+  // N is whole vectors, so a vector is wholly in B or wholly past its edge
+  const bool in_b = c0 + cv * VEC < p.N;
+  const TB* bp = static_cast<const TB*>(p.B) + kbeg * p.sbk + c0 + cv * VEC;
+
+  auto load = [&](int k0, uint4 (&buf)[U]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kk = k0 + rg + u * G;
+      buf[u] = (in_b && kk < klen) ? __ldg(reinterpret_cast<const uint4*>(bp + kk * p.sbk))
+                                   : make_uint4(0, 0, 0, 0);
+    }
+  };
+  uint4 cur[U];
+  load(0, cur);
+  stage_a(p, reinterpret_cast<float*>(smem), m0, kbeg, klen,
+          [](int r, int kk) { return kk * SK_MT + r; });
+  __syncthreads();
 
   float acc[SK_MT][VEC];
 #pragma unroll
   for (int m = 0; m < SK_MT; ++m)
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[m][v] = 0.f;
-
-  for (long long kc = kbeg; kc < kend; kc += KC) {
-    const int klen = static_cast<int>((kend - kc < KC) ? kend - kc : KC);
-    __syncthreads();                            // the last chunk's readers are done
-    for (int idx = threadIdx.x; idx < SK_MT * KC; idx += SK_NT) {
-      const int r = idx / KC, c = idx % KC;
-      As[r][c] = (m0 + r < M && c < klen)
-                     ? load_any(A, (m0 + r) * sam + (kc + c) * sak, a_dt) : 0.f;
-    }
-    __syncthreads();
-    if (n < N) {
-      const TB* bp = B + kc * sbk + n;
-#pragma unroll 4
-      for (int kk = warp; kk < klen; kk += SK_WARPS) {
+  for (int k0 = 0; k0 < klen; k0 += U * G) {
+    uint4 nxt[U];
+    if (k0 + U * G < klen) load(k0 + U * G, nxt);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kk = k0 + rg + u * G;
+      if (kk < klen) {
         float b[VEC];
-        load_vec<TB>(bp + kk * sbk, b);
+        to_f32_vec<TB>(cur[u], b);
+        const float4 a = As[kk];
+        const float av[SK_MT] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-        for (int m = 0; m < SK_MT; ++m) {
-          const float a = As[m][kk];
+        for (int m = 0; m < SK_MT; ++m)
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[m][v] = fmaf(a, b[v], acc[m][v]);
-        }
+          for (int v = 0; v < VEC; ++v) acc[m][v] = fmaf(av[m], b[v], acc[m][v]);
       }
     }
-  }
-
-  // sum the warps' partials, one row of A at a time, in warp order
 #pragma unroll
-  for (int m = 0; m < SK_MT; ++m) {
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) red[warp][v][lane] = acc[m][v];
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < VEC * 32; idx += SK_NT) {
-      const int v = idx / 32, l = idx % 32;
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < SK_WARPS; ++w) s += red[w][v][l];
-      const long long col = c0 + l * VEC + v;
-      if (m0 + m < M && col < N) emit(C, ws, c_dt, splits, M, N, m0 + m, col, s);
-    }
-    __syncthreads();
-  }
-}
-
-// B column-major (k contiguous, 16-byte aligned columns — the tied lm_head
-// weight embed.T): a warp owns SK_COLS columns and its lanes split K, each
-// lane reading VEC consecutive k of a column per 16-byte load (512
-// contiguous bytes per warp); lanes' partials meet in a warp shuffle. The
-// staged A chunk is laid out [row][v][lane] so the lanes' reads of their
-// own k slots hit distinct banks.
-template <typename TB>
-__global__ void __launch_bounds__(SK_NT)
-mmad_cols_kernel(const void* __restrict__ A, const TB* __restrict__ B, void* __restrict__ C,
-                 float* __restrict__ ws, int a_dt, int c_dt, long long M, long long N,
-                 long long K, long long sam, long long sak, long long sbn, long long kps,
-                 int splits) {
-  constexpr int VEC = 16 / sizeof(TB);
-  constexpr int KC = 32 * VEC;                  // one vector per lane per column
-  __shared__ float As[SK_MT][VEC][32];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long m0 = static_cast<long long>(blockIdx.y) * SK_MT;
-  const long long nb = (static_cast<long long>(blockIdx.x) * SK_WARPS + warp) * SK_COLS;
-  const long long kbeg = static_cast<long long>(blockIdx.z) * kps;
-  const long long kend = (kbeg + kps < K) ? kbeg + kps : K;
-
-  float acc[SK_MT][SK_COLS];
-#pragma unroll
-  for (int m = 0; m < SK_MT; ++m)
-#pragma unroll
-    for (int c = 0; c < SK_COLS; ++c) acc[m][c] = 0.f;
-
-  for (long long kc = kbeg; kc < kend; kc += KC) {
-    const int klen = static_cast<int>((kend - kc < KC) ? kend - kc : KC);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < SK_MT * KC; idx += SK_NT) {
-      const int r = idx / KC, k = idx % KC;
-      As[r][k % VEC][k / VEC] = (m0 + r < M && k < klen)
-                                    ? load_any(A, (m0 + r) * sam + (kc + k) * sak, a_dt)
-                                    : 0.f;
-    }
-    __syncthreads();
-    if (lane * VEC < klen) {                    // K and kps are whole vectors
-      float b[SK_COLS][VEC];
-#pragma unroll
-      for (int c = 0; c < SK_COLS; ++c) {
-        if (nb + c < N) {
-          load_vec<TB>(B + (nb + c) * sbn + kc + lane * VEC, b[c]);
-        } else {
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) b[c][v] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < SK_MT; ++m) {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          const float a = As[m][v][lane];
-#pragma unroll
-          for (int c = 0; c < SK_COLS; ++c) acc[m][c] = fmaf(a, b[c][v], acc[m][c]);
-        }
-      }
-    }
+    for (int u = 0; u < U; ++u) cur[u] = nxt[u];
   }
 
 #pragma unroll
-  for (int m = 0; m < SK_MT; ++m)
-#pragma unroll
-    for (int c = 0; c < SK_COLS; ++c)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[m][c] += __shfl_xor_sync(0xffffffffu, acc[m][c], off);
-  if (lane == 0) {
+  for (int off = ROW_VECS; off < 32; off <<= 1)
 #pragma unroll
     for (int m = 0; m < SK_MT; ++m)
 #pragma unroll
-      for (int c = 0; c < SK_COLS; ++c)
-        if (m0 + m < M && nb + c < N) emit(C, ws, c_dt, splits, M, N, m0 + m, nb + c, acc[m][c]);
+      for (int v = 0; v < VEC; ++v) acc[m][v] += __shfl_xor_sync(0xffffffffu, acc[m][v], off);
+  if (lane < ROW_VECS)
+#pragma unroll
+    for (int m = 0; m < SK_MT; ++m)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) red[(warp * SK_MT + m) * TILE + cv * VEC + v] = acc[m][v];
+  __syncthreads();
+
+  const int splits = static_cast<int>(gridDim.z);
+  for (int idx = threadIdx.x; idx < SK_MT * TILE; idx += ROW_NT) {
+    const int m = idx / TILE, c = idx % TILE;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < ROW_NT / 32; ++w) sum += red[(w * SK_MT + m) * TILE + c];
+    if (m0 + m < p.M && c0 + c < p.N) {
+      if (splits == 1) {
+        store_any(p.C, (m0 + m) * p.N + c0 + c, p.c_dt, sum);
+      } else {
+        __stcg(partial(p, m0 + m, c0 + c), sum);
+      }
+    }
+  }
+  if (splits == 1) return;
+  __shared__ int last;
+  __syncthreads();                              // the CTA's partial is written
+  if (threadIdx.x == 0)
+    last = arrive_last(&p.counters[blockIdx.y * gridDim.x + blockIdx.x], splits);
+  __syncthreads();
+  if (!last) return;
+  for (int idx = threadIdx.x; idx < SK_MT * TILE; idx += ROW_NT) {
+    const long long m = m0 + idx / TILE, n = c0 + idx % TILE;
+    if (m < p.M && n < p.N)
+      store_any(p.C, m * p.N + n, p.c_dt, sum_splits(p.ws + m * p.N + n, p.M * p.N, splits));
   }
 }
 
-// variant 0: tile, 64 x 64, a 4 x 4 register block per thread;
-// variant 1: row stream (B n-contiguous, 16-byte aligned);
-// variant 2: column stream (B k-contiguous, 16-byte aligned)
+// B column-major (k contiguous, 16-byte aligned columns: the tied lm_head
+// weight embed.T, read in place). An item is SK_COLS columns over the CTA's
+// K range; the CTAs walk the items (grid-stride), and item j of a CTA
+// belongs to consumer warp j % SK_WARPS, which has a ring of its own (warps
+// run items at their own pace). A stage is one item's columns x KC
+// consecutive k, one bulk copy per column. The warp's lanes split K, holding the staged A
+// of their k in registers across the SK_COLS columns, and meet in a warp
+// shuffle. The staged A is laid out [row][VEC/4][k/VEC][4], so a lane's
+// 16-byte reads of it are consecutive across the warp.
 template <typename TB>
-void launch_tile(int variant, const void* a, const void* b, void* c, float* ws, int a_dt,
-                 int c_dt, long long M, long long N, long long K, long long sam,
-                 long long sak, long long sbk, long long sbn, long long kps, int splits,
-                 cudaStream_t stream) {
-  const TB* bt = static_cast<const TB*>(b);
-  constexpr long long VEC = 16 / sizeof(TB);
-  if (variant == 1) {
-    dim3 grid((N + 32 * VEC - 1) / (32 * VEC), (M + SK_MT - 1) / SK_MT, splits);
-    mmad_rows_kernel<TB><<<grid, SK_NT, 0, stream>>>(a, bt, c, ws, a_dt, c_dt, M, N, K, sam,
-                                                     sak, sbk, kps, splits);
-  } else if (variant == 2) {
-    constexpr long long PER_CTA = SK_WARPS * SK_COLS;
-    dim3 grid((N + PER_CTA - 1) / PER_CTA, (M + SK_MT - 1) / SK_MT, splits);
-    mmad_cols_kernel<TB><<<grid, SK_NT, 0, stream>>>(a, bt, c, ws, a_dt, c_dt, M, N, K, sam,
-                                                     sak, sbn, kps, splits);
-  } else {
-    constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-    mmad_tile_kernel<BM, BN, BK, TM, TN, TB><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
-        a, bt, c, ws, a_dt, c_dt, M, N, K, sam, sak, sbk, sbn, kps, splits);
+__global__ void __launch_bounds__(SK_NT, 1) mmad_cols_kernel(const StreamArgs p) {
+  constexpr int VEC = 16 / sizeof(TB);
+  constexpr int H = VEC / 4;
+  constexpr int KC = COL_STAGE_BYTES / (SK_COLS * sizeof(TB));
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long m0 = static_cast<long long>(blockIdx.y) * SK_MT;
+  const long long kbeg = static_cast<long long>(blockIdx.z) * p.kps;
+  const int klen = static_cast<int>((kbeg + p.kps < p.K) ? p.kps : p.K - kbeg);
+  const int nchunk = (klen + KC - 1) / KC;
+  const long long groups = (p.N + SK_COLS - 1) / SK_COLS;
+  const int items =
+      static_cast<int>((groups - blockIdx.x + gridDim.x - 1) / gridDim.x);
+  const int nkv = static_cast<int>(p.kps / VEC);
+  float4* As = reinterpret_cast<float4*>(smem);
+  unsigned char* slots = smem + 16 * p.kps;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(slots + SK_WARPS * COL_STAGES * COL_STAGE_BYTES);
+  auto ring_of = [&](int w) {
+    return Ring(slots + w * COL_STAGES * COL_STAGE_BYTES, bars + w * 2 * COL_STAGES,
+                COL_STAGE_BYTES, COL_STAGES);
+  };
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < SK_WARPS; ++w) ring_of(w).init(1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+
+  if (warp == SK_WARPS) {                       // producer: chunk c of every warp's
+    for (int q = 0; q * SK_WARPS < items; ++q)  // item before chunk c + 1 of any
+      for (int c = 0; c < nchunk; ++c) {
+        const int s = q * nchunk + c;           // the warp's own stage count
+        const int clen = (klen - c * KC < KC) ? klen - c * KC : KC;
+        const uint32_t seg = static_cast<uint32_t>(clen * sizeof(TB));
+        for (int w = 0; w < SK_WARPS && q * SK_WARPS + w < items; ++w) {
+          Ring ring = ring_of(w);
+          const long long n0 =
+              (blockIdx.x + static_cast<long long>(q * SK_WARPS + w) * gridDim.x) * SK_COLS;
+          const int ncols = static_cast<int>((p.N - n0 < SK_COLS) ? p.N - n0 : SK_COLS);
+          ring.produce(s, ncols * seg);
+          if (lane < ncols)
+            bulk_load(ring.slot(s) + lane * KC * sizeof(TB),
+                      static_cast<const TB*>(p.B) + (n0 + lane) * p.sbn + kbeg + c * KC, seg,
+                      &ring.full[s % ring.stages]);
+        }
+      }
+    return;
+  }
+  Ring ring = ring_of(warp);
+
+  stage_a(p, reinterpret_cast<float*>(As), m0, kbeg, klen, [nkv](int r, int kk) {
+    const int e = kk % VEC;
+    return ((r * H + e / 4) * nkv + kk / VEC) * 4 + e % 4;
+  });
+  consumer_sync();
+
+  for (int j = warp; j < items; j += SK_WARPS) {
+    float acc[SK_MT][SK_COLS];
+#pragma unroll
+    for (int m = 0; m < SK_MT; ++m)
+#pragma unroll
+      for (int c = 0; c < SK_COLS; ++c) acc[m][c] = 0.f;
+    for (int c = 0; c < nchunk; ++c) {
+      const int s = (j / SK_WARPS) * nchunk + c;
+      const int nv = ((klen - c * KC < KC) ? klen - c * KC : KC) / VEC;
+      const int kv0 = c * (KC / VEC);
+      ring.wait_full(s);
+      const unsigned char* st = ring.slot(s);
+      for (int v = lane; v < nv; v += 32) {
+        float a[SK_MT][VEC];
+#pragma unroll
+        for (int m = 0; m < SK_MT; ++m)
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            const float4 t = As[(m * H + h) * nkv + kv0 + v];
+            a[m][4 * h] = t.x;
+            a[m][4 * h + 1] = t.y;
+            a[m][4 * h + 2] = t.z;
+            a[m][4 * h + 3] = t.w;
+          }
+#pragma unroll
+        for (int col = 0; col < SK_COLS; ++col) {
+          float b[VEC];
+          to_f32_vec<TB>(*reinterpret_cast<const uint4*>(st + col * KC * sizeof(TB) + v * 16), b);
+#pragma unroll
+          for (int m = 0; m < SK_MT; ++m)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[m][col] = fmaf(a[m][e], b[e], acc[m][col]);
+        }
+      }
+      ring.release(s);
+    }
+
+    // every lane ends with every sum; lane l keeps row l / SK_COLS, column l % SK_COLS
+    float out = 0.f;
+#pragma unroll
+    for (int m = 0; m < SK_MT; ++m)
+#pragma unroll
+      for (int col = 0; col < SK_COLS; ++col) {
+        float x = acc[m][col];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+        if (lane == m * SK_COLS + col) out = x;
+      }
+    const long long g = blockIdx.x + static_cast<long long>(j) * gridDim.x;
+    const long long m = m0 + lane / SK_COLS, n = g * SK_COLS + lane % SK_COLS;
+    const bool ok = lane < SK_MT * SK_COLS && m < p.M && n < p.N;
+    if (p.splits == 1) {
+      if (ok) store_any(p.C, m * p.N + n, p.c_dt, out);
+      continue;
+    }
+    if (ok) __stcg(partial(p, m, n), out);
+    __syncwarp();                               // the warp's partial is written
+    int last = 0;
+    if (lane == 0) last = arrive_last(&p.counters[blockIdx.y * groups + g], p.splits);
+    last = __shfl_sync(0xffffffffu, last, 0);
+    __syncwarp();                               // orders the lanes' reads after lane 0's
+    if (last && ok)
+      store_any(p.C, m * p.N + n, p.c_dt, sum_splits(p.ws + m * p.N + n, p.M * p.N, p.splits));
+  }
+}
+
+// grid: (grid_x column tiles or item walkers, groups of SK_MT rows of A,
+// K splits)
+template <typename TB>
+int launch_stream(int variant, const StreamArgs& p, int grid_x, cudaStream_t stream) {
+  const dim3 grid(grid_x, static_cast<unsigned>((p.M + SK_MT - 1) / SK_MT), p.splits);
+  if (variant == 1) {
+    // A staged, then the warps' sums: at most 48 KB (kps <= 2048)
+    constexpr size_t red = (ROW_NT / 32) * SK_MT * ROW_VECS * (16 / sizeof(TB)) * sizeof(float);
+    const size_t smem = 16 * static_cast<size_t>(p.kps) + red;
+    mmad_rows_kernel<TB><<<grid, ROW_NT, smem, stream>>>(p);
+    return 0;
+  }
+  // a column-stream CTA holds more than the default 48 KB: raise its limit
+  // once per device
+  const size_t smem = 16 * static_cast<size_t>(p.kps) +
+                      SK_WARPS * COL_STAGES * (COL_STAGE_BYTES + 2 * 8);
+  static int limit[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (limit[dev] < static_cast<int>(smem)) {
+    err = cudaFuncSetAttribute(mmad_cols_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limit[dev] = static_cast<int>(smem);
+  }
+  mmad_cols_kernel<TB><<<grid, SK_NT, smem, stream>>>(p);
+  return 0;
+}
+
+// variant 0: tile, 64 x 64, a 4 x 4 register block per thread, split K
+// summed by mmad_splitk_reduce; variant 1: row stream (B n-contiguous,
+// 16-byte aligned); variant 2: column stream (B k-contiguous, 16-byte
+// aligned). The stream variants fix their split up themselves.
+template <typename TB>
+int launch_typed(int variant, const StreamArgs& p, int grid_x, cudaStream_t stream) {
+  if (variant == 1 || variant == 2) return launch_stream<TB>(variant, p, grid_x, stream);
+  constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.splits);
+  mmad_tile_kernel<BM, BN, BK, TM, TN, TB><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
+      p.A, static_cast<const TB*>(p.B), p.C, p.ws, p.a_dt, p.c_dt, p.M, p.N, p.K, p.sam,
+      p.sak, p.sbk, p.sbn, p.kps, p.splits);
+  if (p.splits > 1) {
+    const long long mn = p.M * p.N;
+    const int threads = 256;
+    mmad_splitk_reduce<<<static_cast<unsigned>((mn + threads - 1) / threads), threads, 0,
+                         stream>>>(p.ws, p.C, p.c_dt, mn, p.splits);
+  }
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int mmad_launch(const void* a, const void* b, void* c, void* ws, int a_dt,
-                           int b_dt, int c_dt, long long M, long long N, long long K,
+extern "C" int mmad_launch(const void* a, const void* b, void* c, void* ws, void* counters,
+                           int a_dt, int b_dt, int c_dt, long long M, long long N, long long K,
                            long long sam, long long sak, long long sbk, long long sbn,
-                           long long kps, int splits, int variant, void* stream_ptr) {
+                           long long kps, int splits, int variant, int grid_x,
+                           void* stream_ptr) {
+  const StreamArgs p{a, b, c, static_cast<float*>(ws), static_cast<int*>(counters), a_dt, c_dt,
+                     M, N, K, sam, sak, sbk, sbn, kps, splits};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  float* w = static_cast<float*>(ws);
+  int err;
   switch (b_dt) {
-    case F32:
-      launch_tile<float>(variant, a, b, c, w, a_dt, c_dt, M, N, K, sam, sak, sbk, sbn, kps,
-                         splits, stream);
-      break;
-    case BF16:
-      launch_tile<__nv_bfloat16>(variant, a, b, c, w, a_dt, c_dt, M, N, K, sam, sak, sbk,
-                                 sbn, kps, splits, stream);
-      break;
-    case F16:
-      launch_tile<__half>(variant, a, b, c, w, a_dt, c_dt, M, N, K, sam, sak, sbk, sbn, kps,
-                          splits, stream);
-      break;
-    case F8E4M3:
-      launch_tile<__nv_fp8_e4m3>(variant, a, b, c, w, a_dt, c_dt, M, N, K, sam, sak, sbk,
-                                 sbn, kps, splits, stream);
-      break;
-    case I8:
-      launch_tile<int8_t>(variant, a, b, c, w, a_dt, c_dt, M, N, K, sam, sak, sbk, sbn, kps,
-                          splits, stream);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case F32: err = launch_typed<float>(variant, p, grid_x, stream); break;
+    case BF16: err = launch_typed<__nv_bfloat16>(variant, p, grid_x, stream); break;
+    case F16: err = launch_typed<__half>(variant, p, grid_x, stream); break;
+    case F8E4M3: err = launch_typed<__nv_fp8_e4m3>(variant, p, grid_x, stream); break;
+    case I8: err = launch_typed<int8_t>(variant, p, grid_x, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (splits > 1) {
-    const long long mn = M * N;
-    const int threads = 256;
-    mmad_splitk_reduce<<<static_cast<unsigned>((mn + threads - 1) / threads), threads, 0,
-                         stream>>>(w, c, c_dt, mn, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return err ? err : static_cast<int>(cudaGetLastError());
 }

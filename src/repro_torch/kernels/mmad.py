@@ -11,20 +11,27 @@ GEMM reads its (K, N) weight once and does 8 FLOPs per weight element, so
 it is bound by device-memory bytes (3.35 TB/s), not by the tensor cores.
 What the design does about it: for up to 16 rows of A with a weight whose
 rows (or columns) are contiguous and 16-byte aligned — every decode GEMM —
-a stream kernel reads the weight once with 16-byte vector loads, coalesced
-along its contiguous dim, and never stages it: the row stream for (K, N)
-weights, the column stream for the tied lm_head weight `embed.T`, a
-strided view the kernel reads in place (a pad or `.contiguous()` would copy
-1 GB per step). K splits over extra CTAs until the grid holds about two
-CTAs per SM. Everything else — more rows, unaligned or arbitrarily strided
-operands — takes the tile kernel, which stages 64 x 64 fp32 tiles in shared
-memory.
+a stream kernel reads the weight once against A, staged once as fp32 in
+shared memory. The row stream serves (K, N) weights: each thread loads
+16-byte vectors of a 128-byte column tile straight into registers, a batch
+of 8 k rows in flight while the last is summed. The column stream serves
+the tied lm_head weight `embed.T`, a strided view it reads in place (a pad
+or `.contiguous()` would copy 1 GB per step): one producer warp feeds a
+shared-memory ring per consumer warp with 1-D bulk copies. Both fill the
+card in one launch, splitting K only until the CTAs cover the SMs; a split
+is summed in the same launch by the last split to arrive at its output
+tile, in split order (arrival counters from `counter_buffer`, left at zero
+by every launch; fp32 partials in `workspace`). `stream_geometry` is the
+pure-Python mirror of that layout. Everything else — more rows, unaligned
+or arbitrarily strided operands — takes the tile kernel, which stages
+64 x 64 fp32 tiles in shared memory and sums a K split in a second kernel.
 
 The plan's (bm, bn, bk) block geometry is accepted, power of two or not,
 but it does not shape what runs on the card. The stream kernels ignore it
-entirely, so on the decode path the planner's `InnerKernel` choice has no
-effect; the tile kernel reads only `bk`, as its split-K granularity (each
-CTA's K range is a whole number of bk blocks). The CTA shapes are the
+entirely (their tile, split and ring are their own), so on the decode
+path the planner's `InnerKernel` choice has no effect; the tile kernel
+reads only `bk`, as its split-K granularity (each CTA's K range is a whole
+number of bk blocks). The CTA shapes are the
 kernel's own: register accumulators need compile-time shapes, and the fp32
 contract does not depend on the tiling. Honouring the geometry, or pricing
 this card without the inner-kernel term, is queued in ROADMAP.md.
@@ -37,8 +44,9 @@ launches, so a run can show that its GEMMs went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,13 +67,22 @@ TILE, ROW_STREAM, COL_STREAM = 0, 1, 2
 TILE_EDGE = 64           # the tile variant's 64 x 64 output tile
 STREAM_MAX_M = 16        # the stream variants take up to this many rows
 STREAM_ROWS = 4          # rows of A per stream CTA (SK_MT)
-STREAM_WARPS = 8         # warps per stream CTA (SK_WARPS)
-STREAM_COLS = 8          # columns per warp of the column stream (SK_COLS)
-ROW_STREAM_CHUNK = 128   # a row-stream split covers whole 128-row chunks
+STREAM_WARPS = 8         # consumer warps per stream CTA (SK_WARPS); +1 producer
+STREAM_COLS = 4          # columns per item of the column stream (SK_COLS)
+ROW_VECS = 8             # row-stream tile: 8 vectors of 16 B (ROW_VECS)
+ROW_BATCH = 8            # k rows a row-stream thread has in flight (ROW_BATCH)
+ROW_THREADS = STREAM_WARPS * 32  # threads per row-stream CTA (ROW_NT)
+ROW_UNIT = 8             # a row-stream split is a whole number of these k
+COL_STAGE_BYTES, COL_STAGES = 8192, 2      # one ring per column-stream warp
+ROW_MAX_KPS, COL_MAX_KPS = 2048, 2048      # A staged once: 16 B per k
+COL_CTAS_PER_SM = 1                        # __launch_bounds__ residency
+
 
 _launches = 0
 _lib = None
 _sm_count = {}
+_counters = {}           # (device index, stream) -> int32 arrival counters
+_workspaces = {}         # (device index, stream) -> fp32 split-K partials
 
 
 def launch_count() -> int:
@@ -78,17 +95,21 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare `mmad_launch`'s C signature on a loaded csrc/mmad.cu build."""
+    fn = lib.mmad_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 8
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from repro_torch.kernels import build
-        lib = build.load("mmad")
-        fn = lib.mmad_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] * 8
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        _lib = lib
+        _lib = bind(build.load("mmad"))
     return _lib
 
 
@@ -113,27 +134,102 @@ def b_layout(b: torch.Tensor) -> Optional[str]:
     return None
 
 
+class StreamGeometry(NamedTuple):
+    """What one stream launch runs: its CTA grid (x: the row stream's
+    column tiles or the column stream's item walkers; y: groups of
+    `STREAM_ROWS` rows of A; z: K splits), k per split, the dynamic shared
+    memory and the weight bytes a CTA keeps requested, and the scratch a
+    split launch needs."""
+    variant: int
+    kps: int
+    splits: int
+    grid: Tuple[int, int, int]
+    smem_bytes: int
+    inflight_bytes: int  # per CTA: register batches or rings
+    ctas_per_sm: int     # resident at most
+    counters: int        # output tiles, when K is split
+    ws_floats: int       # fp32 partials, when K is split
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def inflight_bytes_per_sm(self, n_sms: int) -> int:
+        """Weight bytes requested at once on a busy SM: as many CTAs as the
+        grid puts there, at most `ctas_per_sm`."""
+        per_sm = min(self.ctas_per_sm, math.ceil(self.ctas / n_sms))
+        return per_sm * self.inflight_bytes
+
+
+def _fewest_splits(tiles: int, k: int, unit: int, cap: int,
+                   n_sms: int) -> Tuple[int, int]:
+    """(k per split, splits): the fewest splits, each a whole number of
+    `unit`s of at most `cap` k, that give `tiles * splits >= n_sms`; as
+    many as there are units when even that is short."""
+    n_units = math.ceil(k / unit)
+    want = max(math.ceil(k / cap), math.ceil(n_sms / tiles))
+    for s in range(min(want, n_units), n_units):
+        kps = math.ceil(n_units / s) * unit
+        splits = math.ceil(k / kps)
+        if tiles * splits >= n_sms and kps <= cap:
+            return kps, splits
+    return unit, n_units
+
+
+@functools.lru_cache(maxsize=1024)
+def stream_geometry(m: int, n: int, k: int, layout: str, elem_bytes: int,
+                    n_sms: int) -> StreamGeometry:
+    """Grid, split and buffers of the stream kernel for a vector-loadable B
+    (`layout` 'rows' or 'cols', as `b_layout` says), as csrc/mmad.cu
+    lays it out. Pure Python, so the CPU tests pin it.
+
+    Row stream: a CTA is a tile of `ROW_VECS` column vectors; K splits, in
+    whole `ROW_UNIT`s of at most `ROW_MAX_KPS` k, only until the tiles fill
+    `n_sms`. Column stream: an item is `STREAM_COLS` columns over a split's
+    K range, K splits only until the items fill `n_sms`, and a grid of one
+    CTA per SM walks the items, each consumer warp with a ring of its own.
+    """
+    vec = 16 // elem_bytes
+    m_groups = math.ceil(m / STREAM_ROWS)
+    if layout == "rows":
+        tiles = math.ceil(n / (ROW_VECS * vec))
+        kps, splits = _fewest_splits(m_groups * tiles, k, ROW_UNIT,
+                                     ROW_MAX_KPS, n_sms)
+        warp_sums = STREAM_WARPS * STREAM_ROWS * ROW_VECS * vec * 4
+        return StreamGeometry(
+            ROW_STREAM, kps, splits, (tiles, m_groups, splits),
+            16 * kps + warp_sums, ROW_THREADS * ROW_BATCH * 16,
+            1 if elem_bytes == 1 else 2,
+            m_groups * tiles if splits > 1 else 0,
+            splits * m * n if splits > 1 else 0)
+    if layout != "cols":
+        raise ValueError(f"no stream kernel for B layout {layout!r}")
+    groups = math.ceil(n / STREAM_COLS)
+    kps, splits = _fewest_splits(m_groups * groups, k, vec, COL_MAX_KPS,
+                                 n_sms)
+    rings = STREAM_WARPS * COL_STAGES * COL_STAGE_BYTES
+    return StreamGeometry(
+        COL_STREAM, kps, splits,
+        (min(groups, COL_CTAS_PER_SM * n_sms), m_groups, splits),
+        16 * kps + rings + STREAM_WARPS * COL_STAGES * 2 * 8, rings,
+        COL_CTAS_PER_SM, m_groups * groups if splits > 1 else 0,
+        splits * m * n if splits > 1 else 0)
+
+
 def plan_launch(m: int, n: int, k: int, block_shape: Tuple[int, int, int],
                 n_sms: int, layout: Optional[str] = None,
                 elem_bytes: int = 2) -> Tuple[int, int, int]:
     """(variant, k per split, splits) for one launch.
 
-    Up to `STREAM_MAX_M` rows with a vector-loadable B (`layout`), the
-    stream kernels run; K splits until the grid holds about two CTAs per SM
-    (decode's N = 256..2048 alone would leave most SMs idle). Otherwise the
-    tile kernel runs, with K split in whole plan-`bk` blocks. `bk` is the
-    only part of the block shape that is read."""
+    Up to `STREAM_MAX_M` rows with a vector-loadable B (`layout`), a stream
+    kernel runs, laid out by `stream_geometry`. Otherwise the
+    tile kernel runs, with K split in whole plan-`bk` blocks until the grid
+    holds about two CTAs per SM. `bk` is the only part of the block shape
+    that is read."""
     bk = block_shape[2]
     if m <= STREAM_MAX_M and layout in ("rows", "cols"):
-        vec = 16 // elem_bytes
-        if layout == "rows":
-            variant, per_cta, unit = ROW_STREAM, 32 * vec, ROW_STREAM_CHUNK
-        else:
-            variant, per_cta, unit = COL_STREAM, STREAM_WARPS * STREAM_COLS, 32 * vec
-        tiles = math.ceil(m / STREAM_ROWS) * math.ceil(n / per_cta)
-        want = max(1, math.ceil(2 * n_sms / tiles))
-        kps = max(unit, math.ceil(math.ceil(k / want) / unit) * unit)
-        return variant, kps, max(1, math.ceil(k / kps))
+        geo = stream_geometry(m, n, k, layout, elem_bytes, n_sms)
+        return geo.variant, geo.kps, geo.splits
     tiles = math.ceil(m / TILE_EDGE) * math.ceil(n / TILE_EDGE)
     n_kb = max(1, math.ceil(k / bk))
     want = max(1, math.ceil(2 * n_sms / tiles))
@@ -181,6 +277,31 @@ def mmad(a: torch.Tensor, b: torch.Tensor,
     return _launch(a, b, bs, out_dtype)
 
 
+def counter_buffer(device: torch.device, stream: int,
+                   size: int = 0) -> torch.Tensor:
+    """The split-K arrival counters of launches on `stream`, at least `size`
+    long: zeros from `torch.zeros`, grown when a launch needs more, and left
+    at zero by every launch (the last split to arrive resets its tile's)."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+def workspace(device: torch.device, stream: int, size: int) -> torch.Tensor:
+    """The fp32 split-K partials of launches on `stream`, at least `size`
+    long, grown when a launch needs more. Launches on one stream run in
+    order, so each may overwrite the last one's partials."""
+    key = (device.index, stream)
+    buf = _workspaces.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.empty(size, dtype=torch.float32, device=device)
+        _workspaces[key] = buf
+    return buf
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
     """Launch on the current stream."""
     global _launches
@@ -189,20 +310,28 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    variant, kps, splits = plan_launch(m, n, max(k, 1), block_shape,
-                                       _num_sms(a.device),
-                                       b_layout(b),
-                                       b.element_size())
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-          if splits > 1 else None)
-    lib = _library()
-    cuda_stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.mmad_launch(
+    n_sms = _num_sms(a.device)
+    layout = b_layout(b)
+    variant, kps, splits = plan_launch(m, n, max(k, 1), block_shape, n_sms,
+                                       layout, b.element_size())
+    grid_x = 0
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    counters = ws = None
+    if variant != TILE:
+        geo = stream_geometry(m, n, max(k, 1), layout, b.element_size(), n_sms)
+        grid_x = geo.grid[0]
+        if splits > 1:
+            counters = counter_buffer(a.device, stream, geo.counters)
+            ws = workspace(a.device, stream, geo.ws_floats)
+    elif splits > 1:
+        ws = workspace(a.device, stream, splits * m * n)
+    err = _library().mmad_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None,
+        counters.data_ptr() if counters is not None else None,
         DTYPE_CODES[a.dtype], DTYPE_CODES[b.dtype], DTYPE_CODES[out_dtype],
         m, n, k, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-        kps, splits, variant, cuda_stream)
+        kps, splits, variant, grid_x, stream)
     if err != 0:
         raise RuntimeError(f"mmad launch failed: cudaError {err} "
                            f"(M={m} N={n} K={k} variant={variant} "

@@ -40,7 +40,7 @@ GEOMETRIES = [
     (4, 2048, 2048, (4, 128, 256), False),      # row stream, split K
     (4, 2048, 256, (4, 256, 128), False),
     (4, 4096, 512, (4, 128, 512), False),
-    (4, 2048, 3000, (4, 512, 256), True),       # column stream, split K
+    (4, 2048, 3000, (4, 512, 256), True),       # column stream
     (2, 256, 384, (2, 128, 128), False),
     (48, 120, 192, (24, 96, 40), False),        # tile kernel from here on
     (5, 130, 7, (8, 128, 128), False),
@@ -89,7 +89,8 @@ def test_stream_kernels_write_c_directly_when_unsplit(cuda, dtype_name,
     writes C itself, as the column stream does for gemma-2b's lm_head."""
     dtype = getattr(torch, dtype_name)
     m, k = 4, 512
-    n = 2 * mmad_mod._num_sms(cuda) * 512         # over two CTAs per SM
+    # a row-stream tile per SM
+    n = mmad_mod._num_sms(cuda) * mmad_mod.ROW_VECS * (16 // dtype.itemsize)
     g = torch.Generator(device=cuda).manual_seed(k + transposed)
     a = _draw((m, k), dtype, g, cuda)
     b = _draw((n, k), dtype, g, cuda).T if transposed else _draw((k, n), dtype,
@@ -98,6 +99,62 @@ def test_stream_kernels_write_c_directly_when_unsplit(cuda, dtype_name,
         m, n, k, (4, 512, 256), mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
         b.element_size())
     assert splits == 1
+    assert variant == (mmad_mod.COL_STREAM if transposed
+                       else mmad_mod.ROW_STREAM)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = mmad_mod.mmad(a, b, (4, 512, 256), out_dtype)
+        _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype)
+
+
+SPLIT_SHAPES = [
+    # (m, k, n, transposed B): gemma-2b's q/o, k/v and down, which the row
+    # stream splits over K, and the column stream split over few columns
+    (4, 2048, 2048, False), (4, 2048, 256, False), (4, 16384, 2048, False),
+    (4, 2048, 256, True),
+]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES,
+                         ids=[f"{s[0]}x{s[1]}x{s[2]}{'T' if s[3] else ''}"
+                              for s in SPLIT_SHAPES])
+def test_split_launches_are_repeatable_and_leave_counters_zero(cuda, shape):
+    """The last split to arrive sums the partials in split order, so two
+    launches agree bit for bit; it also resets its tile's counter."""
+    m, k, n, tb = shape
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    a = _draw((m, k), torch.bfloat16, g, cuda)
+    b = (_draw((n, k), torch.bfloat16, g, cuda).T if tb
+         else _draw((k, n), torch.bfloat16, g, cuda))
+    variant, _, splits = mmad_mod.plan_launch(
+        m, n, k, (4, 128, 256), mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
+        b.element_size())
+    assert variant != mmad_mod.TILE and splits > 1
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    first = mmad_mod.mmad(a, b, (4, 128, 256), torch.float32)
+    for _ in range(3):
+        again = mmad_mod.mmad(a, b, (4, 128, 256), torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+        assert int(mmad_mod.counter_buffer(cuda, stream).abs().sum()) == 0
+    _assert_close(first, ref.mmad_ref(a, b, torch.float32), k)
+
+
+@pytest.mark.parametrize("dtype_name", DTYPES)
+@pytest.mark.parametrize("transposed", [False, True], ids=["rows", "cols"])
+def test_stream_kernels_fix_up_split_k_in_the_launch(cuda, dtype_name,
+                                                     transposed):
+    """Few columns split K: the stream kernel's last split writes C, one
+    kernel launch per call."""
+    dtype = getattr(torch, dtype_name)
+    m, k, n = 4, 4096, 512
+    g = torch.Generator(device=cuda).manual_seed(k + transposed)
+    a = _draw((m, k), dtype, g, cuda)
+    b = _draw((n, k), dtype, g, cuda).T if transposed else _draw((k, n), dtype,
+                                                              g, cuda)
+    variant, _, splits = mmad_mod.plan_launch(
+        m, n, k, (4, 512, 256), mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
+        b.element_size())
+    assert splits > 1
     assert variant == (mmad_mod.COL_STREAM if transposed
                        else mmad_mod.ROW_STREAM)
     for out_dtype in (torch.float32, torch.bfloat16):

@@ -176,14 +176,14 @@ def test_plan_launch_tiles_split_k_in_whole_blocks(m, n, k, block, expect):
 
 @pytest.mark.parametrize("m,n,k,layout,expect", [
     # gemma-2b decode shapes, bf16, on 132 SMs: (variant, k per split, splits)
-    (4, 2048, 2048, "rows", (1, 128, 16)),
-    (4, 256, 2048, "rows", (1, 128, 16)),
-    (4, 16384, 2048, "rows", (1, 512, 4)),
-    (4, 2048, 16384, "rows", (1, 512, 32)),
+    (4, 2048, 2048, "rows", (1, 416, 5)),       # q, o: 32 tiles x 5
+    (4, 256, 2048, "rows", (1, 56, 37)),        # k, v: 4 tiles x 37
+    (4, 16384, 2048, "rows", (1, 2048, 1)),     # gate, up: 256 tiles
+    (4, 2048, 16384, "rows", (1, 2048, 8)),     # down: A staged at most 2048 k
     (4, 256000, 2048, "cols", (2, 2048, 1)),    # lm_head: C written directly
-    (4, 67584, 256, "rows", (1, 256, 1)),       # enough columns: no split
-    (4, 1000, 2048, "cols", (2, 256, 8)),       # few columns: K splits
-    (16, 2048, 2048, "rows", (1, 256, 8)),
+    (4, 270336, 512, "rows", (1, 512, 1)),      # many tiles: no split
+    (4, 256, 2048, "cols", (2, 688, 3)),        # few columns: K splits
+    (16, 2048, 2048, "rows", (1, 1024, 2)),     # 4 groups of 4 rows x 32 tiles
     (17, 2048, 2048, "rows", (0, 256, 8)),      # too many rows: tile kernel
 ])
 def test_plan_launch_streams_decode_shapes(m, n, k, layout, expect):
@@ -191,6 +191,66 @@ def test_plan_launch_streams_decode_shapes(m, n, k, layout, expect):
                                 layout=layout, elem_bytes=2)
     assert got == expect
     variant, kps, splits = got
+    assert (splits - 1) * kps < k <= splits * kps
+
+
+DECODE_SHAPES = [
+    # (m, n, k, B layout): gemma-2b at batch 4
+    (4, 2048, 2048, "rows"), (4, 256, 2048, "rows"), (4, 16384, 2048, "rows"),
+    (4, 2048, 16384, "rows"), (4, 256000, 2048, "cols"),
+]
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2, 1], ids=["b32", "b16", "b8"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES,
+                         ids=["qo", "kv", "gate_up", "down", "lm_head"])
+def test_stream_geometry_fills_the_card(shape, elem_bytes):
+    """Every decode shape puts at least one CTA on each of the 132 SMs,
+    fits one CTA's shared memory (227 KB), keeps at least 32 KB of the
+    weight requested per busy SM, and splits K no more than it must."""
+    m, n, k, layout = shape
+    geo = tmmad_mod.stream_geometry(m, n, k, layout, elem_bytes, 132)
+    assert geo.ctas >= 132
+    assert geo.smem_bytes <= 232448
+    # the resident CTAs' shared memory fits the SM's 228 KB, 1 KB each reserved
+    assert geo.ctas_per_sm * (geo.smem_bytes + 1024) <= 233472
+    assert geo.inflight_bytes_per_sm(132) >= 32 * 1024
+    assert (geo.splits - 1) * geo.kps < k <= geo.splits * geo.kps
+    vec = 16 // elem_bytes
+    if layout == "rows":
+        tiles = math.ceil(n / (vec * tmmad_mod.ROW_VECS))
+        unit, cap = tmmad_mod.ROW_UNIT, tmmad_mod.ROW_MAX_KPS
+        assert geo.grid == (tiles, 1, geo.splits)
+        assert geo.counters == (tiles if geo.splits > 1 else 0)
+        # the rows kernel's shared memory stays in the default 48 KB
+        assert geo.smem_bytes <= 49152
+    else:
+        tiles = math.ceil(n / tmmad_mod.STREAM_COLS)
+        unit, cap = vec, tmmad_mod.COL_MAX_KPS
+        assert geo.counters == (0 if geo.splits == 1 else tiles)
+    assert geo.kps % unit == 0 and geo.kps <= cap
+    assert geo.ws_floats == (0 if geo.splits == 1 else geo.splits * m * n)
+    if geo.splits > 1:       # one split fewer would leave SMs idle
+        kps = math.ceil(math.ceil(k / unit) / (geo.splits - 1)) * unit
+        assert tiles * math.ceil(k / kps) < 132 or kps > cap
+
+
+@pytest.mark.parametrize("tiles,k,unit,cap", [
+    (32, 2048, 8, 2048), (4, 2048, 8, 2048), (256, 2048, 8, 2048),
+    (32, 16384, 8, 2048), (1, 64, 8, 2048), (64, 2048, 8, 2048),
+])
+def test_fewest_splits_is_the_least_that_fills_the_card(tiles, k, unit, cap):
+    """Against a search over every split count: the fewest splits, each a
+    whole number of units of at most `cap` k, that give at least 132
+    CTAs; every unit its own split when none does."""
+    kps, splits = tmmad_mod._fewest_splits(tiles, k, unit, cap, 132)
+    n_units = math.ceil(k / unit)
+    ok = []
+    for s in range(1, n_units + 1):
+        per = math.ceil(n_units / s) * unit
+        if tiles * math.ceil(k / per) >= 132 and per <= cap:
+            ok.append((math.ceil(k / per), per))
+    assert (splits, kps) == (min(ok) if ok else (n_units, unit))
     assert (splits - 1) * kps < k <= splits * kps
 
 
