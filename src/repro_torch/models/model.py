@@ -5,9 +5,12 @@ family without experts, frontend or encoder (gemma-2b and its kin). The
 reference stacks layer parameters and scans over them; eagerly, a
 `ModuleList` of blocks and a Python loop do the same work. Entry points:
 `init_params` (an `nn.Module` drawn from a seeded `torch.Generator`),
-`forward` (logits), `decode_init` + `decode_step` (one-token serve step
-against preallocated caches), `lm_head_weight`, and `params_from_numpy`,
-which carries the reference's parameter pytree into this package's model.
+`forward` (logits, or hidden states for the chunked training loss),
+`decode_init` + `decode_step` (one-token serve step against preallocated
+caches), `lm_head_weight`, `params_from_numpy`, which carries the
+reference's parameter pytree into this package's model, and
+`make_trainable`. Parameters are built frozen (`requires_grad=False`, as
+serving wants them); the trainer turns them trainable with one call.
 Other families raise `NotImplementedError` naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import attention as attn
@@ -126,6 +130,15 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     return model
 
 
+def make_trainable(params: Model) -> Model:
+    """Turn every parameter trainable (`requires_grad=True`), in place; the
+    tied `embed` then takes gradient through both the token gather and the
+    `embed.T` view of `lm_head_weight`."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
+
+
 # ---------------------------------------------------------------------------
 # blocks and entry points
 # ---------------------------------------------------------------------------
@@ -141,6 +154,23 @@ def _attn_block(p: AttnBlock, x: torch.Tensor, cfg: ModelConfig,
     return x, new_cache
 
 
+def remat_call(fn, *args):
+    """`fn(*args)` under `torch.utils.checkpoint` (non-reentrant), as
+    `jax.checkpoint(fn)`: its activations are dropped and the backward runs
+    it again. The recomputation runs `fn` whole: PyTorch's early stop would
+    abandon it once the backward's last saved tensor is rebuilt, which for
+    a layer is after its final matmul has run but before that routed
+    dispatch returns, so the kernel would run for a dispatch the routing
+    counters never see."""
+    with set_checkpoint_early_stop(False):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _layer(p: AttnBlock, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor) -> torch.Tensor:
+    return shard_ctx.constrain_tokens(_attn_block(p, x, cfg, positions)[0])
+
+
 def lm_head_weight(params: Model, cfg: ModelConfig) -> torch.Tensor:
     """(D, vocab) projection. Tied: the strided view `embed.T` — no copy;
     the `mmad` kernel reads it through its strides."""
@@ -153,18 +183,24 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
             prefix_embeds=None, encoder_embeds=None, remat: bool = True,
             return_hidden: bool = False) -> torch.Tensor:
     """Training/prefill forward -> logits (B, S, vocab) in fp32, or the
-    final hidden states (B, S, D) with return_hidden=True. `remat` is the
-    reference's scan-level checkpointing switch; eager inference has
-    nothing to rematerialize."""
+    final hidden states (B, S, D) with return_hidden=True.
+
+    `remat` is the reference's scan-level `jax.checkpoint`: while autograd
+    records, each layer runs under `remat_call`, so only the layer inputs
+    are kept and the backward recomputes each layer. With no gradient to
+    record there is nothing to rematerialize."""
     if prefix_embeds is not None or encoder_embeds is not None:
         raise NotImplementedError(f"frontend and encoder inputs are not "
                                   f"ported yet ({_ROADMAP_ZOO})")
     x = shard_ctx.constrain_tokens(params.embed[tokens].to(cfg.dtype))
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
+    remat = remat and torch.is_grad_enabled()
     for layer in params.layers:
-        x = shard_ctx.constrain_tokens(_attn_block(layer, x, cfg,
-                                                   positions)[0])
+        if remat:
+            x = remat_call(_layer, layer, x, cfg, positions)
+        else:
+            x = _layer(layer, x, cfg, positions)
     x = apply_norm(params.ln_f, x, cfg)
     if return_hidden:
         return x

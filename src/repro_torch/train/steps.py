@@ -1,15 +1,125 @@
-"""Serving step functions.
+"""Training and serving step functions.
 
-Port of the serving half of `repro/train/steps.py`: `make_serve_step` and
-`make_prefill`. The training step (loss, grads, AdamW) is a later slice of
-the port (ROADMAP.md, queue 1: training stack).
+Port of `repro/train/steps.py`. `make_train_step` builds an optionally
+microbatched step: loss -> grads (optionally int8-compressed with error
+feedback) -> AdamW update. Remat is on by default: each layer, and each
+loss chunk, runs under `torch.utils.checkpoint` (the reference's
+`jax.checkpoint`). `make_serve_step` wraps `decode_step` for batched
+requests; `make_prefill` runs the forward without remat.
+
+The reference's step is a pure function that jit donates its buffers to;
+eagerly, the step updates the parameters and the optimizer moments in
+place (`optim.adamw.apply`) and returns the same objects.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Tuple
+
+import torch
 
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.model import decode_step, forward
+from repro_torch.models.matmul import pmm
+from repro_torch.models.model import (decode_step, forward, lm_head_weight,
+                                      remat_call)
+from repro_torch.optim import adamw, compress
+
+LOSS_CHUNK = 512
+
+
+def _constrain_logits(x: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The reference pins the logits' vocab axis to the model axis; on one
+    device there is nothing to pin (as `shard_ctx.constrain_tokens`)."""
+    return x
+
+
+def _xent_chunk(h_c: torch.Tensor, head_w: torch.Tensor, t_c: torch.Tensor,
+                vocab: int) -> torch.Tensor:
+    logits = _constrain_logits(
+        pmm(h_c, head_w, tag="lm_head.chunked").float(), vocab)  # (b, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t_c[..., None].long())[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor,
+                 targets: torch.Tensor, vocab: int,
+                 chunk: int = LOSS_CHUNK) -> torch.Tensor:
+    """Fused softmax-CE: project vocab logits chunk by chunk along the
+    sequence, each chunk checkpointed, so the fp32 (B, S, V) tensor never
+    exists (one chunk's logits at a time, in the backward too)."""
+    b, s, _ = hidden.shape
+    c = min(chunk, s)
+    while s % c:
+        c -= 1
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(s // c):
+        h_c, t_c = hidden[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c]
+        if torch.is_grad_enabled():
+            part = remat_call(_xent_chunk, h_c, head_w, t_c, vocab)
+        else:
+            part = _xent_chunk(h_c, head_w, t_c, vocab)
+        total = total + part
+    return total / (b * s)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    hidden = forward(params, batch["tokens"], cfg, remat=remat,
+                     return_hidden=True)
+    return chunked_xent(hidden, lm_head_weight(params, cfg),
+                        batch["targets"], cfg.vocab)
+
+
+def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   remat: bool = True
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, name -> grad) of `loss_fn`, the reference's
+    `jax.value_and_grad`; grads come in each parameter's dtype."""
+    ps = adamw.named(params)
+    loss = loss_fn(params, batch, cfg, remat=remat)
+    grads = torch.autograd.grad(loss, list(ps.values()))
+    return loss.detach(), dict(zip(ps, grads))
+
+
+def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
+                    microbatches: int = 1,
+                    compress_grads: bool = False,
+                    remat: bool = True) -> Callable:
+    """Returns train_step(params, opt_state, comp_state, batch) ->
+    (params, opt_state, comp_state, metrics), metrics `loss`, `lr` and
+    `grad_norm`. With microbatches the batch splits along its leading axis
+    and the grads are summed in fp32 and averaged, as the reference's scan
+    does (so they reach the optimizer in fp32)."""
+
+    def train_step(params, opt_state, comp_state, batch):
+        if microbatches > 1:
+            micro = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                                  *v.shape[1:]) for k, v in batch.items()}
+            loss = grads = None
+            for i in range(microbatches):
+                mb_loss, mb_grads = loss_and_grads(
+                    params, {k: v[i] for k, v in micro.items()}, cfg, remat)
+                if grads is None:
+                    loss = mb_loss
+                    grads = {k: g.float() for k, g in mb_grads.items()}
+                else:
+                    loss = loss + mb_loss
+                    for k, g in mb_grads.items():
+                        grads[k].add_(g)
+                del mb_grads
+            loss = loss / microbatches
+            grads = {k: g / microbatches for k, g in grads.items()}
+        else:
+            loss, grads = loss_and_grads(params, batch, cfg, remat)
+
+        if compress_grads:
+            grads, comp_state = compress.apply(grads, comp_state)
+
+        params, opt_state, metrics = adamw.apply(opt, params, grads, opt_state)
+        metrics["loss"] = loss
+        return params, opt_state, comp_state, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:

@@ -14,6 +14,7 @@ This file imports neither jax nor the JAX package.
 import importlib
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -218,4 +219,164 @@ def test_routed_smoke_decode_launches_one_kernel_per_dispatch(cuda, tmp_path,
     assert ctx.stats.resolve_rate == 1.0
     assert mmad_mod.launch_count() == ctx.stats.executed_gemm == 8 * (
         7 * cfg.n_layers + 1)
+    capsys.readouterr()
+
+
+# ---------------------------------------------------------------------------
+# the train path
+# ---------------------------------------------------------------------------
+
+def _smoke_train_inputs(device, dtype=torch.bfloat16):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params, make_trainable
+    cfg = dataclasses.replace(smoke_config("gemma-2b"), dtype=dtype)
+    params = make_trainable(init_params(torch.Generator().manual_seed(0), cfg,
+                                        "cpu")).to(device)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                   global_batch=2)).batch(0)
+    return cfg, params, {k: torch.from_numpy(v).to(device, torch.long)
+                         for k, v in batch.items()}
+
+
+def test_tile_kernel_on_embed_T_at_a_loss_chunk(cuda):
+    """The train path's lm_head: a loss chunk of M = 1024 rows against the
+    tied weight read in place as `embed.T` (256000 x 2048 bf16)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a = _draw((1024, 2048), torch.bfloat16, g, cuda)
+    embed = _draw((256000, 2048), torch.bfloat16, g, cuda)
+    block = (512, 128, 512)
+    variant, _, _ = mmad_mod.plan_launch(
+        1024, 256000, 2048, block, mmad_mod._num_sms(cuda),
+        mmad_mod.b_layout(embed.T), 2)
+    assert variant == mmad_mod.TILE
+    got = mmad_mod.mmad(a, embed.T, block, torch.float32)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.mmad_ref(a, embed.T, torch.float32), 2048)
+
+
+def _ulp(x, bits):
+    """One ulp of each element of x in a float format with `bits`
+    significant bits (bf16: 8, fp32: 24)."""
+    _, e = np.frexp(np.abs(x).astype(np.float64))
+    return np.ldexp(1.0, e - bits)
+
+
+def assert_first_adam_step(old, new_t, new_j, g_t, g_j, lr, wd, eps,
+                           bf16):
+    """Parameters (numpy, by name) after Adam's first step in two runs, t
+    and a reference j, from the same `old` values; shared with
+    tests/test_torch_train.py. There the update is
+    lr * u(g) (+ decay) with u(g) = g / (|g| + eps), about lr * sign(g), so
+    each package's update hangs on its own grads g_t, g_j (as the optimizer
+    saw them: clipped, compressed). Where their signs agree,
+    |u(g_t) - u(g_j)| <= eps / (min(|g_t|, |g_j|) + eps): tiny unless a
+    grad is near eps = 1e-8. So every element whose grads agree in sign
+    must agree with the reference's new value within lr times that bound
+    (plus lr * 1e-5 for the update's own fp32 roundings), plus one ulp for
+    a bf16 param (named in `bf16`: both packages round nearly equal fp32
+    values once) or 2e-6 for an fp32 one (measured 1.1e-7). Elements whose
+    grads differ in sign (one zero where compression sent 0 in one package
+    only, or a grad near zero that bf16 or summation order flipped) must be
+    under 1 % of all, and each must have moved no further than one Adam
+    step, lr * (1 + wd * |p|) (plus one ulp for bf16), in both packages. An
+    unchanged or sign-flipped update fails this on every element that
+    moved by more than that tolerance."""
+    n = flipped = 0
+    for k in old:
+        p0 = old[k]
+        ulp = (_ulp(np.maximum(np.abs(new_t[k]), np.abs(new_j[k])), 8)
+               if k in bf16 else 0.0)
+        apart = np.sign(g_t[k]) != np.sign(g_j[k])
+        step_bound = lr * (1 + wd * np.abs(p0)) * (1 + 1e-5) + 1e-7 + ulp
+        for new in (new_t[k], new_j[k]):
+            assert (np.abs(new - p0)[apart] <= step_bound[apart]).all(), k
+        small = np.minimum(np.abs(g_t[k]), np.abs(g_j[k]))
+        tol = (lr * (eps / (small + eps) + 1e-5)
+               + (ulp if k in bf16 else 2e-6))
+        err = np.abs(new_t[k] - new_j[k])
+        assert (err <= tol)[~apart].all(), (k, float(err[~apart].max()))
+        n += p0.size
+        flipped += int(apart.sum())
+    assert flipped <= 0.01 * n, (flipped, n)
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                      capsys):
+    """One routed train step (bf16 smoke config) on the card, with the tile
+    kernel and the fp32 backward, against the same step on the CPU (the
+    plain versions): loss and grad norm within 2e-2 relative, the serve
+    tests' bf16 tolerance; parameters as `assert_first_adam_step` holds
+    them (the first step is about lr * sign(g): within an ulp where the
+    grads agree in sign, at most one step where they do not), which an
+    unchanged or sign-flipped update fails."""
+    from repro_torch.launch import serve, train
+    from repro_torch.models import shard_ctx
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    planner = train.warm_train_plans(_smoke_train_inputs("cpu")[0], 2, 32,
+                                     str(tmp_path), (4, 4), 12)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        cfg, params, batch = _smoke_train_inputs(dev)
+        old = {k: v.detach().float().cpu().numpy()
+               for k, v in params.named_parameters()}
+        bf16 = {k for k, v in params.named_parameters()
+                if v.dtype == torch.bfloat16}
+        ctx = serve.install_gemm_context(planner, dev)
+        try:
+            mmad_mod.reset_launch_count()
+            params, state, _, m = make_train_step(cfg, opt)(
+                params, adamw.init(params), None, batch)
+        finally:
+            shard_ctx.set_gemm_context(None)
+        assert ctx.stats.resolve_rate == 1.0
+        if dev.type == "cuda":
+            assert mmad_mod.launch_count() == ctx.stats.executed_gemm == 2 * (
+                7 * cfg.n_layers + 1)
+        out[dev.type] = (m, {k: v.detach().float().cpu().numpy()
+                             for k, v in params.named_parameters()},
+                         {k: v.cpu().numpy() / (1 - opt.b1)
+                          for k, v in state.mu.items()})
+    (mc, pc, gc), (mg, pg, gg) = out["cpu"], out["cuda"]
+    for key in ("loss", "grad_norm"):
+        assert torch.isfinite(mg[key])
+        torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=2e-2, atol=0)
+    check = dict(old=old, new_j=pc, g_t=gg, g_j=gc, lr=float(mc["lr"]),
+                 wd=opt.weight_decay, eps=opt.eps, bf16=bf16)
+    assert_first_adam_step(new_t=pg, **check)
+    for wrong in (old, {k: 2 * old[k] - pc[k] for k in old}):
+        with pytest.raises(AssertionError):
+            assert_first_adam_step(new_t=wrong, **check)
+    capsys.readouterr()
+
+
+def test_forward_remat_gives_the_same_grads_on_the_card(cuda, tmp_path,
+                                                        capsys):
+    """Per-layer remat recomputes each layer with the same kernels on the
+    same inputs: at fp32 the grads equal those of the plain forward (rtol
+    1e-5, atol 1e-6 leave room only for the order of atomic adds in the
+    backward of the embedding gather)."""
+    from repro_torch.launch import serve, train
+    from repro_torch.models import shard_ctx
+    from repro_torch.train.steps import loss_and_grads
+    cfg, params, batch = _smoke_train_inputs(cuda, torch.float32)
+    planner = train.warm_train_plans(cfg, 2, 32, str(tmp_path), (4, 4), 12)
+    ctx = serve.install_gemm_context(planner, cuda)
+    try:
+        l1, g1 = loss_and_grads(params, batch, cfg, remat=True)
+        n_remat = ctx.stats.executed_gemm
+        l0, g0 = loss_and_grads(params, batch, cfg, remat=False)
+    finally:
+        shard_ctx.set_gemm_context(None)
+    # remat dispatches each layer's seven GEMMs twice, the plain forward
+    # once (the loss chunks are checkpointed either way)
+    n_plain = ctx.stats.executed_gemm - n_remat
+    assert n_remat == 2 * (7 * cfg.n_layers + 1) == n_plain + 7 * cfg.n_layers
+    torch.testing.assert_close(l1, l0, rtol=1e-6, atol=0)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], rtol=1e-5, atol=1e-6,
+                                   msg=k)
     capsys.readouterr()
