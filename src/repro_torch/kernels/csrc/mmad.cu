@@ -2,18 +2,22 @@
 //
 // Replaces the Pallas TPU kernel `repro/kernels/mmad.py:_mmad_kernel`. That
 // kernel walks an (M/bm, N/bn, K/bk) grid in order on one TensorCore and
-// carries an fp32 VMEM accumulator across the sequential K axis. Here CTAs
-// run in parallel and in no order, so a CTA loops over its K range itself,
-// and where K is split across CTAs the partial sums meet in fp32 in a fixed
-// order. Ragged edges are masked and A and B are read through their strides,
-// so the wrapper never pads or copies (the tied lm_head weight is the
-// strided view embed.T).
+// carries an fp32 VMEM accumulator across the sequential K axis, its
+// products `jnp.dot(..., preferred_element_type=float32)` on the MXU. Here
+// CTAs run in parallel and in no order, so a CTA loops over its K range
+// itself, and where K is split across CTAs the partial sums meet in fp32 in
+// a fixed order. Ragged edges are masked and A and B are read through their
+// strides, so the wrapper never pads or copies (the tied lm_head weight is
+// the strided view embed.T).
 //
-// Three variants. Two stream kernels for up to 16 rows of A with a weight
+// Four variants. Two stream kernels for up to 16 rows of A with a weight
 // whose rows (row stream) or columns (column stream, embed.T) are contiguous
-// and 16-byte aligned: every decode GEMM. A 64 x 64 tile kernel for the
-// rest, which stages fp32 tiles in shared memory, takes any strides, and
-// sums a K split in a second kernel (mmad_splitk_reduce).
+// and 16-byte aligned: every decode GEMM. A tensor-core tile kernel (wgmma
+// fed by TMA) for more rows of bf16 or fp16 operands that a tensor map can
+// describe: every train GEMM. A 64 x 64 SIMT tile kernel for the rest (fp32,
+// fp8 e4m3 and int8 inputs, mixed dtypes, strides TMA cannot describe),
+// which stages fp32 tiles in shared memory, takes any strides, and sums a K
+// split in a second kernel (mmad_splitk_reduce).
 //
 // What bounds the decode GEMMs on this card: at M = 4 the product reads the
 // weight B once and does 8 FLOPs per weight element, far below the H100's
@@ -40,16 +44,49 @@
 //     partials in split order, writes C with one rounding and resets the
 //     counter to zero: one kernel per call, bitwise repeatable results.
 //
-// The plan's block geometry does not shape the stream kernels (the tile
-// kernel reads only bk, as its split-K unit).
+// What bounds the train GEMMs: M = 2048 tokens (1024 for an lm_head loss
+// chunk) against K = 2048-16384 is ~680 FLOP per byte, far above the ridge,
+// so operations bound them (989 TFLOPS bf16 dense), and only wgmma reaches
+// the tensor cores' rate; CUDA cores top out at 67 TFLOPS fp32. What the
+// tensor-core kernel does about it:
+//
+//   * a 128 x 256 CTA tile: two consumer warpgroups each issue
+//     wgmma.m64n256k16 with 64 x 256 fp32 accumulators in registers (128 a
+//     thread; setmaxnreg gives the consumers 232 registers and the producer
+//     40), so every byte staged in shared memory feeds 85 FLOPs;
+//   * operands never pass through registers: one producer thread keeps a
+//     4-stage ring of 64-deep K steps (48 KB a stage: one 128-byte swizzle
+//     row of bf16 per row of A and per row or column of B) filled with TMA
+//     tensor-map loads, counted in bytes on a full mbarrier per stage; a
+//     consumer warp frees a stage on its empty mbarrier once the wgmma
+//     group that read it has completed (one group kept in flight);
+//   * B in either major, read in place: a (K, N) weight is N-contiguous
+//     (four 64-column boxes a stage, wgmma transposes B), embed.T is
+//     K-contiguous (one 256-row box, no transpose); the tensor maps
+//     zero-fill every box that crosses the M, N or K edge, so nothing is
+//     padded, and the epilogue masks its stores;
+//   * one CTA per output tile, K never split: on an H100, writing and
+//     re-reading a 128 x 256 tile's fp32 partials cost more than the idle
+//     SMs gave back at every split count tried, even where the tiles fill
+//     an eighth of the card (gemma-2b's k/v projection, 16 tiles: 23.5 us
+//     unsplit, 62.8 / 74.0 / 133 us at 2 / 4 / 8 splits).
+//
+// The plan's block geometry does not shape the stream kernels or the
+// tensor-core kernel; the SIMT tile kernel reads only bk, as its split-K
+// unit.
 //
 // Numerics: every operand element converts exactly to fp32 (fp32, bf16,
-// fp16, fp8 e4m3, int8), products and sums are IEEE fp32 FMAs on the CUDA
-// cores (never TF32), and the output is rounded once to out_dtype.
+// fp16, fp8 e4m3, int8), and the output is rounded once to out_dtype. On
+// the SIMT kernels products and sums are IEEE fp32 FMAs on the CUDA cores
+// (never TF32). On the tensor-core kernel bf16 and fp16 products are exact
+// in fp32 too, but the tensor cores sum them, and their fp32 accumulation is
+// not an IEEE FMA chain: the running sum is truncated, not rounded to
+// nearest, at each 16-deep K slice.
 //
 // Plain C interface (bound with ctypes); launches on the caller's stream and
 // returns the launch's cudaError.
 
+#include <cuda.h>             // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -57,6 +94,7 @@
 #include <stdint.h>
 
 #include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -699,10 +737,335 @@ int launch_stream(int variant, const StreamArgs& p, int grid_x, cudaStream_t str
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core tile kernel (wgmma fed by TMA) for bf16 / fp16 operands that a
+// tensor map can describe: A K-contiguous, B N- or K-contiguous, 16-byte
+// aligned bases and row strides. A CTA computes a WG_BM x WG_BN tile of C
+// over all of K; warpgroup 0 is the producer (one thread issues the TMA
+// loads), warpgroups 1 and 2 each own 64 rows of the tile.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BM = 128, WG_BN = 256;
+constexpr int WG_BK = 64;                              // one 128-byte swizzle row of 16-bit
+constexpr int WG_STAGES = 4;
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;          // 16 KB
+constexpr int WG_B_BYTES = WG_BK * WG_BN * 2;          // 32 KB
+constexpr int WG_B_BOX_BYTES = WG_BK * 64 * 2;         // an N-contiguous B box: 64 n x 64 k
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_B_BYTES;
+constexpr int WG_CONSUMERS = 256;                      // two consumer warpgroups
+constexpr int WG_NT = WG_CONSUMERS + 128;              // + the producer warpgroup
+// the ring (1024-byte aligned for the 128-byte swizzle: 1 KB of slack) and
+// a full and an empty barrier per stage; kernels/mmad.py:WGMMA_SMEM mirrors it
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024 + 2 * WG_STAGES * 8;
+
+struct WgmmaArgs {
+  void* C;
+  int c_dt;
+  int M, N, K;
+};
+
+// One 2-D TMA box, global -> shared, completing its bytes on the barrier.
+// c0 is the coordinate along the map's contiguous dimension.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (all >> 4), layout type 1
+// (128-byte swizzle) in bits 62-63. The tiles sit on 1024-byte boundaries,
+// so the swizzle's base offset is 0.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns them.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define MMAD_WGMMA_M64N256K16(DT) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %130, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." DT "." DT " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, " \
+      "%128, %129, p, 1, 1, 0, %131;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B))
+
+// d (64 x 256, fp32) += A (64 x 16, K-major) * B (16 x 256; N-major when
+// TRANS_B, else K-major), both read from shared memory through descriptors.
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    MMAD_WGMMA_M64N256K16("bf16");
+  } else {
+    MMAD_WGMMA_M64N256K16("f16");
+  }
+}
+#undef MMAD_WGMMA_M64N256K16
+
+// Two adjacent outputs of a row, i and i + 1 (i even, so a pair is aligned
+// when the row length is even), rounded once to c_dt.
+__device__ __forceinline__ void store_pair(void* C, long long i, int c_dt, float v0, float v1) {
+  if (c_dt == F32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(C) + i) = make_float2(v0, v1);
+  } else if (c_dt == BF16) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(C) + i) =
+        __floats2bfloat162_rn(v0, v1);
+  } else {
+    *reinterpret_cast<__half2*>(static_cast<__half*>(C) + i) = __floats2half2_rn(v0, v1);
+  }
+}
+
+// A thread's accumulator d[4j + 2h + e] is C element (r0 + 8h, c0 + 8j + e)
+// of the warpgroup's 64 x 256 block (the wgmma D fragment: warp w holds rows
+// 16w..16w+15, lane l row l / 4 and columns 2 (l % 4) + {0, 1} of every
+// 8-column group). f(m, n, v0, v1) gets each in-range pair once.
+template <typename F>
+__device__ __forceinline__ void for_each_pair(const float (&d)[128], int r0, int c0, int M,
+                                              F f) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + 8 * h;
+      if (m < M) f(m, c0 + 8 * j, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+    }
+}
+
+template <typename T, bool B_KMAJOR>
+__global__ void __launch_bounds__(WG_NT, 1)
+    mmad_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                      const __grid_constant__ CUtensorMap tb, const WgmmaArgs p) {
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* smem = wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE_BYTES);
+  uint64_t* empty = full + WG_STAGES;
+  const int m0 = blockIdx.x * WG_BM;
+  const int n0 = blockIdx.y * WG_BN;
+  const int nkb = (p.K + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMERS / 32);   // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {                                 // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) {
+      // N-contiguous B: boxes wholly past N are not loaded (they would
+      // only feed columns the epilogue masks)
+      const int boxes = B_KMAJOR ? 0 : min(WG_BN / 64, (p.N - n0 + 63) / 64);
+      const uint32_t bytes =
+          B_KMAJOR ? WG_STAGE_BYTES : WG_A_BYTES + boxes * WG_B_BOX_BYTES;
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % WG_STAGES;
+        mbar_wait(&empty[s], ((kb / WG_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], bytes);
+        unsigned char* a_s = smem + s * WG_STAGE_BYTES;
+        unsigned char* b_s = a_s + WG_A_BYTES;
+        const int k0 = kb * WG_BK;
+        tma_load_2d(a_s, &ta, k0, m0, &full[s]);
+        if (B_KMAJOR) {
+          tma_load_2d(b_s, &tb, k0, n0, &full[s]);
+        } else {
+          for (int j = 0; j < boxes; ++j)
+            tma_load_2d(b_s + j * WG_B_BOX_BYTES, &tb, n0 + 64 * j, k0, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int cw = wg - 1;                         // rows 64 cw.. of the tile
+  const int lane = threadIdx.x & 31;
+  float d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int s = kb % WG_STAGES;
+    mbar_wait(&full[s], (kb / WG_STAGES) & 1);
+    const unsigned char* a_s = smem + s * WG_STAGE_BYTES + cw * (64 * 128);
+    const unsigned char* b_s = smem + s * WG_STAGE_BYTES + WG_A_BYTES;
+    fence_acc(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      // K-major tiles: 128-byte rows, 8-row groups 1024 bytes apart; a
+      // 16-deep K slice starts 32 bytes further along the (swizzled) row.
+      // N-contiguous B: 64-column boxes 8 KB apart (leading offset), 8-k
+      // groups 1024 bytes apart (stride offset); a K slice is 16 rows on.
+      const uint64_t da = sw128_desc(a_s + kk * 32, 16, 1024);
+      const uint64_t db = B_KMAJOR ? sw128_desc(b_s + kk * 32, 16, 1024)
+                                   : sw128_desc(b_s + kk * 16 * 128, WG_B_BOX_BYTES, 1024);
+      wgmma_m64n256k16<T, B_KMAJOR ? 0 : 1>(d, da, db);
+    }
+    wgmma_commit();
+    fence_acc(d);
+    // the previous stage's group has completed: its slot may be refilled
+    wgmma_wait<1>();
+    if (kb > 0 && lane == 0) mbar_arrive(&empty[(kb - 1) % WG_STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+
+  const int r0 = m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int c0 = n0 + 2 * (lane & 3);
+  const int N = p.N;
+  const bool even = (N & 1) == 0;
+  for_each_pair(d, r0, c0, p.M, [&](int m, int n, float v0, float v1) {
+    const long long i = static_cast<long long>(m) * N + n;
+    if (even && n + 1 < N) {
+      store_pair(p.C, i, p.c_dt, v0, v1);
+    } else {
+      if (n < N) store_any(p.C, i, p.c_dt, v0);
+      if (n + 1 < N) store_any(p.C, i + 1, p.c_dt, v1);
+    }
+  });
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so the library links nothing but the runtime.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A 2-D tensor map of 16-bit elements with 128-byte swizzled boxes: d0
+// elements along the contiguous dimension, d1 rows `stride` bytes apart.
+// Boxes that cross an edge are zero-filled.
+int tensor_map_2d(CUtensorMap* map, int dt, const void* base, long long d0, long long d1,
+                  long long stride, int box0, int box1) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box0), static_cast<cuuint32_t>(box1)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, dt == BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2,
+      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// grid: (M tiles, N tiles): consecutive CTAs share a column of B, so a
+// wave reads a few N tiles of B against all of A (which L2 keeps). K is
+// not split. Refuses (cudaErrorInvalidValue) what
+// kernels/mmad.py:wgmma_b_major would not send here; it never falls back.
+template <typename T>
+int launch_wgmma(const StreamArgs& p, cudaStream_t stream) {
+  const int dt = std::is_same<T, __nv_bfloat16>::value ? BF16 : F16;
+  const long long lim = 1ll << 31;
+  const bool b_nmajor = p.sbn == 1;
+  const long long b_row = b_nmajor ? p.sbk : p.sbn;
+  const long long n_tiles = (p.N + WG_BN - 1) / WG_BN;
+  if (p.a_dt != dt || p.sak != 1 || (!b_nmajor && p.sbk != 1) ||
+      reinterpret_cast<uintptr_t>(p.A) % 16 || reinterpret_cast<uintptr_t>(p.B) % 16 ||
+      (p.sam * 2) % 16 || (b_row * 2) % 16 || p.M < 1 || p.N < 1 || p.K < 1 || p.M >= lim ||
+      p.N >= lim || p.K >= lim || n_tiles > 65535 || p.splits != 1 ||
+      (p.c_dt != F32 && p.c_dt != BF16 && p.c_dt != F16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  int err = tensor_map_2d(&ta, dt, p.A, p.K, p.M, p.sam * 2, WG_BK, WG_BM);
+  if (err) return err;
+  err = b_nmajor ? tensor_map_2d(&tb, dt, p.B, p.N, p.K, p.sbk * 2, 64, WG_BK)
+                 : tensor_map_2d(&tb, dt, p.B, p.K, p.N, p.sbn * 2, WG_BK, WG_BN);
+  if (err) return err;
+  auto kernel = b_nmajor ? mmad_wgmma_kernel<T, false> : mmad_wgmma_kernel<T, true>;
+  // the ring is above the default 48 KB: raise each instance's limit once
+  // per device
+  static bool raised[2][64] = {};
+  int dev = 0;
+  cudaError_t cerr = cudaGetDevice(&dev);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[b_nmajor][dev]) {
+    cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+    raised[b_nmajor][dev] = true;
+  }
+  const WgmmaArgs args{p.C, p.c_dt, static_cast<int>(p.M), static_cast<int>(p.N),
+                       static_cast<int>(p.K)};
+  const dim3 grid(static_cast<unsigned>((p.M + WG_BM - 1) / WG_BM),
+                  static_cast<unsigned>(n_tiles));
+  kernel<<<grid, WG_NT, WG_SMEM, stream>>>(ta, tb, args);
+  return 0;
+}
+
 // variant 0: tile, 64 x 64, a 4 x 4 register block per thread, split K
 // summed by mmad_splitk_reduce; variant 1: row stream (B n-contiguous,
 // 16-byte aligned); variant 2: column stream (B k-contiguous, 16-byte
-// aligned). The stream variants fix their split up themselves.
+// aligned); variant 3 (launch_wgmma): tensor cores, K not split. The
+// stream variants fix their split up themselves.
 template <typename TB>
 int launch_typed(int variant, const StreamArgs& p, int grid_x, cudaStream_t stream) {
   if (variant == 1 || variant == 2) return launch_stream<TB>(variant, p, grid_x, stream);
@@ -731,6 +1094,16 @@ extern "C" int mmad_launch(const void* a, const void* b, void* c, void* ws, void
                      M, N, K, sam, sak, sbk, sbn, kps, splits};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   int err;
+  if (variant == 3) {
+    if (b_dt == BF16) {
+      err = launch_wgmma<__nv_bfloat16>(p, stream);
+    } else if (b_dt == F16) {
+      err = launch_wgmma<__half>(p, stream);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return err ? err : static_cast<int>(cudaGetLastError());
+  }
   switch (b_dt) {
     case F32: err = launch_typed<float>(variant, p, grid_x, stream); break;
     case BF16: err = launch_typed<__nv_bfloat16>(variant, p, grid_x, stream); break;

@@ -2,14 +2,13 @@
 
 Replaces `repro/kernels/mmad.py:_mmad_kernel`, the Pallas TPU kernel that
 streams (bm x bk) / (bk x bn) blocks HBM->VMEM over an (M/bm, N/bn, K/bk)
-grid and keeps an fp32 accumulator across the sequential K axis. The CUDA
-source is `csrc/mmad.cu`; its header note says how the TPU design was
-rethought for the card.
+grid and keeps an fp32 accumulator across the sequential K axis, its
+products summed by the MXU. The CUDA source is `csrc/mmad.cu`; its header
+note says how the TPU design was rethought for the card.
 
-What bounds it on an H100: on the routed decode path (M = batch = 4) every
-GEMM reads its (K, N) weight once and does 8 FLOPs per weight element, so
-it is bound by device-memory bytes (3.35 TB/s), not by the tensor cores.
-What the design does about it: for up to 16 rows of A with a weight whose
+Decode (M = batch = 4): every GEMM reads its (K, N) weight once and does 8
+FLOPs per weight element, so it is bound by device-memory bytes (3.35
+TB/s), not by the tensor cores. For up to 16 rows of A with a weight whose
 rows (or columns) are contiguous and 16-byte aligned — every decode GEMM —
 a stream kernel reads the weight once against A, staged once as fp32 in
 shared memory. The row stream serves (K, N) weights: each thread loads
@@ -22,15 +21,29 @@ card in one launch, splitting K only until the CTAs cover the SMs; a split
 is summed in the same launch by the last split to arrive at its output
 tile, in split order (arrival counters from `counter_buffer`, left at zero
 by every launch; fp32 partials in `workspace`). `stream_geometry` is the
-pure-Python mirror of that layout. Everything else — more rows, unaligned
-or arbitrarily strided operands — takes the tile kernel, which stages
-64 x 64 fp32 tiles in shared memory and sums a K split in a second kernel.
+pure-Python mirror of that layout.
+
+Training (M = 2048 tokens, K = 2048-16384): ~680 FLOP per byte, so the
+GEMMs are bound by operations (989 TFLOPS bf16 dense), which only the
+tensor cores reach. Where both operands are bf16 (or both fp16) and a TMA
+tensor map can describe them (`wgmma_b_major`) — every train GEMM — the
+tensor-core variant runs: 128 x 256 CTA tiles, two consumer warpgroups on
+`wgmma` with fp32 accumulators in registers, a producer thread keeping a
+4-stage shared-memory ring filled with TMA loads, B read in place whether
+it is a (K, N) weight or `embed.T`, K not split (on the card a split's
+fp32 partials cost more than the SMs it fills gave back).
+`wgmma_geometry` is its pure-Python mirror. Everything else — fp32, fp8
+e4m3 and int8 inputs, mixed dtypes, strides a tensor map cannot describe —
+takes the SIMT tile kernel, which stages 64 x 64 fp32 tiles in shared
+memory and sums a K split in a second kernel. The route is chosen by
+`plan_launch` from dtypes, strides and alignment, never by a failed launch.
 
 The plan's (bm, bn, bk) block geometry is accepted, power of two or not,
 but it does not shape what runs on the card. The stream kernels ignore it
 entirely (their tile, split and ring are their own), so on the decode
-path the planner's `InnerKernel` choice has no effect; the tile kernel
-reads only `bk`, as its split-K granularity (each CTA's K range is a whole
+path the planner's `InnerKernel` choice has no effect, and neither does
+the tensor-core variant on the train path; the SIMT tile kernel reads
+only `bk`, as its split-K granularity (each CTA's K range is a whole
 number of bk blocks). The CTA shapes are the
 kernel's own: register accumulators need compile-time shapes, and the fp32
 contract does not depend on the tiling. Honouring the geometry, or pricing
@@ -63,7 +76,7 @@ DTYPE_CODES = {
 OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # csrc/mmad.cu launch variants
-TILE, ROW_STREAM, COL_STREAM = 0, 1, 2
+TILE, ROW_STREAM, COL_STREAM, WGMMA = 0, 1, 2, 3
 TILE_EDGE = 64           # the tile variant's 64 x 64 output tile
 STREAM_MAX_M = 16        # the stream variants take up to this many rows
 STREAM_ROWS = 4          # rows of A per stream CTA (SK_MT)
@@ -76,6 +89,14 @@ ROW_UNIT = 8             # a row-stream split is a whole number of these k
 COL_STAGE_BYTES, COL_STAGES = 8192, 2      # one ring per column-stream warp
 ROW_MAX_KPS, COL_MAX_KPS = 2048, 2048      # A staged once: 16 B per k
 COL_CTAS_PER_SM = 1                        # __launch_bounds__ residency
+# the tensor-core variant (csrc/mmad.cu WG_*): CTA tile, K step, ring
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+WGMMA_BM, WGMMA_BN, WGMMA_BK = 128, 256, 64
+WGMMA_STAGES = 4
+WGMMA_STAGE_BYTES = (WGMMA_BM * WGMMA_BK + WGMMA_BK * WGMMA_BN) * 2
+# the ring, 1 KB of slack to align it to 1024 bytes, two barriers a stage
+WGMMA_SMEM = WGMMA_STAGES * WGMMA_STAGE_BYTES + 1024 + 2 * WGMMA_STAGES * 8
+WGMMA_MAX_N_TILES = 65535                  # grid.y
 
 
 _launches = 0
@@ -132,6 +153,61 @@ def b_layout(b: torch.Tensor) -> Optional[str]:
     if b.stride(0) == 1 and b.stride(1) % vec == 0 and k % vec == 0:
         return "cols"
     return None
+
+
+def tma_describable(t: torch.Tensor, inner_dim: int) -> bool:
+    """True when a TMA tensor map can describe 2-D `t` with dimension
+    `inner_dim` as its contiguous one: a 16-byte aligned base, inner stride
+    1, and the other stride a multiple of 16 bytes that does not overlap
+    rows."""
+    outer_dim = 1 - inner_dim
+    return (t.data_ptr() % 16 == 0 and t.stride(inner_dim) == 1
+            and t.stride(outer_dim) * t.element_size() % 16 == 0
+            and t.stride(outer_dim) >= t.shape[inner_dim])
+
+
+def wgmma_b_major(a: torch.Tensor, b: torch.Tensor) -> Optional[str]:
+    """B's major, 'n' (a (K, N) weight) or 'k' (`embed.T`), when A and B can
+    feed the tensor-core variant; None when they cannot: unless both are
+    bf16 or both fp16, A is K-contiguous and B is N- or K-contiguous, each
+    as `tma_describable` says, and the N tiles fit the grid."""
+    if a.dtype != b.dtype or a.dtype not in WGMMA_DTYPES:
+        return None
+    m, k = a.shape
+    n = b.shape[1]
+    if min(m, n, k) < 1 or math.ceil(n / WGMMA_BN) > WGMMA_MAX_N_TILES:
+        return None
+    if max(m, n, k) >= 2 ** 31 or not tma_describable(a, 1):
+        return None
+    if tma_describable(b, 1):
+        return "n"
+    if tma_describable(b, 0):
+        return "k"
+    return None
+
+
+class WgmmaGeometry(NamedTuple):
+    """What one tensor-core launch runs: its CTA grid (x: M tiles, y: N
+    tiles), the K steps each CTA walks, and the ring and its dynamic shared
+    memory."""
+    grid: Tuple[int, int]
+    k_steps: int
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+
+
+def wgmma_geometry(m: int, n: int, k: int) -> WgmmaGeometry:
+    """Grid and ring of the tensor-core variant, as csrc/mmad.cu lays it
+    out. Pure Python, so the CPU tests pin it.
+
+    One CTA per `WGMMA_BM` x `WGMMA_BN` output tile, walking all of K in
+    `WGMMA_BK`-deep steps through a `WGMMA_STAGES`-stage ring. K is not
+    split: on an H100 the fp32 partials of a split cost more than the idle
+    SMs gave back at every split count tried (csrc/mmad.cu)."""
+    return WgmmaGeometry(
+        (math.ceil(m / WGMMA_BM), math.ceil(n / WGMMA_BN)),
+        math.ceil(k / WGMMA_BK), WGMMA_STAGES, WGMMA_STAGE_BYTES, WGMMA_SMEM)
 
 
 class StreamGeometry(NamedTuple):
@@ -218,18 +294,24 @@ def stream_geometry(m: int, n: int, k: int, layout: str, elem_bytes: int,
 
 def plan_launch(m: int, n: int, k: int, block_shape: Tuple[int, int, int],
                 n_sms: int, layout: Optional[str] = None,
-                elem_bytes: int = 2) -> Tuple[int, int, int]:
+                elem_bytes: int = 2,
+                wgmma_b: Optional[str] = None) -> Tuple[int, int, int]:
     """(variant, k per split, splits) for one launch.
 
     Up to `STREAM_MAX_M` rows with a vector-loadable B (`layout`), a stream
-    kernel runs, laid out by `stream_geometry`. Otherwise the
-    tile kernel runs, with K split in whole plan-`bk` blocks until the grid
+    kernel runs, laid out by `stream_geometry`. Otherwise, when the
+    operands can feed the tensor cores (`wgmma_b`: B's major as
+    `wgmma_b_major` gives it), the tensor-core variant runs, laid out by
+    `wgmma_geometry`, K unsplit. Otherwise (and by default) the SIMT tile
+    kernel runs, with K split in whole plan-`bk` blocks until the grid
     holds about two CTAs per SM. `bk` is the only part of the block shape
-    that is read."""
+    that is read, and only by the SIMT tile kernel."""
     bk = block_shape[2]
     if m <= STREAM_MAX_M and layout in ("rows", "cols"):
         geo = stream_geometry(m, n, k, layout, elem_bytes, n_sms)
         return geo.variant, geo.kps, geo.splits
+    if wgmma_b is not None:
+        return WGMMA, k, 1
     tiles = math.ceil(m / TILE_EDGE) * math.ceil(n / TILE_EDGE)
     n_kb = max(1, math.ceil(k / bk))
     want = max(1, math.ceil(2 * n_sms / tiles))
@@ -313,11 +395,12 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
     n_sms = _num_sms(a.device)
     layout = b_layout(b)
     variant, kps, splits = plan_launch(m, n, max(k, 1), block_shape, n_sms,
-                                       layout, b.element_size())
+                                       layout, b.element_size(),
+                                       wgmma_b_major(a, b))
     grid_x = 0
     stream = torch.cuda.current_stream(a.device).cuda_stream
     counters = ws = None
-    if variant != TILE:
+    if variant in (ROW_STREAM, COL_STREAM):
         geo = stream_geometry(m, n, max(k, 1), layout, b.element_size(), n_sms)
         grid_x = geo.grid[0]
         if splits > 1:

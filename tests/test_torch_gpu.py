@@ -5,7 +5,10 @@ where there is none (the CPU test run). On an H100 they build `mmad` from
 `src/repro_torch/kernels/csrc/mmad.cu` and hold it against its plain
 version on the same tensors: rtol 1e-5 and atol 1e-5·sqrt(K) (fp32
 accumulation of fp32-exact products in another order), plus one output ulp
-for bf16 out. Run them on the card with
+for bf16 out. The tensor-core variant's sums are taken by the tensor cores,
+which truncate the fp32 running sum at each 16-deep K slice, so its cases
+add `tensor_core_atol` (chip_smoke.py says how it was set). Run them on
+the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -55,11 +58,18 @@ def _draw(shape, dtype, g, dev):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-def _assert_close(got, want, k, out_dtype=torch.float32):
+def tensor_core_atol(k):
+    """Up to one ulp (2^-23 relative) of a running sum within 4 sqrt(K) at
+    each of K/16 tensor-core accumulation steps; as in chip_smoke.py."""
+    return 2.0 ** -23 * (k / 16) * 4 * math.sqrt(k)
+
+
+def _assert_close(got, want, k, out_dtype=torch.float32, tensor_cores=False):
     ulp = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(
         out_dtype, 0.0)
     err = (got.float() - want.float()).abs()
-    tol = 1e-5 * math.sqrt(k) + (1e-5 + ulp) * want.float().abs()
+    tol = (1e-5 * math.sqrt(k) + (tensor_core_atol(k) if tensor_cores else 0)
+           + (1e-5 + ulp) * want.float().abs())
     assert bool((err <= tol).all()), float(err.max())
 
 
@@ -242,18 +252,169 @@ def _smoke_train_inputs(device, dtype=torch.bfloat16):
 
 def test_tile_kernel_on_embed_T_at_a_loss_chunk(cuda):
     """The train path's lm_head: a loss chunk of M = 1024 rows against the
-    tied weight read in place as `embed.T` (256000 x 2048 bf16)."""
+    tied weight read in place as `embed.T` (256000 x 2048 bf16), on the
+    tensor-core tile kernel."""
     g = torch.Generator(device=cuda).manual_seed(4)
     a = _draw((1024, 2048), torch.bfloat16, g, cuda)
     embed = _draw((256000, 2048), torch.bfloat16, g, cuda)
     block = (512, 128, 512)
     variant, _, _ = mmad_mod.plan_launch(
         1024, 256000, 2048, block, mmad_mod._num_sms(cuda),
-        mmad_mod.b_layout(embed.T), 2)
-    assert variant == mmad_mod.TILE
+        mmad_mod.b_layout(embed.T), 2, mmad_mod.wgmma_b_major(a, embed.T))
+    assert variant == mmad_mod.WGMMA
     got = mmad_mod.mmad(a, embed.T, block, torch.float32)
     torch.cuda.synchronize()
-    _assert_close(got, ref.mmad_ref(a, embed.T, torch.float32), 2048)
+    _assert_close(got, ref.mmad_ref(a, embed.T, torch.float32), 2048,
+                  tensor_cores=True)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core variant (wgmma + TMA)
+# ---------------------------------------------------------------------------
+
+# (m, k, n, block): gemma-2b's train GEMMs at batch 2 x seq 1024 and their
+# plans' block geometry (chip_smoke.TRAIN_CASES)
+TRAIN_SHAPES = [
+    (2048, 2048, 2048, (512, 512, 512)),      # q, o
+    (2048, 2048, 256, (128, 256, 512)),       # k, v: split K
+    (2048, 2048, 16384, (512, 512, 512)),     # gate, up
+    (2048, 16384, 2048, (512, 512, 512)),     # down
+    (1024, 2048, 256000, (512, 128, 512)),    # lm_head chunk
+]
+
+
+def _wgmma_operands(m, k, n, b_major, dtype, g, dev):
+    """A (m, k) and B (k, n), B N-contiguous ('n', a (K, N) weight) or
+    K-contiguous ('k', a view like `embed.T`); asserts the route."""
+    a = _draw((m, k), dtype, g, dev)
+    b = (_draw((k, n), dtype, g, dev) if b_major == "n"
+         else _draw((n, k), dtype, g, dev).T)
+    assert mmad_mod.wgmma_b_major(a, b) == b_major
+    return a, b
+
+
+def _plan(a, b, block, dev):
+    m, k = a.shape
+    return mmad_mod.plan_launch(m, b.shape[1], k, block,
+                                mmad_mod._num_sms(dev), mmad_mod.b_layout(b),
+                                b.element_size(),
+                                mmad_mod.wgmma_b_major(a, b))
+
+
+@pytest.mark.parametrize("b_major", ["n", "k"])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES,
+                         ids=["qo", "kv", "gate_up", "down", "lm_head"])
+def test_wgmma_matches_plain_at_the_train_shapes(cuda, shape, b_major):
+    """Each train shape, B in both majors, fp32 and bf16 out, launched three
+    times: every launch is one tensor-core kernel, agrees with the plain
+    version and with the first launch bit for bit (a slot freed too early
+    would show as an intermittent difference)."""
+    m, k, n, block = shape
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, b = _wgmma_operands(m, k, n, b_major, torch.bfloat16, g, cuda)
+    assert _plan(a, b, block, cuda)[0] == mmad_mod.WGMMA
+    for out_dtype in (torch.float32, torch.bfloat16):
+        want = ref.mmad_ref(a, b, out_dtype)
+        before = mmad_mod.launch_count()
+        first = mmad_mod.mmad(a, b, block, out_dtype)
+        torch.cuda.synchronize()
+        _assert_close(first, want, k, out_dtype, tensor_cores=True)
+        for _ in range(2):
+            assert torch.equal(mmad_mod.mmad(a, b, block, out_dtype), first)
+        assert mmad_mod.launch_count() == before + 3
+
+
+RAGGED = [
+    # (m, k, n): no dim a multiple of the 128 x 256 tile or the 64-deep K
+    # step; bf16 rows of 8 elements are the narrowest a tensor map takes
+    (300, 200, 520), (129, 72, 257 + 7), (48, 120, 192), (17, 8, 8),
+    (700, 1000, 1800),
+]
+
+
+@pytest.mark.parametrize("dtype_name", ["bfloat16", "float16"])
+@pytest.mark.parametrize("b_major", ["n", "k"])
+@pytest.mark.parametrize("shape", RAGGED,
+                         ids=["x".join(map(str, s)) for s in RAGGED])
+def test_wgmma_ragged_edges(cuda, shape, b_major, dtype_name):
+    """Boxes that cross the M, N or K edge are zero-filled and the epilogue
+    masks its stores: no padding, in bf16 and fp16, all three outputs."""
+    m, k, n = shape
+    dtype = getattr(torch, dtype_name)
+    if b_major == "n" and n % 8:
+        n += 8 - n % 8              # an N-contiguous row must be 16-byte whole
+    if b_major == "k" and k % 8:
+        k += 8 - k % 8
+    g = torch.Generator(device=cuda).manual_seed(m * n + k)
+    a, b = _wgmma_operands(m, k, n, b_major, dtype, g, cuda)
+    block = (128, 128, 64)
+    assert _plan(a, b, block, cuda)[0] == mmad_mod.WGMMA
+    for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
+        got = mmad_mod.mmad(a, b, block, out_dtype)
+        torch.cuda.synchronize()
+        _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype,
+                      tensor_cores=True)
+
+
+@pytest.mark.parametrize("b_major", ["n", "k"])
+@pytest.mark.parametrize("mkn,block", [
+    ((2048, 2048, 256), (128, 256, 512)),     # k, v: 16 tiles
+    ((256, 4096, 512), (128, 128, 64)),       # 4 tiles, 64 K steps
+    ((200, 3000, 304), (128, 128, 40)),       # ragged, bk not a K step
+])
+def test_wgmma_few_tiles_walk_all_of_k_repeatably(cuda, mkn, block, b_major):
+    """Few tiles do not split K: one launch per call, one CTA per tile
+    over the whole K range, so launches agree bit for bit."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    a, b = _wgmma_operands(m, k, n, b_major, torch.bfloat16, g, cuda)
+    assert _plan(a, b, block, cuda) == (mmad_mod.WGMMA, k, 1)
+    first = mmad_mod.mmad(a, b, block, torch.float32)
+    for _ in range(5):
+        again = mmad_mod.mmad(a, b, block, torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+    _assert_close(first, ref.mmad_ref(a, b, torch.float32), k,
+                  tensor_cores=True)
+
+
+@pytest.mark.parametrize("a_dtype,b_dtype", [
+    ("float32", "float32"), ("float8_e4m3fn", "float8_e4m3fn"),
+    ("int8", "int8"), ("float32", "bfloat16"), ("bfloat16", "float16"),
+])
+def test_simt_tile_kernel_keeps_what_wgmma_does_not_take(cuda, a_dtype,
+                                                         b_dtype):
+    """fp32 (IEEE, never TF32), fp8, int8 and mixed dtypes stay on the
+    SIMT tile kernel at a train shape, and so does a bf16 K of 130 (a row
+    of 260 bytes no tensor map describes)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = _draw((256, 512), getattr(torch, a_dtype), g, cuda)
+    b = _draw((512, 384), getattr(torch, b_dtype), g, cuda)
+    cases = [(a, b)]
+    if a_dtype == "float32" and b_dtype == "float32":
+        cases.append((_draw((256, 130), torch.bfloat16, g, cuda),
+                      _draw((130, 384), torch.bfloat16, g, cuda)))
+    for x, y in cases:
+        assert mmad_mod.wgmma_b_major(x, y) is None
+        assert _plan(x, y, (128, 128, 128), cuda)[0] == mmad_mod.TILE
+        got = mmad_mod.mmad(x, y, (128, 128, 128), torch.float32)
+        torch.cuda.synchronize()
+        _assert_close(got, ref.mmad_ref(x, y, torch.float32), x.shape[1])
+
+
+def test_a_refused_wgmma_launch_raises(cuda, monkeypatch):
+    """No fallback: operands the tensor-core kernel refuses (fp32 here,
+    sent to it by a forced plan) make the wrapper raise, and nothing is
+    counted as launched."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a = _draw((256, 512), torch.float32, g, cuda)
+    b = _draw((512, 384), torch.float32, g, cuda)
+    monkeypatch.setattr(mmad_mod, "plan_launch",
+                        lambda *args, **kw: (mmad_mod.WGMMA, 512, 1))
+    before = mmad_mod.launch_count()
+    with pytest.raises(RuntimeError, match="mmad launch failed"):
+        mmad_mod.mmad(a, b, (128, 128, 512), torch.float32)
+    assert mmad_mod.launch_count() == before
 
 
 def _ulp(x, bits):
