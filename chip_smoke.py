@@ -15,7 +15,9 @@ Phases (any failure exits non-zero and prints no result line):
              must be reached split and unsplit, and both tile kernels (the
              SIMT one and the tensor-core one); and bf16 at the five
              gemma-2b train shapes (M = 2048; lm_head per loss chunk, M =
-             1024, on `embed.T`), which must take the tensor-core kernel;
+             1024, on `embed.T`) and at their backward's products (da = g
+             @ b.T, db = a.T @ g, on the views), which must all take the
+             tensor-core kernel;
 4. serve   — full-width, full-depth gemma-2b (random weights from a seed)
              through `repro_torch.launch.serve`: batch 4, prompt 32, gen
              32. Asserts plan-resolve rate 1.0, no silent degrade, one
@@ -35,17 +37,22 @@ Phases (any failure exits non-zero and prints no result line):
              norms, a routed trajectory that follows the unrouted one (loss
              before each step and after the last, grad norm of each step,
              every step moving the loss the same way) and a loss that ends
-             below its start; then one profiled step, in which every `mmad`
-             kernel must be the tensor-core kernel, one per routed GEMM
-             dispatch. Then
+             below its start; the backward's two products of every forward
+             dispatch launch `mmad` too, so launches = dispatches + 2 x
+             backward calls, and every `local_matmul` backward call must
+             take those products (none the fp32 ones); then one profiled
+             step, in which every `mmad` kernel must be the tensor-core
+             kernel, as many as the step's launches, and no GEMM kernel
+             may read fp32 operands (no SIMT sgemm). Then
              the crash-resume loop at smoke width on the card: a failure
              injected at step 3 with a checkpoint every 2 steps must end
              on the parameters of an uninterrupted run, bitwise;
 6. timing  — per decode shape and per train shape the kernel's time (held
              to the tolerance again) beside the plain version's, one
              `torch.matmul` call's, the bound and the roofline share (bound
-             / kernel time); per train shape also its TFLOPS and the
-             backward's two fp32 `torch.matmul`s;
+             / kernel time); per train shape also its TFLOPS and its
+             backward's two `mmad` products beside their plain version,
+             bf16 `torch.matmul` and their bound;
 7. report  — one JSON line per kernel, the nvidia-smi line, and last the
              `{"ok": true, "device": ...}` line.
 
@@ -54,8 +61,8 @@ JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
-import json
 import contextlib
+import json
 import math
 import shutil
 import subprocess
@@ -78,9 +85,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 1024, 3, 1e-4
 # The routed train run against an unrouted one from the same weights on the
 # same batch, relative: the loss before each step and after the last, and
 # each step's grad global norm. The unrouted run is cuBLAS bf16 GEMMs and
-# PyTorch's own backward; the routed one is mmad with fp32 sums and
-# local_matmul's fp32 backward. Both round every GEMM output and every
-# gradient to bf16 (2^-8 relative) at other points. On an H100, step 0 read
+# PyTorch's own backward; the routed one is mmad with fp32 sums, forward
+# and backward. Both round every GEMM output and every gradient to bf16
+# (2^-8 relative) at other points. The limits were set when the routed
+# backward was fp32 `torch.matmul`: on an H100, step 0 read
 # 7.7e-5 (loss) and 8.0e-5 (grad norm); later steps, which start from
 # parameters the two runs moved with those different grads, read at most
 # 2.8e-4 (loss) and 5.5e-4 (grad norm). Each limit is about ten times its
@@ -354,11 +362,37 @@ def check_kernels(torch, mmad_mod, ref) -> float:
                                    got):
                     fail(f"mmad train shape {m}x{n}x{k} transposed={tb}: "
                          f"two launches disagree")
-        del a, b, got, want
-    print(f"mmad vs plain at the {len(TRAIN_CASES)} train shapes (bf16 in, "
-          f"fp32 and bf16 out, tensor-core kernel, three launches each, "
-          f"bitwise equal): agree (worst err/tol so far {worst:.3f}; against "
-          f"the IEEE bound alone {tc_worst:.3f})", flush=True)
+        # the backward's products on the same operands, as views:
+        # da = g @ b.T (b.T K-contiguous; lm_head's is embed, N-contiguous)
+        # and db = a.T @ g (a.T M-contiguous)
+        grad = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+        for x, y, name in ((grad, b.T, "da"), (a.T, grad, "db")):
+            variant = mmad_mod.plan_launch(
+                x.shape[0], y.shape[1], x.shape[1], block, n_sms,
+                mmad_mod.b_layout(y), 2, mmad_mod.wgmma_b_major(x, y))[0]
+            if variant != mmad_mod.WGMMA:
+                fail(f"backward {name} of train shape {m}x{n}x{k} would not "
+                     f"run the tensor-core kernel (variant {variant})")
+            got = mmad_mod.mmad(x, y, block, torch.float32)
+            want = ref.mmad_ref(x, y, torch.float32)
+            torch.cuda.synchronize()
+            ratio = tolerance_ratio(torch, got, want, x.shape[1],
+                                    torch.float32, True)
+            worst = max(worst, ratio)
+            if not ratio <= 1.0:
+                fail(f"mmad backward {name} of train shape {m}x{n}x{k}: "
+                     f"error {ratio:.2f}x its tolerance")
+            if not torch.equal(mmad_mod.mmad(x, y, block, torch.float32),
+                               got):
+                fail(f"mmad backward {name} of train shape {m}x{n}x{k}: "
+                     f"two launches disagree")
+            del got, want
+        del a, b, grad
+    print(f"mmad vs plain at the {len(TRAIN_CASES)} train shapes and their "
+          f"backward's two products (bf16 in, fp32 and bf16 out, "
+          f"tensor-core kernel, repeated launches bitwise equal): agree "
+          f"(worst err/tol so far {worst:.3f}; the forward against the IEEE "
+          f"bound alone {tc_worst:.3f})", flush=True)
     return worst
 
 
@@ -370,9 +404,11 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
     (bf16 cuBLAS), the bound and the roofline share, at the plan's block
     geometry. Weights rotate through enough copies to exceed the 50 MB L2,
     as a step's do. Decode rows add the host's pace per kernel call; train
-    rows add the TFLOPS and the backward's two fp32 `torch.matmul`s
-    (`local_matmul`'s backward, run once per forward dispatch: half the
-    step's launches, the other half being the remat recompute)."""
+    rows add the TFLOPS and the backward's two `mmad` products (da = g @
+    b.T and db = a.T @ g on the views `backward_products` passes, run once
+    per forward dispatch: the table's `backward_calls`), held to their
+    tolerance, beside their plain version, bf16 `torch.matmul` and their
+    bound."""
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = []
     for (m, n, k), info in sorted(table.items()):
@@ -426,12 +462,10 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
                "roofline_share": max(t_bytes, t_ops) / kernel_ms,
                "max_abs_err": err, "err_over_tolerance": ratio}
         if train:
-            g32 = torch.randn((m, n), generator=g, device=dev)
-            a32, b32 = a.float(), ws[0].float()
             row["kernel_tflops"] = flops / kernel_ms / 1e9
-            row["backward_fp32_matmul_ms"] = timed(
-                lambda: (torch.matmul(g32, b32.T), torch.matmul(a32.T, g32)))
-            del g32, a32, b32
+            row.update(time_backward(torch, mmad_mod, ref, a, ws[0], nxt,
+                                     block, g, timed))
+            row["backward_calls_per_step"] = info["backward_calls"]
         else:
             row["kernel_call_wall_ms"] = wall_ms(
                 torch, lambda: mmad_mod.mmad(a, nxt(), block, torch.float32))
@@ -440,6 +474,58 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
         del a, ws
     torch.cuda.empty_cache()
     return rows
+
+
+def time_backward(torch, mmad_mod, ref, a, w, nxt, block, g, timed):
+    """The backward of one train GEMM (a @ w) as `backward_products` runs
+    it: da = grad @ w.T and db = a.T @ grad on `mmad`, on views, with a
+    bf16 gradient; its error against the plain version at `w`, then the
+    device time of both products (weights rotating through `nxt`) beside
+    the plain version's, bf16 `torch.matmul`'s and their bound."""
+    m, k = a.shape
+    n = w.shape[1]
+    grad = torch.randn((m, n), generator=g, device=a.device).to(
+        torch.bfloat16)
+    err = ratio = 0.0
+    for x, y in ((grad, w.T), (a.T, grad)):
+        variant = mmad_mod.plan_launch(
+            x.shape[0], y.shape[1], x.shape[1], block,
+            torch.cuda.get_device_properties(a.device).multi_processor_count,
+            mmad_mod.b_layout(y), 2, mmad_mod.wgmma_b_major(x, y))[0]
+        got = mmad_mod.mmad(x, y, block, torch.float32)
+        want = ref.mmad_ref(x, y, torch.float32)
+        ratio = max(ratio, tolerance_ratio(torch, got, want, x.shape[1],
+                                           torch.float32,
+                                           variant == mmad_mod.WGMMA))
+        err = max(err, float((got - want).abs().max()))
+        del got, want
+    if not ratio <= 1.0:
+        fail(f"mmad backward of {m}x{n}x{k}: error {ratio:.2f}x its "
+             f"tolerance")
+
+    def products(fn):
+        def run():
+            y = nxt()
+            return fn(grad, y.T), fn(a.T, grad)
+        return run
+
+    bound, by_bytes = 0.0, True
+    for mm, nn, kk in ((m, k, n), (k, n, m)):       # da, db
+        t_bytes = (mm * kk * 2 + kk * nn * 2 + mm * nn * 4) / H100_BYTES_PER_S
+        t_ops = 2 * mm * nn * kk / H100_BF16_FLOPS
+        bound += max(t_bytes, t_ops) * 1e3
+        by_bytes = by_bytes and t_bytes >= t_ops
+    out = {
+        "backward_ms": timed(products(lambda x, y: mmad_mod.mmad(
+            x, y, block, torch.float32))),
+        "backward_plain_ms": timed(products(lambda x, y: ref.mmad_ref(
+            x, y, torch.float32))),
+        "backward_library_ms": timed(products(torch.matmul)),
+        "backward_bound_ms": bound,
+        "backward_bound_by": "bytes" if by_bytes else "operations",
+        "backward_max_abs_err": err, "backward_err_over_tolerance": ratio}
+    del grad
+    return out
 
 
 def busy_share(torch, params, cfg, planner, prompts, dev,
@@ -640,14 +726,23 @@ def check_trajectory(losses, norms, ref_losses, ref_norms) -> None:
 
 
 TENSOR_CORE_KERNEL = "mmad_wgmma_kernel"
+# substrings of the names of cuBLAS's and CUTLASS's GEMM kernels, and of
+# those among them that read fp32 operands: on an H100 (torch 2.11, CUDA
+# 12.8) an fp32 matmul or einsum runs cutlass_80_simt_sgemm_*, a bf16 one
+# nvjet_tst_* (bf16 out) or nvjet_tss_* (fp32 out): nvjet's three letters
+# are the input, compute and output types, so nvjet_s* reads fp32
+LIBRARY_GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
+FP32_GEMM = ("sgemm", "simt", "f32f32_f32f32", "nvjet_s")
 
 
 def train_profile(torch, mmad_mod, s, state, batch, dev,
                   launches_per_step: int):
     """One more step under a device-only profile: busy and wall time from
-    one window, and every mmad kernel must be the tensor-core kernel, one
-    per routed dispatch (it fixes a K split up in the same launch, so no
-    reduce kernel runs)."""
+    one window; every mmad kernel must be the tensor-core kernel, as many
+    as the step's launches (one per routed dispatch and two per backward
+    call; it fixes a K split up in the same launch, so no reduce kernel
+    runs); and no GEMM kernel of the step may take fp32 operands on the
+    CUDA cores, the backward's among them."""
     with device_profile(torch, dev) as prof:
         t0 = time.perf_counter()
         state, _ = s.step_fn(state, batch)
@@ -664,7 +759,17 @@ def train_profile(torch, mmad_mod, s, state, batch, dev,
     tiles = sum(count for _, count, name in mmad)
     if tiles != launches_per_step:
         fail(f"{tiles} tensor-core kernels ran in a step of "
-             f"{launches_per_step} routed GEMM dispatches")
+             f"{launches_per_step} mmad launches")
+    library = [(us, count, name) for us, count, name in kernels
+               if "mmad" not in name
+               and any(w in name.lower() for w in LIBRARY_GEMM)]
+    fp32 = [name[:100] for _, _, name in library
+            if any(w in name.lower() for w in FP32_GEMM)]
+    if fp32:
+        fail(f"the train step ran fp32 CUDA-core GEMM kernels: {fp32}")
+    for us, count, name in library:
+        print(f"  library GEMM {us / 1e3:9.3f} ms/step  {count:6d} "
+              f"calls/step  {name[:100]}", flush=True)
     busy_ms = sum(us for us, _, _ in kernels) / 1e3
     mmad_ms = sum(us for us, _, _ in mmad) / 1e3
     for us, count, name in kernels[:10]:
@@ -752,24 +857,47 @@ def train_gemma(torch, mmad_mod, dev, arch_args):
     torch.cuda.empty_cache()
 
     # the main path: a fresh routing context and state, counts from zero;
-    # the tally records each mmad call's shape (the wrapper counts its
-    # launches)
+    # the tally records each forward mmad call's shape, and the backward's
+    # calls by their forward shape, with the mmad calls they make (the
+    # wrapper counts its launches)
     ctx = serve.install_gemm_context(s.planner, dev)
-    tally = {}
-    real = ops.mmad
+    tally, bwd_tally = {}, {}
+    real, real_products = ops.mmad, ops.backward_products
+    inside = {"backward": 0, "calls": 0}
 
     def tallied(a, b, *args, **kw):
-        key = (a.shape[0], b.shape[1], a.shape[1])
-        tally[key] = tally.get(key, 0) + 1
+        if inside["backward"]:
+            inside["calls"] += 1
+        else:
+            key = (a.shape[0], b.shape[1], a.shape[1])
+            tally[key] = tally.get(key, 0) + 1
         return real(a, b, *args, **kw)
 
-    ops.mmad = tallied
+    def tallied_products(g, a, b):
+        key = (a.shape[0], b.shape[1], a.shape[1])
+        bwd_tally[key] = bwd_tally.get(key, 0) + 1
+        inside["backward"] += 1
+        try:
+            return real_products(g, a, b)
+        finally:
+            inside["backward"] -= 1
+
+    real_backward = ops._LocalMatmul.backward
+
+    def counted_backward(ctx, g):
+        inside["local_matmul_backward"] += 1
+        return real_backward(ctx, g)
+
+    inside["local_matmul_backward"] = 0
+    ops.mmad, ops.backward_products = tallied, tallied_products
+    ops._LocalMatmul.backward = staticmethod(counted_backward)
     mmad_mod.reset_launch_count()
     try:
         state, losses, norms, step_ms = train_steps(torch, s, batch, dev,
                                                     TRAIN_STEPS)
     finally:
-        ops.mmad = real
+        ops.mmad, ops.backward_products = real, real_products
+        ops._LocalMatmul.backward = staticmethod(real_backward)
     launches = mmad_mod.launch_count()
     stats = ctx.stats
     executed = stats.executed_gemm
@@ -790,16 +918,32 @@ def train_gemma(torch, mmad_mod, dev, arch_args):
         fail(f"train plan-resolve rate {stats.resolve_rate}")
     if stats.silent_degrades:
         fail(f"{stats.silent_degrades} silent degrades in training")
-    if launches == 0 or launches != executed:
+    # every routed dispatch launches once (forward and remat recompute);
+    # each forward dispatch's backward call launches its two products
+    bwd_calls = sum(bwd_tally.values())
+    if executed == 0 or sum(tally.values()) != executed:
+        fail(f"{sum(tally.values())} forward mmad calls for {executed} "
+             f"routed GEMM dispatches in training")
+    if 2 * bwd_calls != executed or inside["calls"] != 2 * bwd_calls:
+        fail(f"{bwd_calls} backward calls made {inside['calls']} mmad calls "
+             f"for {executed} routed GEMM dispatches")
+    if inside["local_matmul_backward"] != bwd_calls:
+        fail(f"{inside['local_matmul_backward'] - bwd_calls} of "
+             f"{inside['local_matmul_backward']} local_matmul backward calls "
+             f"took the fp32 products")
+    if launches != executed + 2 * bwd_calls or launches % TRAIN_STEPS:
         fail(f"mmad launched {launches} times for {executed} routed GEMM "
-             f"dispatches in training")
-    if sum(tally.values()) != launches or launches % TRAIN_STEPS:
-        fail(f"per-shape tally {tally} does not add up to {launches}")
+             f"dispatches and {bwd_calls} backward calls in training")
+    if bwd_tally.keys() != tally.keys():
+        fail(f"backward shapes {sorted(bwd_tally)} are not the forward's "
+             f"{sorted(tally)}")
     per_step = launches // TRAIN_STEPS
+    bwd_per_step = 2 * bwd_calls // TRAIN_STEPS
     blocks = {(sh.m, sh.n, sh.k): ep.inner_kernel.geometry()
               for (_, sh), ep in ctx.resolved.items()
               if hasattr(sh, "m") and ep.inner_kernel is not None}
-    table = {key: {"block": blocks[key], "count": n // TRAIN_STEPS}
+    table = {key: {"block": blocks[key], "count": n // TRAIN_STEPS,
+                   "backward_calls": bwd_tally[key] // TRAIN_STEPS}
              for key, n in tally.items()}
 
     prof = train_profile(torch, mmad_mod, s, state, batch, dev, per_step)
@@ -813,10 +957,11 @@ def train_gemma(torch, mmad_mod, dev, arch_args):
           f"{mean_ms:.3f} ms per step (steps 1-{TRAIN_STEPS - 1}) = "
           f"{summary['tokens_per_s']:.1f} training tokens/s at batch "
           f"{s.args.batch} x seq {s.args.seq}; {per_step} mmad launches per "
-          f"step = routed GEMM dispatches (forward + remat recompute), "
-          f"resolve rate {stats.resolve_rate}", flush=True)
+          f"step = {per_step - bwd_per_step} routed GEMM dispatches (forward "
+          f"+ remat recompute) + {bwd_per_step} backward products, resolve "
+          f"rate {stats.resolve_rate}", flush=True)
     del state, params
-    return per_step, table, summary
+    return per_step, bwd_per_step, table, summary
 
 
 def main() -> int:
@@ -861,10 +1006,10 @@ def main() -> int:
     launches, per_step = serve_gemma(torch, mmad_mod, cfg, dev)
 
     phase("train")
-    train_launches, train_table, train_summary = train_gemma(
-        torch, mmad_mod, dev,
-        ["--arch", "gemma-2b", "--device", "cuda", "--batch",
-         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+    train_launches, train_bwd_launches, train_table, train_summary = \
+        train_gemma(torch, mmad_mod, dev,
+                    ["--arch", "gemma-2b", "--device", "cuda", "--batch",
+                     str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
     resume_check(torch, dev)
 
     # times below are per gemma-2b decode step at batch 4, and per train
@@ -881,20 +1026,30 @@ def main() -> int:
     train_ms = per_step_ms("kernel_ms", train_rows)
     train_bound = per_step_ms("bound_ms", train_rows)
     train_library = per_step_ms("library_ms", train_rows)
-    backward_ms = sum(r["backward_fp32_matmul_ms"] * r["launches_per_step"]
-                      / 2 for r in train_rows)
+
+    def backward_per_step(key):
+        return sum(r[key] * r["backward_calls_per_step"] for r in train_rows)
+
+    backward_ms = backward_per_step("backward_ms")
+    backward_bound = backward_per_step("backward_bound_ms")
+    backward_library = backward_per_step("backward_library_ms")
     train_flops = sum(2 * math.prod(r["shape"]) * r["launches_per_step"]
                       for r in train_rows)
     print(f"train step (gemma-2b, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}): "
           f"{train_summary['mean_step_ms']:.3f} ms = "
           f"{train_summary['tokens_per_s']:.1f} training tokens/s; mmad "
-          f"{train_launches} launches, {train_flops / 1e12:.3f} TFLOP, "
+          f"{train_launches - train_bwd_launches} forward launches, "
+          f"{train_flops / 1e12:.3f} TFLOP, "
           f"{train_ms:.3f} ms from the timed shapes "
-          f"({train_summary['mmad_ms']:.3f} ms in the profiled step; "
-          f"{train_flops / train_ms / 1e9:.1f} TFLOPS) against a bound of "
+          f"({train_flops / train_ms / 1e9:.1f} TFLOPS; forward and "
+          f"backward {train_summary['mmad_ms']:.3f} ms in the profiled "
+          f"step) against a bound of "
           f"{train_bound:.3f} ms (share {train_bound / train_ms:.1%}) and "
-          f"torch.matmul's {train_library:.3f} ms; the backward's fp32 "
-          f"torch.matmul {backward_ms:.3f} ms; device busy share "
+          f"torch.matmul's {train_library:.3f} ms; the backward's mmad "
+          f"{train_bwd_launches} launches, {backward_ms:.3f} ms against a "
+          f"bound of {backward_bound:.3f} ms (share "
+          f"{backward_bound / backward_ms:.1%}) and bf16 torch.matmul's "
+          f"{backward_library:.3f} ms; device busy share "
           f"{train_summary['busy_ms'] / train_summary['wall_ms']:.1%}",
           flush=True)
 
@@ -919,6 +1074,16 @@ def main() -> int:
                            else "operations"),
         "train_library_ms": train_library,
         "train_max_abs_err": max(r["max_abs_err"] for r in train_rows),
+        "train_backward_launches": train_bwd_launches,
+        "train_backward_ms": backward_ms,
+        "train_backward_plain_ms": backward_per_step("backward_plain_ms"),
+        "train_backward_bound_ms": backward_bound,
+        "train_backward_bound_by": (
+            "bytes" if all(r["backward_bound_by"] == "bytes"
+                           for r in train_rows) else "operations"),
+        "train_backward_library_ms": backward_library,
+        "train_backward_max_abs_err": max(r["backward_max_abs_err"]
+                                          for r in train_rows),
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,13 +25,22 @@ Layering mirrors `core/lower.py`: the planning half (`attn_candidates`,
 `attn_tune`) is a copy of the reference's and needs no torch — the deploy
 layer prices attention schedules with `sim.perf.estimate_attention` under
 the same calibrated `CalibrationProfile` as GEMMs. `flat_attention` (the
-executor `models.matmul.pattn` dispatches to) is ported for a mesh whose
-axes have size 1: merge is the local masked softmax, ring is one step of
-the online-softmax recurrence with no rotation; a larger mesh raises until
-the `torch.distributed` slice.
+executor `models.matmul.pattn` dispatches to) runs both compositions on
+any mesh with the collectives of `core/collectives.py`; on the one-card
+1x1 mesh they are identities, merge is the local masked softmax and ring
+is one step of the online-softmax recurrence with no rotation.
+
+Precision follows the reference on its chip. Its einsums are plain `jnp`
+at DEFAULT precision: scores on the fp32 images of bf16 q and k, PV on
+bf16 probabilities and bf16 v, fp32 out; a TPU runs them as bf16 passes.
+So on the card bf16 (and fp16) operands take bf16 products with fp32
+sums and fp32 out (`aten::bmm.dtype`; its backward, which aten does not
+define, rounds the fp32 cotangent to the operand dtype as DEFAULT does).
+CPU tensors keep the fp32 einsums the CPU parity tests compare.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 from repro_torch.core.autotuner import TunedResult
@@ -128,77 +137,160 @@ def attn_tune(shape: AttnShape, hw: AcceleratorConfig, elem_bytes: int = 4,
 
 # -- execution ----------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _bmm_f32():
+    """x @ y for (batch, m, k) x (batch, k, n) bf16 or fp16 CUDA operands:
+    tensor-core products, fp32 sums and fp32 out, differentiable."""
+    import torch
+
+    def bmm(x, y):
+        return torch.ops.aten.bmm.dtype(x, y, torch.float32)
+
+    class BmmF32(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, y):
+            ctx.save_for_backward(x, y)
+            return bmm(x, y)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, y = ctx.saved_tensors
+            g = g.to(x.dtype)
+            dx = (bmm(g, y.mT).to(x.dtype) if ctx.needs_input_grad[0]
+                  else None)
+            dy = (bmm(x.mT, g).to(y.dtype) if ctx.needs_input_grad[1]
+                  else None)
+            return dx, dy
+
+    return BmmF32.apply
+
+
+def _tensor_core_einsums(q, k, v) -> bool:
+    """Whether the einsums take bf16 products on the card: CUDA operands of
+    one 16-bit float dtype."""
+    import torch
+    return (q.is_cuda and q.dtype in (torch.bfloat16, torch.float16)
+            and k.dtype == q.dtype and v.dtype == q.dtype)
+
+
 def flat_attention(q, k, v, mesh, exec_plan, *, causal: bool = True,
                    scale: Optional[float] = None, q_positions=None,
                    kv_len=None):
     """Execute fused attention on `mesh` under a lowered `ExecPlan`.
 
     q: (b, sq, h, d); k: (b, skv, hkv, d); v: (b, skv, hkv, dv) ->
-    (b, sq, h, dv). GQA grouping (h a multiple of hkv) is handled by
-    reshaping q to (..., hkv, g, d); `q_positions` (sq,) and `kv_len` (b,)
-    carry decode's absolute positions and valid-cache lengths, with the
-    same mask semantics as `models.attention._sdpa`. On one rank the merge
-    composition's pmax/psum combine and the ring's rotation are identities.
-    """
+    (b, sq, h, dv), whole on every rank. GQA grouping (h a multiple of hkv)
+    is handled by reshaping q to (..., hkv, g, d); `q_positions` (sq,) and
+    `kv_len` (b,) carry decode's absolute positions and valid-cache
+    lengths, with the same mask semantics as `models.attention._sdpa`.
+
+    KV is sharded over the row axis, each rank's positions offset by its
+    row index; heads are sharded over the column axis when the plan says
+    `head_shard`. Merge combines the row's partials with `pmax` and `psum`;
+    ring also shards Q over the row axis and rotates the KV shards around
+    a `ppermute` ring, carrying the online softmax's (m, l, acc). At one
+    row (dm == 1) the ring is its single step, where the reference runs
+    the merge body: the same value, normalised after PV instead of
+    before."""
     import torch
+    from repro_torch.core.collectives import (axis_index, pmax, ppermute,
+                                              psum, shard, unshard)
 
     row = exec_plan.axes["row"]
     col = exec_plan.axes["col"]
     comp = exec_plan.kwargs.get("composition", "merge")
+    head_shard = bool(exec_plan.kwargs.get("head_shard", False))
     dm = int(mesh.shape[row])
     dn = int(mesh.shape[col])
-    if dm * dn != 1:
-        raise NotImplementedError(
-            f"flat_attention on a {dm}x{dn} mesh needs multi-rank "
-            f"collectives: the torch.distributed slice of the port is not "
-            f"written yet (ROADMAP.md, queue 1)")
 
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     if scale is None:
         scale = d ** -0.5
-    g = h // hkv
+    h_l = h // dn if head_shard else h
+    hkv_shard = head_shard and hkv % dn == 0 and hkv > 1
+    hkv_l = hkv // dn if hkv_shard else hkv
+    g = h_l // hkv_l
+    kv_l = skv // dm
+    ring = comp == "ring"
+    sq_l = sq // dm if ring else sq
     dev = q.device
     qpos = (q_positions if q_positions is not None
             else torch.arange(sq, device=dev))
     klen = (kv_len if kv_len is not None
             else torch.full((b,), skv, dtype=torch.int32, device=dev))
-    kpos = torch.arange(skv, device=dev)          # the one rank's KV shard
+    hq_spec = col if head_shard else None
+    hkv_spec = col if hkv_shard else None
+    kv_spec = (None, row, hkv_spec, None)
+    q_spec = (None, row if ring else None, hq_spec, None)
+    ri = axis_index(mesh, row)
+    tc = _tensor_core_einsums(q, k, v)
 
-    qg = q.reshape(b, sq, hkv, g, d).float()
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    if causal:
-        mask = kpos[None, :] <= qpos[:, None]
-        logits = logits.masked_fill(~mask[None, None, None], NEG_INF)
-    valid = kpos[None, :] < klen[:, None]
-    logits = logits.masked_fill(~valid[:, None, None, None], NEG_INF)
+    def scores(q_l, k_c):
+        # (b, sq_l, hkv_l, g, d) x (b, ck, hkv_l, d) -> (b, hkv_l, g, sq_l, ck)
+        ck = k_c.shape[1]
+        qg = q_l.reshape(b, sq_l, hkv_l, g, d)
+        if tc:
+            x = qg.permute(0, 2, 3, 1, 4).reshape(b * hkv_l, g * sq_l, d)
+            y = k_c.permute(0, 2, 3, 1).reshape(b * hkv_l, d, ck)
+            s_ = _bmm_f32()(x, y).view(b, hkv_l, g, sq_l, ck)
+        else:
+            s_ = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_c.float())
+        return s_ * scale
 
-    if comp == "ring":
-        # the ring's online-softmax recurrence over its dm == 1 step: the
-        # local KV shard, no rotation; K/V stay at the operand dtype and PV
-        # matches _sdpa's probs-cast rounding
-        m_run = torch.full(logits.shape[:-1], NEG_INF, dtype=torch.float32,
+    def pv(p, v_c):
+        # p at the value dtype x (b, ck, hkv_l, dv) -> (b, hkv_l, g, sq_l, dv)
+        ck = v_c.shape[1]
+        p = p.to(v_c.dtype)
+        if tc:
+            x = p.reshape(b * hkv_l, g * sq_l, ck)
+            y = v_c.permute(0, 2, 1, 3).reshape(b * hkv_l, ck, dv)
+            return _bmm_f32()(x, y).view(b, hkv_l, g, sq_l, dv)
+        return torch.einsum("bhgqk,bkhd->bhgqd", p.float(), v_c.float())
+
+    def masked(logits, kpos, qp):
+        if causal:
+            mask = kpos[None, :] <= qp[:, None]
+            logits = logits.masked_fill(~mask[None, None, None], NEG_INF)
+        valid = kpos[None, :] < klen[:, None]
+        return logits.masked_fill(~valid[:, None, None, None], NEG_INF)
+
+    q_l = shard(q, mesh, q_spec)
+    k_c = shard(k, mesh, kv_spec)
+    v_c = shard(v, mesh, kv_spec)
+    if ring:
+        qp = qpos[ri * sq_l:(ri + 1) * sq_l]
+        m_run = torch.full((b, hkv_l, g, sq_l), NEG_INF, dtype=torch.float32,
                            device=dev)
         l_run = torch.zeros_like(m_run)
         acc = torch.zeros((*m_run.shape, dv), dtype=torch.float32, device=dev)
-        for _ in range(dm):
+        perm = [(j, (j + 1) % dm) for j in range(dm)]
+        for t in range(dm):
+            # at step t this rank holds the shard ring-shifted from source
+            # (ri - t) mod dm, whose global KV offset anchors the masks
+            src = (ri - t) % dm
+            kpos = src * kv_l + torch.arange(kv_l, device=dev)
+            logits = masked(scores(q_l, k_c), kpos, qp)
             m_new = torch.maximum(m_run, logits.amax(dim=-1).detach())
             p = torch.exp(logits - m_new[..., None])
             corr = torch.exp(m_run - m_new)
             l_run = l_run * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
+            acc = acc * corr[..., None] + pv(p, v_c)
             m_run = m_new
+            if t < dm - 1:             # the last rotation is never read
+                k_c = ppermute(k_c, mesh, row, perm)
+                v_c = ppermute(v_c, mesh, row, perm)
         out = acc / torch.clamp(l_run, min=1e-30)[..., None]
     else:
-        m_g = logits.amax(dim=-1).detach()
+        kpos = ri * kv_l + torch.arange(kv_l, device=dev)
+        logits = masked(scores(q_l, k_c), kpos, qpos)
+        m_g = pmax(logits.amax(dim=-1), mesh, row)
         p = torch.exp(logits - m_g[..., None])
-        l_g = p.sum(dim=-1)
-        # normalize BEFORE PV and multiply at the value dtype — the same
-        # normalize-then-cast rounding as _sdpa's softmax
+        l_g = psum(p.sum(dim=-1), mesh, row)
+        # normalize BEFORE PV (l_g is already global) and multiply at the
+        # value dtype — the same normalize-then-cast rounding as _sdpa's
         probs = p / torch.clamp(l_g, min=1e-30)[..., None]
-        out = torch.einsum("bhgqk,bkhd->bhgqd",
-                           probs.to(v.dtype).float(), v.float())
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv)
-    return out.to(q.dtype)
+        out = psum(pv(probs, v_c), mesh, row)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq_l, h_l, dv).to(q.dtype)
+    return unshard(out, mesh, q_spec, (b, sq, h, dv))

@@ -1,19 +1,36 @@
 """`dit_gemm` — the paper's dataflow pattern primitives on a device mesh.
 
-Port of `repro/core/gemm.py` for a mesh whose axes all have size 1 (one
-H100). Every mode body keeps the reference's structure — SUMMA's panel loop
-with masked owner broadcasts, Cannon's skew and rotate loops, split-K's
-partial GEMM and reduction, the two hierarchical compositions — and each
+Port of `repro/core/gemm.py`. The reference runs each mode body inside
+`shard_map` with `jax.lax` collectives; here the body runs on every rank of
+the mesh with the collectives of `core/collectives.py` over
+`torch.distributed` process groups. The tensor contract is the port's
+counterpart of a jax global array: the operands arrive whole on every
+rank, each rank takes its block by its coordinates as the reference's
+`in_specs` say (`shard`), runs the body, and the out spec's blocks are
+gathered (`unshard`), so every rank returns the same global C. Every
 per-device contraction goes through `_tile_dot`, i.e. the plan's
-`InnerKernel` and the `mmad` kernel. On a 1x1 mesh every collective is the
-identity (a sum, gather or ring shift over one rank returns its input) and
-every axis index is 0, so those loops run their single step. A mesh with
-more than one device raises `NotImplementedError`: the multi-rank modes
-arrive with the `torch.distributed` slice of the port.
+`InnerKernel` and the `mmad` kernel.
 
-`auto` is `torch.matmul` with fp32 accumulation — the reference leaves it
-to XLA's einsum. Every mode is reverse-differentiable (autograd through the
-loops and `local_matmul`'s backward).
+- **summa**: K-panel loop; each panel is owner-broadcast along its axis as
+  a `psum` of the masked operand, then accumulated into the local C block.
+- **cannon**: initial skew, then rotate A west and B north with `ppermute`
+  rings and accumulate. `overlap=True` posts step s+1's sends and
+  receives before step s's tile compute and waits on them after.
+- **splitk**: K sharded; local partial GEMM then `psum_scatter` (scatter)
+  or `psum` (a replicated C).
+- **splitk_summa**, **hierarchical**, **outer_systolic**: the 3-D split-K
+  and the two hierarchical compositions on a `MeshView`'s sub-axes.
+- **allgather**: gather all panels once, one local GEMM.
+- **auto**: `torch.matmul` with fp32 accumulation on every rank — the
+  reference leaves it to XLA's einsum.
+
+On the one-card 1x1 mesh every axis has size 1: every collective, `shard`
+and `unshard` is the identity and nothing is launched for them, so those
+loops run their single step. Rank-dependent choices go through
+`collectives.pick` only where an axis has more than one rank, so every
+rank issues the same collectives, backward included. Every mode is
+reverse-differentiable (autograd through the loops, the collectives'
+transposes and `local_matmul`'s backward).
 
 Schedule-driven dispatch goes through `repro_torch.core.lower.lower_schedule`,
 which resolves the tuned dataflow + logical grid into an `ExecPlan`;
@@ -22,11 +39,14 @@ which resolves the tuned dataflow + logical grid into an `ExecPlan`;
 from __future__ import annotations
 
 import contextlib
-import math
 from typing import Optional
 
 import torch
 
+from repro_torch.core.collectives import (all_gather, axis_index,
+                                          axis_size as _axis_size, pick,
+                                          ppermute, ppermute_start, psum,
+                                          psum_scatter, shard, unshard)
 from repro_torch.core.lower import ExecPlan, lower_schedule
 from repro_torch.core.schedule import InnerKernel
 
@@ -47,36 +67,31 @@ def _tile_dot(a: torch.Tensor, b: torch.Tensor,
     return local_matmul(a, b, kernel)
 
 
-def _axis_size(mesh, name: str) -> int:
-    return int(mesh.shape[name])
-
-
-def _single_device(mesh) -> None:
-    """Raise unless every axis of `mesh` has size 1."""
-    sizes = {ax: int(mesh.shape[ax]) for ax in mesh.axis_names}
-    if math.prod(sizes.values()) != 1:
-        raise NotImplementedError(
-            f"dit_gemm on a {sizes} mesh needs multi-rank collectives: the "
-            f"torch.distributed slice of the port is not written yet "
-            f"(ROADMAP.md, queue 1)")
-
-
-# collectives over one rank: the identity, and every axis index is 0
-def _axis_index(mesh, axis: str) -> int:
-    assert _axis_size(mesh, axis) == 1
-    return 0
-
-
-def _one_rank(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """psum / all_gather / psum_scatter / ppermute over a size-1 axis."""
-    assert _axis_size(mesh, axis) == 1
-    return x
-
-
 def _acc(acc: Optional[torch.Tensor], part: torch.Tensor) -> torch.Tensor:
     """acc + part, where the reference's zero-initialised accumulator is
     elided (0 + x == x, and eager mode would pay a fill and an add)."""
     return part if acc is None else acc + part
+
+
+def _owned(x: torch.Tensor, mesh, axis: str, owner: bool) -> torch.Tensor:
+    """`x` on the owner of a broadcast along `axis`, zeros elsewhere (the
+    masked operand the owner-broadcast `psum` sums)."""
+    if _axis_size(mesh, axis) == 1:
+        return x
+    return pick(owner, x, torch.zeros_like(x))
+
+
+def _ring(d: int):
+    """The one-hop ring shift: axis index s sends to s - 1."""
+    return [(s, (s - 1) % d) for s in range(d)]
+
+
+def _skew(x: torch.Tensor, mesh, axis: str, by: int, d: int) -> torch.Tensor:
+    """Cannon's initial skew: `by` hops along `axis`'s ring. Every rank
+    runs the same d - 1 hops and keeps the first `by` of them."""
+    for s in range(d - 1):
+        x = pick(by > s, ppermute(x, mesh, axis, _ring(d)), x)
+    return x
 
 
 def _mode_scope(mode: str):
@@ -90,6 +105,14 @@ def _mode_scope(mode: str):
     return contextlib.nullcontext()
 
 
+def _sharded(body, a: torch.Tensor, b: torch.Tensor, mesh, a_spec, b_spec,
+             c_spec) -> torch.Tensor:
+    """Run `body` on this rank's blocks of A and B (the reference's
+    `in_specs`) and gather its C blocks by `c_spec` into the global C."""
+    c = body(shard(a, mesh, a_spec), shard(b, mesh, b_spec))
+    return unshard(c, mesh, c_spec, (a.shape[0], b.shape[1]))
+
+
 # ---------------------------------------------------------------------------
 # SUMMA
 # ---------------------------------------------------------------------------
@@ -98,23 +121,22 @@ def _summa_acc(a_loc: torch.Tensor, b_loc: torch.Tensor, mesh,
                row_axis: str, col_axis: str, dm: int, dn: int,
                kernel: Optional[InnerKernel] = None) -> torch.Tensor:
     """fp32 SUMMA accumulation of the local C block over dm*dn K-panels,
-    each panel owner-broadcast (masked sum) along its axis."""
+    each panel owner-broadcast (masked sum) along its axis. The axes may be
+    sub-axes of a mesh view; the broadcasts then stay within the group."""
     panels = dm * dn
     w = a_loc.shape[1] // dm
-    i = _axis_index(mesh, row_axis)
-    j = _axis_index(mesh, col_axis)
+    i = axis_index(mesh, row_axis)
+    j = axis_index(mesh, col_axis)
     acc = None
     for p in range(panels):
         # A panel p lives on column p // dm at local offset (p % dm) * w
         a_pan = a_loc[:, (p % dm) * w:(p % dm + 1) * w]
-        if j != p // dm:
-            a_pan = torch.zeros_like(a_pan)
-        a_pan = _one_rank(a_pan, mesh, col_axis)      # owner broadcast
+        a_pan = psum(_owned(a_pan, mesh, col_axis, j == p // dm), mesh,
+                     col_axis)                          # owner broadcast
         # B panel p lives on row p // dn at local offset (p % dn) * w
         b_pan = b_loc[(p % dn) * w:(p % dn + 1) * w, :]
-        if i != p // dn:
-            b_pan = torch.zeros_like(b_pan)
-        b_pan = _one_rank(b_pan, mesh, row_axis)      # owner broadcast
+        b_pan = psum(_owned(b_pan, mesh, row_axis, i == p // dn), mesh,
+                     row_axis)                          # owner broadcast
         acc = _acc(acc, _tile_dot(a_pan, b_pan, kernel))
     return acc
 
@@ -122,15 +144,20 @@ def _summa_acc(a_loc: torch.Tensor, b_loc: torch.Tensor, mesh,
 def summa_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
                row_axis: str = "data", col_axis: str = "model",
                kernel: Optional[InnerKernel] = None) -> torch.Tensor:
-    """C[i,j] = sum_p A_panel[i,p] @ B_panel[p,j] with owner broadcasts."""
-    _single_device(mesh)
+    """C[i,j] = sum_p A_panel[i,p] @ B_panel[p,j] with owner broadcasts.
+    A, B and C are sharded (row_axis, col_axis)."""
     dm, dn = _axis_size(mesh, row_axis), _axis_size(mesh, col_axis)
     k = a.shape[1]
     panels = dm * dn
     if k % panels:
         raise ValueError(f"K={k} must divide by {panels} SUMMA panels")
-    return _summa_acc(a, b, mesh, row_axis, col_axis, dm, dn,
-                      kernel).to(a.dtype)
+
+    def body(a_loc, b_loc):
+        return _summa_acc(a_loc, b_loc, mesh, row_axis, col_axis, dm, dn,
+                          kernel).to(a.dtype)
+
+    spec = (row_axis, col_axis)
+    return _sharded(body, a, b, mesh, spec, spec, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -141,29 +168,29 @@ def _cannon_acc(a_blk: torch.Tensor, b_blk: torch.Tensor, mesh,
                 row_axis: str, col_axis: str, d: int,
                 kernel: Optional[InnerKernel] = None,
                 overlap: bool = False) -> torch.Tensor:
-    """fp32 Cannon accumulation on a square d x d (sub-)grid: initial skew,
-    then d rotate-and-accumulate steps. `overlap=True` issues step s+1's
-    ring hops before consuming step s's blocks (numerically identical)."""
-    i = _axis_index(mesh, row_axis)
-    j = _axis_index(mesh, col_axis)
-    a_cur, b_cur = a_blk, b_blk
-    for s in range(d - 1):                       # initial skew
-        shifted = _one_rank(a_cur, mesh, col_axis)
-        a_cur = shifted if i > s else a_cur
-    for s in range(d - 1):
-        shifted = _one_rank(b_cur, mesh, row_axis)
-        b_cur = shifted if j > s else b_cur
+    """fp32 Cannon accumulation on a square d x d (sub-)grid: initial skew
+    (A block (i, j) -> (i, j - i), B block (i, j) -> (i - j, j)), then d
+    rotate-and-accumulate steps. `overlap=True` posts step s+1's ring hops
+    before consuming step s's blocks and waits on them after (numerically
+    identical). The last step's rotation, which nothing reads, is not
+    sent."""
+    i = axis_index(mesh, row_axis)
+    j = axis_index(mesh, col_axis)
+    a_cur = _skew(a_blk, mesh, col_axis, i, d)
+    b_cur = _skew(b_blk, mesh, row_axis, j, d)
     acc = None
-    for _ in range(d):                           # rotate and accumulate
-        if overlap:
-            a_nxt = _one_rank(a_cur, mesh, col_axis)
-            b_nxt = _one_rank(b_cur, mesh, row_axis)
+    for s in range(d):
+        last = s == d - 1
+        if overlap and not last:
+            a_nxt = ppermute_start(a_cur, mesh, col_axis, _ring(d))
+            b_nxt = ppermute_start(b_cur, mesh, row_axis, _ring(d))
             acc = _acc(acc, _tile_dot(a_cur, b_cur, kernel))
-            a_cur, b_cur = a_nxt, b_nxt
+            a_cur, b_cur = a_nxt.wait(), b_nxt.wait()
         else:
             acc = _acc(acc, _tile_dot(a_cur, b_cur, kernel))
-            a_cur = _one_rank(a_cur, mesh, col_axis)
-            b_cur = _one_rank(b_cur, mesh, row_axis)
+            if not last:
+                a_cur = ppermute(a_cur, mesh, col_axis, _ring(d))
+                b_cur = ppermute(b_cur, mesh, row_axis, _ring(d))
     return acc
 
 
@@ -172,30 +199,47 @@ def cannon_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
                 kernel: Optional[InnerKernel] = None,
                 overlap: bool = False) -> torch.Tensor:
     """Systolic GEMM on a square mesh: skew, then rotate-and-accumulate."""
-    _single_device(mesh)
     dm, dn = _axis_size(mesh, row_axis), _axis_size(mesh, col_axis)
     if dm != dn:
         raise ValueError(f"cannon needs a square mesh, got {dm}x{dn}")
-    return _cannon_acc(a, b, mesh, row_axis, col_axis, dm, kernel,
-                       overlap).to(a.dtype)
+
+    def body(a_loc, b_loc):
+        return _cannon_acc(a_loc, b_loc, mesh, row_axis, col_axis, dm,
+                           kernel, overlap).to(a.dtype)
+
+    spec = (row_axis, col_axis)
+    return _sharded(body, a, b, mesh, spec, spec, spec)
 
 
 # ---------------------------------------------------------------------------
 # Split-K (1-D and the schedule's 3-D grid)
 # ---------------------------------------------------------------------------
 
+def _reduce_k(part: torch.Tensor, mesh, k_axis: str,
+              scatter: bool) -> torch.Tensor:
+    """Reduce K partials over `k_axis`: C row-blocks round-robined over the
+    k-group (scatter), or a C replicated over it."""
+    if scatter:
+        return psum_scatter(part, mesh, k_axis, 0)
+    return psum(part, mesh, k_axis)
+
+
 def splitk_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
                 k_axis: str = "model", scatter: bool = True,
                 kernel: Optional[InnerKernel] = None) -> torch.Tensor:
     """K sharded over `k_axis`; local partial GEMM + reduction (reduce-
     scatter of C row-blocks with `scatter`, else an all-reduce)."""
-    _single_device(mesh)
     dk = _axis_size(mesh, k_axis)
     m = a.shape[0]
     if scatter and m % dk:
         raise ValueError(f"M={m} must divide by k-axis size {dk} for scatter")
-    part = _tile_dot(a, b, kernel)
-    return _one_rank(part, mesh, k_axis).to(a.dtype)
+
+    def body(a_loc, b_loc):
+        return _reduce_k(_tile_dot(a_loc, b_loc, kernel), mesh, k_axis,
+                         scatter).to(a.dtype)
+
+    return _sharded(body, a, b, mesh, (None, k_axis), (k_axis, None),
+                    (k_axis, None) if scatter else (None, None))
 
 
 def splitk_summa_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
@@ -203,8 +247,9 @@ def splitk_summa_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
                       k_axis: str = "splitk", scatter: bool = True,
                       kernel: Optional[InnerKernel] = None) -> torch.Tensor:
     """3-D split-K on a (row x col x k) mesh view: each k-group runs SUMMA
-    on its K slice, then partials reduce over the k sub-axis."""
-    _single_device(mesh)
+    on its K slice, then partials reduce over the k sub-axis. A is sharded
+    (row, (k, col)), B ((k, row), col); C ((row, k), col) with `scatter`,
+    else (row, col)."""
     rm, rn = _axis_size(mesh, row_axis), _axis_size(mesh, col_axis)
     gk = _axis_size(mesh, k_axis)
     m, k = a.shape
@@ -212,8 +257,16 @@ def splitk_summa_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
         raise ValueError(f"K={k} must divide by gk*rm*rn={gk * rm * rn}")
     if scatter and m % (rm * gk):
         raise ValueError(f"M={m} must divide by rm*gk={rm * gk} for scatter")
-    acc = _summa_acc(a, b, mesh, row_axis, col_axis, rm, rn, kernel)
-    return _one_rank(acc, mesh, k_axis).to(a.dtype)
+
+    def body(a_loc, b_loc):
+        acc = _summa_acc(a_loc, b_loc, mesh, row_axis, col_axis, rm, rn,
+                         kernel)
+        return _reduce_k(acc, mesh, k_axis, scatter).to(a.dtype)
+
+    return _sharded(body, a, b, mesh, (row_axis, (k_axis, col_axis)),
+                    ((k_axis, row_axis), col_axis),
+                    ((row_axis, k_axis), col_axis) if scatter
+                    else (row_axis, col_axis))
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +279,8 @@ def hierarchical_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
                       inner_col: str = "model_in",
                       kernel: Optional[InnerKernel] = None,
                       overlap: bool = False) -> torch.Tensor:
-    """Outer (Om x On) SUMMA over inner (ih x ih) Cannon groups."""
-    _single_device(mesh)
+    """Outer (Om x On) SUMMA over inner (ih x ih) Cannon groups, on an
+    (outer_row x inner_row x outer_col x inner_col) mesh view."""
     om, ih = _axis_size(mesh, row_axis), _axis_size(mesh, inner_row)
     on, iw = _axis_size(mesh, col_axis), _axis_size(mesh, inner_col)
     if ih != iw:
@@ -237,25 +290,28 @@ def hierarchical_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
         raise ValueError(f"K={k} must divide by Om*On*ih={om * on * ih}")
     wo = k // (om * on)          # outer K-panel width (per group)
     wk = wo // ih                # inner Cannon block width
-    oi, oj = _axis_index(mesh, row_axis), _axis_index(mesh, col_axis)
-    li, lj = _axis_index(mesh, inner_row), _axis_index(mesh, inner_col)
-    a_g = _one_rank(a, mesh, inner_col)          # gather the group's K range
-    b_g = _one_rank(b, mesh, inner_row)
-    acc = None
-    for p in range(om * on):
-        off = (p % om) * wo + lj * wk
-        a_pan = a_g[:, off:off + wk]
-        if oj != p // om:
-            a_pan = torch.zeros_like(a_pan)
-        a_pan = _one_rank(a_pan, mesh, col_axis)     # group broadcast
-        off = (p % on) * wo + li * wk
-        b_pan = b_g[off:off + wk, :]
-        if oi != p // on:
-            b_pan = torch.zeros_like(b_pan)
-        b_pan = _one_rank(b_pan, mesh, row_axis)     # group broadcast
-        acc = _acc(acc, _cannon_acc(a_pan, b_pan, mesh, inner_row,
-                                    inner_col, ih, kernel, overlap))
-    return acc.to(a.dtype)
+
+    def body(a_loc, b_loc):
+        oi, oj = axis_index(mesh, row_axis), axis_index(mesh, col_axis)
+        li, lj = axis_index(mesh, inner_row), axis_index(mesh, inner_col)
+        # reassemble each group's contiguous K range so any outer panel
+        # can be sliced uniformly
+        a_g = all_gather(a_loc, mesh, inner_col, 1)
+        b_g = all_gather(b_loc, mesh, inner_row, 0)
+        acc = None
+        for p in range(om * on):
+            off = (p % om) * wo + lj * wk
+            a_pan = psum(_owned(a_g[:, off:off + wk], mesh, col_axis,
+                                oj == p // om), mesh, col_axis)
+            off = (p % on) * wo + li * wk
+            b_pan = psum(_owned(b_g[off:off + wk, :], mesh, row_axis,
+                                oi == p // on), mesh, row_axis)
+            acc = _acc(acc, _cannon_acc(a_pan, b_pan, mesh, inner_row,
+                                        inner_col, ih, kernel, overlap))
+        return acc.to(a.dtype)
+
+    spec = ((row_axis, inner_row), (col_axis, inner_col))
+    return _sharded(body, a, b, mesh, spec, spec, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +324,9 @@ def outer_systolic_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
                         inner_col: str = "model_in",
                         kernel: Optional[InnerKernel] = None,
                         overlap: bool = False) -> torch.Tensor:
-    """Outer Cannon ring over inner (ih x ih) SUMMA groups."""
-    _single_device(mesh)
+    """Outer Cannon ring over inner (ih x ih) SUMMA groups: the group-level
+    skew and rotations are ring hops over the outer axes, each inner group
+    contracts its chunk with `_summa_acc`."""
     om, ih = _axis_size(mesh, row_axis), _axis_size(mesh, inner_row)
     on, iw = _axis_size(mesh, col_axis), _axis_size(mesh, inner_col)
     if ih != iw:
@@ -282,28 +339,30 @@ def outer_systolic_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
     if k % (om * ih * ih):
         raise ValueError(f"K={k} must divide by Om*ih^2={om * ih * ih}")
     d = om
-    oi, oj = _axis_index(mesh, row_axis), _axis_index(mesh, col_axis)
-    a_cur, b_cur = a, b
-    for s in range(d - 1):                       # group-level skew
-        shifted = _one_rank(a_cur, mesh, col_axis)
-        a_cur = shifted if oi > s else a_cur
-    for s in range(d - 1):
-        shifted = _one_rank(b_cur, mesh, row_axis)
-        b_cur = shifted if oj > s else b_cur
-    acc = None
-    for _ in range(d):
-        if overlap:
-            a_nxt = _one_rank(a_cur, mesh, col_axis)
-            b_nxt = _one_rank(b_cur, mesh, row_axis)
-            acc = _acc(acc, _summa_acc(a_cur, b_cur, mesh, inner_row,
-                                       inner_col, ih, ih, kernel))
-            a_cur, b_cur = a_nxt, b_nxt
-        else:
-            acc = _acc(acc, _summa_acc(a_cur, b_cur, mesh, inner_row,
-                                       inner_col, ih, ih, kernel))
-            a_cur = _one_rank(a_cur, mesh, col_axis)     # chunk west
-            b_cur = _one_rank(b_cur, mesh, row_axis)     # chunk north
-    return acc.to(a.dtype)
+
+    def body(a_loc, b_loc):
+        oi, oj = axis_index(mesh, row_axis), axis_index(mesh, col_axis)
+        a_cur = _skew(a_loc, mesh, col_axis, oi, d)      # group-level skew
+        b_cur = _skew(b_loc, mesh, row_axis, oj, d)
+        acc = None
+        for s in range(d):
+            last = s == d - 1
+            if overlap and not last:
+                a_nxt = ppermute_start(a_cur, mesh, col_axis, _ring(d))
+                b_nxt = ppermute_start(b_cur, mesh, row_axis, _ring(d))
+                acc = _acc(acc, _summa_acc(a_cur, b_cur, mesh, inner_row,
+                                           inner_col, ih, ih, kernel))
+                a_cur, b_cur = a_nxt.wait(), b_nxt.wait()
+            else:
+                acc = _acc(acc, _summa_acc(a_cur, b_cur, mesh, inner_row,
+                                           inner_col, ih, ih, kernel))
+                if not last:
+                    a_cur = ppermute(a_cur, mesh, col_axis, _ring(d))  # west
+                    b_cur = ppermute(b_cur, mesh, row_axis, _ring(d))  # north
+        return acc.to(a.dtype)
+
+    spec = ((row_axis, inner_row), (col_axis, inner_col))
+    return _sharded(body, a, b, mesh, spec, spec, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -314,16 +373,19 @@ def allgather_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
                    row_axis: str = "data", col_axis: str = "model",
                    kernel: Optional[InnerKernel] = None) -> torch.Tensor:
     """Gather A's panels along cols / B's along rows once, then one local GEMM."""
-    _single_device(mesh)
-    a_full = _one_rank(a, mesh, col_axis)
-    b_full = _one_rank(b, mesh, row_axis)
-    return _tile_dot(a_full, b_full, kernel).to(a.dtype)
+    def body(a_loc, b_loc):
+        a_full = all_gather(a_loc, mesh, col_axis, 1)
+        b_full = all_gather(b_loc, mesh, row_axis, 0)
+        return _tile_dot(a_full, b_full, kernel).to(a.dtype)
+
+    spec = (row_axis, col_axis)
+    return _sharded(body, a, b, mesh, spec, spec, spec)
 
 
 def auto_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
               row_axis: str = "data", col_axis: str = "model") -> torch.Tensor:
-    """Plain fp32-accumulated product: the reference's XLA einsum."""
-    _single_device(mesh)
+    """Plain fp32-accumulated product: the reference's XLA einsum. Every
+    rank holds the operands whole, so each computes C whole."""
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 

@@ -27,8 +27,9 @@ Three layers of resolution:
    true 3-D split-K on an 8-device mesh instead of collapsing to 1-D;
    hierarchical schedules split both axes into (outer, inner) per
    `Schedule.inner`. Lowering itself needs no devices (unit-testable with
-   a bare namespace exposing `.shape`); materializing a view needs a
-   multi-rank mesh, which this package does not run yet.
+   a bare namespace exposing `.shape`); materializing a view on a
+   `DistMesh` gives the viewed mesh the process groups of its sub-axes,
+   which `make_dist_mesh` created for every view `mesh_views` lists.
 3. **Legality** — the chosen mode's divisibility preconditions are checked
    against the *actual* problem shape (not the schedule's tuned shape —
    bucketed transfers serve neighbours). Every miss appends a `Fallback`
@@ -126,12 +127,44 @@ class MeshView:
         return out
 
     def materialize(self, mesh):
-        """A viewed mesh needs sub-groups of ranks, which only a multi-rank
-        mesh has; those modes arrive with the `torch.distributed` slice. No
-        view arises on a 1x1 mesh (every split has size 1 or falls back)."""
-        raise NotImplementedError(
-            f"MeshView {self.splits} needs a multi-rank mesh: the "
-            f"torch.distributed slice of the port is not written yet")
+        """The viewed mesh, same device order. A `DistMesh` splits its axes
+        over the process groups it already holds (`DistMesh.view`; creating
+        a group is collective, so none is created here); a one-device mesh
+        gains its size-1 sub-axes."""
+        if hasattr(mesh, "view"):
+            return mesh.view(self.splits)
+        sizes = self.axis_sizes(mesh)
+        if any(size != 1 for size in sizes.values()):
+            raise ValueError(f"MeshView {self.splits} does not fit a "
+                             f"one-device mesh")
+        return dataclasses.replace(mesh, axis_names=tuple(sizes),
+                                   shape=sizes)
+
+
+def mesh_views(sizes: Mapping[str, int], row_axis: str = "data",
+               col_axis: str = "model") -> Tuple[MeshView, ...]:
+    """Every `MeshView` `lower_schedule` can name on a (row, col) mesh of
+    these axis sizes, whatever the schedule: a split-K k sub-axis factored
+    out of the column or the row axis, and each square inner group of the
+    hierarchical compositions. A multi-rank mesh creates their process
+    groups up front from this list."""
+    dm, dn = int(sizes[row_axis]), int(sizes[col_axis])
+    irow, icol = row_axis + INNER_SUFFIX, col_axis + INNER_SUFFIX
+    views = []
+    for gk in range(2, dn + 1):
+        if dn % gk == 0:
+            views.append(MeshView(splits=(
+                (col_axis, ((col_axis, dn // gk), (K_AXIS, gk))),)))
+    for gk in range(2, dm + 1):
+        if dm % gk == 0:
+            views.append(MeshView(splits=(
+                (row_axis, ((row_axis, dm // gk), (K_AXIS, gk))),)))
+    for ih in range(1, min(dm, dn) + 1):
+        if dm % ih == 0 and dn % ih == 0:
+            views.append(MeshView(splits=(
+                (row_axis, ((row_axis, dm // ih), (irow, ih))),
+                (col_axis, ((col_axis, dn // ih), (icol, ih))))))
+    return tuple(views)
 
 
 @dataclasses.dataclass(frozen=True)

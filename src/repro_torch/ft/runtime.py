@@ -17,8 +17,8 @@ The step updates its state in place (`optim.adamw.apply`), so the loop
 cannot keep the first state aside to start over from, as the reference
 does: it takes `init_state` as a function that builds a fresh state, and
 calls it at the start and on a restart that finds no checkpoint.
-Re-meshing onto a resized cluster (`elastic_reshard`) waits for the
-multi-rank slice. The reference's `LoopConfig.drop_straggler_batches` is
+Re-meshing onto a resized cluster (`elastic_reshard`) waits for
+multi-rank training with sharded parameters. The reference's `LoopConfig.drop_straggler_batches` is
 left out: its loop never reads it, so a straggling step is only logged.
 """
 from __future__ import annotations
@@ -140,6 +140,6 @@ def run_training(step_fn: Callable, init_state: Callable[[], Any],
 def elastic_reshard(params: Any, new_mesh, shardings_fn) -> Any:
     """Re-place a parameter state onto a resized mesh (node loss or gain)."""
     raise NotImplementedError(
-        "elastic_reshard needs a multi-rank mesh: it waits for the "
-        "torch.distributed modes (ROADMAP.md, queue 1: multi-rank modes "
-        "over torch.distributed)")
+        "elastic_reshard needs parameters sharded over a multi-rank mesh "
+        "(ROADMAP.md, queue 1: multi-rank training with sharded "
+        "parameters)")

@@ -65,6 +65,13 @@
 //     K-contiguous (one 256-row box, no transpose); the tensor maps
 //     zero-fill every box that crosses the M, N or K edge, so nothing is
 //     padded, and the epilogue masks its stores;
+//   * A in either major, read in place too: an activation is K-contiguous,
+//     but the backward's weight gradient db = a.T @ g reads a.T, which is
+//     M-contiguous. That A loads as two 64-row boxes a stage, one per
+//     consumer warpgroup, laid out as the N-contiguous B is, and wgmma's
+//     transpose-A bit (bf16 and fp16 operands in shared memory) reads it.
+//     Only the (A, B) majors the train path uses are built: (K, N) and
+//     (K, K) for the forward and for da = g @ b.T, (MN, N) for every db;
 //   * one CTA per output tile, K never split: on an H100, writing and
 //     re-reading a 128 x 256 tile's fp32 partials cost more than the idle
 //     SMs gave back at every split count tried, even where the tiles fill
@@ -739,8 +746,9 @@ int launch_stream(int variant, const StreamArgs& p, int grid_x, cudaStream_t str
 
 // ---------------------------------------------------------------------------
 // Tensor-core tile kernel (wgmma fed by TMA) for bf16 / fp16 operands that a
-// tensor map can describe: A K-contiguous, B N- or K-contiguous, 16-byte
-// aligned bases and row strides. A CTA computes a WG_BM x WG_BN tile of C
+// tensor map can describe: A K- or M-contiguous, B N- or K-contiguous (an
+// M-contiguous A only with an N-contiguous B), 16-byte aligned bases and
+// row strides. A CTA computes a WG_BM x WG_BN tile of C
 // over all of K; warpgroup 0 is the producer (one thread issues the TMA
 // loads), warpgroups 1 and 2 each own 64 rows of the tile.
 // ---------------------------------------------------------------------------
@@ -751,6 +759,7 @@ constexpr int WG_STAGES = 4;
 constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;          // 16 KB
 constexpr int WG_B_BYTES = WG_BK * WG_BN * 2;          // 32 KB
 constexpr int WG_B_BOX_BYTES = WG_BK * 64 * 2;         // an N-contiguous B box: 64 n x 64 k
+constexpr int WG_A_BOX_BYTES = WG_BK * 64 * 2;         // an M-contiguous A box: 64 m x 64 k
 constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_B_BYTES;
 constexpr int WG_CONSUMERS = 256;                      // two consumer warpgroups
 constexpr int WG_NT = WG_CONSUMERS + 128;              // + the producer warpgroup
@@ -816,7 +825,7 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
       " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
       " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
       " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, " \
-      "%128, %129, p, 1, 1, 0, %131;\n" \
+      "%128, %129, p, 1, 1, %131, %132;\n" \
       "}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
@@ -834,11 +843,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B))
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B))
 
-// d (64 x 256, fp32) += A (64 x 16, K-major) * B (16 x 256; N-major when
-// TRANS_B, else K-major), both read from shared memory through descriptors.
-template <typename T, int TRANS_B>
+// d (64 x 256, fp32) += A (64 x 16; M-major when TRANS_A, else K-major) *
+// B (16 x 256; N-major when TRANS_B, else K-major), both read from shared
+// memory through descriptors.
+template <typename T, int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     MMAD_WGMMA_M64N256K16("bf16");
@@ -877,7 +887,7 @@ __device__ __forceinline__ void for_each_pair(const float (&d)[128], int r0, int
     }
 }
 
-template <typename T, bool B_KMAJOR>
+template <typename T, bool A_KMAJOR, bool B_KMAJOR>
 __global__ void __launch_bounds__(WG_NT, 1)
     mmad_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                       const __grid_constant__ CUtensorMap tb, const WgmmaArgs p) {
@@ -913,7 +923,14 @@ __global__ void __launch_bounds__(WG_NT, 1)
         unsigned char* a_s = smem + s * WG_STAGE_BYTES;
         unsigned char* b_s = a_s + WG_A_BYTES;
         const int k0 = kb * WG_BK;
-        tma_load_2d(a_s, &ta, k0, m0, &full[s]);
+        if (A_KMAJOR) {
+          tma_load_2d(a_s, &ta, k0, m0, &full[s]);
+        } else {
+          // both boxes, even past M: zero-filled, they only feed rows the
+          // epilogue masks
+          for (int j = 0; j < WG_BM / 64; ++j)
+            tma_load_2d(a_s + j * WG_A_BOX_BYTES, &ta, m0 + 64 * j, k0, &full[s]);
+        }
         if (B_KMAJOR) {
           tma_load_2d(b_s, &tb, k0, n0, &full[s]);
         } else {
@@ -934,7 +951,10 @@ __global__ void __launch_bounds__(WG_NT, 1)
   for (int kb = 0; kb < nkb; ++kb) {
     const int s = kb % WG_STAGES;
     mbar_wait(&full[s], (kb / WG_STAGES) & 1);
-    const unsigned char* a_s = smem + s * WG_STAGE_BYTES + cw * (64 * 128);
+    // K-major A: 64 rows of 128 bytes per warpgroup; M-contiguous A: one
+    // 64-row box per warpgroup
+    const unsigned char* a_s =
+        smem + s * WG_STAGE_BYTES + cw * (A_KMAJOR ? 64 * 128 : WG_A_BOX_BYTES);
     const unsigned char* b_s = smem + s * WG_STAGE_BYTES + WG_A_BYTES;
     fence_acc(d);
     wgmma_fence();
@@ -944,10 +964,12 @@ __global__ void __launch_bounds__(WG_NT, 1)
       // 16-deep K slice starts 32 bytes further along the (swizzled) row.
       // N-contiguous B: 64-column boxes 8 KB apart (leading offset), 8-k
       // groups 1024 bytes apart (stride offset); a K slice is 16 rows on.
-      const uint64_t da = sw128_desc(a_s + kk * 32, 16, 1024);
+      // An M-contiguous A is one such box (its 64 rows are one swizzle row).
+      const uint64_t da = A_KMAJOR ? sw128_desc(a_s + kk * 32, 16, 1024)
+                                   : sw128_desc(a_s + kk * 16 * 128, WG_A_BOX_BYTES, 1024);
       const uint64_t db = B_KMAJOR ? sw128_desc(b_s + kk * 32, 16, 1024)
                                    : sw128_desc(b_s + kk * 16 * 128, WG_B_BOX_BYTES, 1024);
-      wgmma_m64n256k16<T, B_KMAJOR ? 0 : 1>(d, da, db);
+      wgmma_m64n256k16<T, A_KMAJOR ? 0 : 1, B_KMAJOR ? 0 : 1>(d, da, db);
     }
     wgmma_commit();
     fence_acc(d);
@@ -1019,39 +1041,49 @@ int tensor_map_2d(CUtensorMap* map, int dt, const void* base, long long d0, long
 
 // grid: (M tiles, N tiles): consecutive CTAs share a column of B, so a
 // wave reads a few N tiles of B against all of A (which L2 keeps). K is
-// not split. Refuses (cudaErrorInvalidValue) what
-// kernels/mmad.py:wgmma_b_major would not send here; it never falls back.
+// not split. A is K-contiguous when sak == 1, else M-contiguous; B is
+// N-contiguous when sbn == 1, else K-contiguous. Refuses
+// (cudaErrorInvalidValue) what kernels/mmad.py:wgmma_b_major would not send
+// here, an M-contiguous A with a K-contiguous B among it; it never falls
+// back.
 template <typename T>
 int launch_wgmma(const StreamArgs& p, cudaStream_t stream) {
   const int dt = std::is_same<T, __nv_bfloat16>::value ? BF16 : F16;
   const long long lim = 1ll << 31;
+  const bool a_kmajor = p.sak == 1;
   const bool b_nmajor = p.sbn == 1;
+  const long long a_row = a_kmajor ? p.sam : p.sak;
   const long long b_row = b_nmajor ? p.sbk : p.sbn;
   const long long n_tiles = (p.N + WG_BN - 1) / WG_BN;
-  if (p.a_dt != dt || p.sak != 1 || (!b_nmajor && p.sbk != 1) ||
+  if (p.a_dt != dt || (!a_kmajor && (p.sam != 1 || !b_nmajor)) || (!b_nmajor && p.sbk != 1) ||
       reinterpret_cast<uintptr_t>(p.A) % 16 || reinterpret_cast<uintptr_t>(p.B) % 16 ||
-      (p.sam * 2) % 16 || (b_row * 2) % 16 || p.M < 1 || p.N < 1 || p.K < 1 || p.M >= lim ||
+      (a_row * 2) % 16 || (b_row * 2) % 16 || p.M < 1 || p.N < 1 || p.K < 1 || p.M >= lim ||
       p.N >= lim || p.K >= lim || n_tiles > 65535 || p.splits != 1 ||
       (p.c_dt != F32 && p.c_dt != BF16 && p.c_dt != F16))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, tb;
-  int err = tensor_map_2d(&ta, dt, p.A, p.K, p.M, p.sam * 2, WG_BK, WG_BM);
+  int err = a_kmajor ? tensor_map_2d(&ta, dt, p.A, p.K, p.M, p.sam * 2, WG_BK, WG_BM)
+                     : tensor_map_2d(&ta, dt, p.A, p.M, p.K, p.sak * 2, 64, WG_BK);
   if (err) return err;
   err = b_nmajor ? tensor_map_2d(&tb, dt, p.B, p.N, p.K, p.sbk * 2, 64, WG_BK)
                  : tensor_map_2d(&tb, dt, p.B, p.K, p.N, p.sbn * 2, WG_BK, WG_BN);
   if (err) return err;
-  auto kernel = b_nmajor ? mmad_wgmma_kernel<T, false> : mmad_wgmma_kernel<T, true>;
+  // instances: 0 = (K, N), 1 = (K, K), 2 = (MN, N)
+  const int inst = a_kmajor ? (b_nmajor ? 0 : 1) : 2;
+  auto kernel = inst == 0   ? mmad_wgmma_kernel<T, true, false>
+                : inst == 1 ? mmad_wgmma_kernel<T, true, true>
+                            : mmad_wgmma_kernel<T, false, false>;
   // the ring is above the default 48 KB: raise each instance's limit once
   // per device
-  static bool raised[2][64] = {};
+  static bool raised[3][64] = {};
   int dev = 0;
   cudaError_t cerr = cudaGetDevice(&dev);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!raised[b_nmajor][dev]) {
+  if (!raised[inst][dev]) {
     cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
     if (cerr != cudaSuccess) return static_cast<int>(cerr);
-    raised[b_nmajor][dev] = true;
+    raised[inst][dev] = true;
   }
   const WgmmaArgs args{p.C, p.c_dt, static_cast<int>(p.M), static_cast<int>(p.N),
                        static_cast<int>(p.K)};

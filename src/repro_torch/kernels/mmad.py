@@ -26,12 +26,14 @@ pure-Python mirror of that layout.
 Training (M = 2048 tokens, K = 2048-16384): ~680 FLOP per byte, so the
 GEMMs are bound by operations (989 TFLOPS bf16 dense), which only the
 tensor cores reach. Where both operands are bf16 (or both fp16) and a TMA
-tensor map can describe them (`wgmma_b_major`) — every train GEMM — the
-tensor-core variant runs: 128 x 256 CTA tiles, two consumer warpgroups on
-`wgmma` with fp32 accumulators in registers, a producer thread keeping a
-4-stage shared-memory ring filled with TMA loads, B read in place whether
-it is a (K, N) weight or `embed.T`, K not split (on the card a split's
-fp32 partials cost more than the SMs it fills gave back).
+tensor map can describe them (`wgmma_b_major`) — every train GEMM, forward
+and backward — the tensor-core variant runs: 128 x 256 CTA tiles, two
+consumer warpgroups on `wgmma` with fp32 accumulators in registers, a
+producer thread keeping a 4-stage shared-memory ring filled with TMA
+loads, B read in place whether it is a (K, N) weight or `embed.T`, A read
+in place whether it is an activation or the M-contiguous `a.T` of the
+backward's weight gradient, K not split (on the card a split's fp32
+partials cost more than the SMs it fills gave back).
 `wgmma_geometry` is its pure-Python mirror. Everything else — fp32, fp8
 e4m3 and int8 inputs, mixed dtypes, strides a tensor map cannot describe —
 takes the SIMT tile kernel, which stages 64 x 64 fp32 tiles in shared
@@ -97,6 +99,10 @@ WGMMA_STAGE_BYTES = (WGMMA_BM * WGMMA_BK + WGMMA_BK * WGMMA_BN) * 2
 # the ring, 1 KB of slack to align it to 1024 bytes, two barriers a stage
 WGMMA_SMEM = WGMMA_STAGES * WGMMA_STAGE_BYTES + 1024 + 2 * WGMMA_STAGES * 8
 WGMMA_MAX_N_TILES = 65535                  # grid.y
+# the (A, B) majors the kernel is built for: the forward's activation
+# against a (K, N) weight or `embed.T`, the backward's da = g @ b.T (b.T is
+# K-contiguous; lm_head's is `embed`, N-contiguous) and db = a.T @ g
+WGMMA_MAJORS = (("k", "n"), ("k", "k"), ("m", "n"))
 
 
 _launches = 0
@@ -166,24 +172,36 @@ def tma_describable(t: torch.Tensor, inner_dim: int) -> bool:
             and t.stride(outer_dim) >= t.shape[inner_dim])
 
 
+def wgmma_a_major(a: torch.Tensor) -> Optional[str]:
+    """A's major as a tensor map reads it: 'k' (an activation, K-contiguous)
+    or 'm' (the backward's `a.T`, M-contiguous); None when neither."""
+    if tma_describable(a, 1):
+        return "k"
+    if tma_describable(a, 0):
+        return "m"
+    return None
+
+
 def wgmma_b_major(a: torch.Tensor, b: torch.Tensor) -> Optional[str]:
-    """B's major, 'n' (a (K, N) weight) or 'k' (`embed.T`), when A and B can
-    feed the tensor-core variant; None when they cannot: unless both are
-    bf16 or both fp16, A is K-contiguous and B is N- or K-contiguous, each
-    as `tma_describable` says, and the N tiles fit the grid."""
+    """B's major, 'n' (a (K, N) weight, or the gradient g) or 'k'
+    (`embed.T`, or a weight's `b.T`), when A and B can feed the
+    tensor-core variant; None when they cannot: unless both are bf16 or
+    both fp16, each is contiguous along one dimension as `tma_describable`
+    says, the (A, B) majors are an instance the kernel has
+    (`WGMMA_MAJORS`), and the N tiles fit the grid."""
     if a.dtype != b.dtype or a.dtype not in WGMMA_DTYPES:
         return None
     m, k = a.shape
     n = b.shape[1]
     if min(m, n, k) < 1 or math.ceil(n / WGMMA_BN) > WGMMA_MAX_N_TILES:
         return None
-    if max(m, n, k) >= 2 ** 31 or not tma_describable(a, 1):
+    if max(m, n, k) >= 2 ** 31:
         return None
-    if tma_describable(b, 1):
-        return "n"
-    if tma_describable(b, 0):
-        return "k"
-    return None
+    b_major = ("n" if tma_describable(b, 1)
+               else "k" if tma_describable(b, 0) else None)
+    if (wgmma_a_major(a), b_major) not in WGMMA_MAJORS:
+        return None
+    return b_major
 
 
 class WgmmaGeometry(NamedTuple):
@@ -301,7 +319,8 @@ def plan_launch(m: int, n: int, k: int, block_shape: Tuple[int, int, int],
     Up to `STREAM_MAX_M` rows with a vector-loadable B (`layout`), a stream
     kernel runs, laid out by `stream_geometry`. Otherwise, when the
     operands can feed the tensor cores (`wgmma_b`: B's major as
-    `wgmma_b_major` gives it), the tensor-core variant runs, laid out by
+    `wgmma_b_major` gives it, for a K- or M-contiguous A), the tensor-core
+    variant runs, laid out by
     `wgmma_geometry`, K unsplit. Otherwise (and by default) the SIMT tile
     kernel runs, with K split in whole plan-`bk` blocks until the grid
     holds about two CTAs per SM. `bk` is the only part of the block shape

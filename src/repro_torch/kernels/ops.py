@@ -10,9 +10,19 @@ or copied here and the result equals the reference's padded-then-sliced one.
 `core/gemm.py` call it with the lowered plan's `InnerKernel`, so the
 planner's block geometry and compute dtype reach the per-device GEMM. It is
 a `torch.autograd.Function` (the reference's `jax.custom_vjp`) whose backward
-is two transposed fp32 matmuls, and it never *narrows* operands: casting to
+is the two transposed products, and it never *narrows* operands: casting to
 the kernel's dtype happens only when that dtype is at least as wide as the
 data — quantizing to fp8/int8 is the model's decision, not the scheduler's.
+
+The backward's precision follows the reference on its chip. The
+reference's `_local_matmul_bwd` is `jnp.dot` on fp32 operands at DEFAULT
+precision, which a TPU runs as bfloat16 passes (and an H100 as TF32); only
+its CPU run is IEEE fp32. So CUDA operands saved as bf16 or fp16 take
+`backward_products`: g is rounded to the operand dtype (on a 1x1 mesh it
+is the fp32 image of a bf16 gradient, since every mode body returns
+`.to(a.dtype)`, so the rounding is exact) and both products run on
+`mmad`'s tensor cores with fp32 sums. CPU tensors and fp32 operands keep
+the fp32 products, which is what the CPU parity tests compare.
 
 Dispatch follows the tensors' device: CUDA tensors run the kernel (or the
 wrapper raises), CPU tensors run the plain version. There is no fallback
@@ -114,6 +124,27 @@ def _local_matmul_impl(a: torch.Tensor, b: torch.Tensor,
                        out_dtype=torch.float32)
 
 
+def tensor_core_backward(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether `local_matmul`'s backward runs on `mmad`: CUDA operands saved
+    as bf16 (or fp16) on both sides. Chosen by device and dtype alone; a
+    launch the kernel refuses raises, as the forward's does."""
+    return (a.is_cuda and b.is_cuda and a.dtype == b.dtype
+            and a.dtype in (torch.bfloat16, torch.float16))
+
+
+def backward_products(g: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """da = g @ b.T and db = a.T @ g on `mmad`, g rounded to the operand
+    dtype, fp32 sums, each rounded once to its operand's dtype. The
+    operands stay views: b.T is K-contiguous (lm_head's is `embed`,
+    N-contiguous) and a.T M-contiguous, which the tensor-core variant reads
+    in place."""
+    g = g.to(a.dtype)
+    da = mmad(g, b.T, out_dtype=torch.float32).to(a.dtype)
+    db = mmad(a.T, g, out_dtype=torch.float32).to(b.dtype)
+    return da, db
+
+
 class _LocalMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, kernel):
@@ -122,8 +153,9 @@ class _LocalMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # plain products outside any kernel, as in the reference
         a, b = ctx.saved_tensors
+        if tensor_core_backward(a, b):
+            return (*backward_products(g, a, b), None)
         g32 = g.float()
         da = torch.matmul(g32, b.float().T).to(a.dtype)
         db = torch.matmul(a.float().T, g32).to(b.dtype)
@@ -137,9 +169,10 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor,
     CUDA tensors run the `mmad` kernel, given the kernel's block geometry
     (which its decode-path variants do not read; see `kernels/mmad.py`); CPU
     tensors run the plain fp32 product (the reference's CPU expression).
-    Reverse-differentiable (transposed fp32 matmuls), so routed training
-    works through the kernel path too; with no gradient to record (serving
-    under `inference_mode`) the autograd node is skipped."""
+    Reverse-differentiable (`backward_products` on the card for bf16 and
+    fp16 operands, fp32 matmuls otherwise), so routed training works
+    through the kernel path too; with no gradient to record (serving under
+    `inference_mode`) the autograd node is skipped."""
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _LocalMatmul.apply(a, b, kernel)
     return _local_matmul_impl(a, b, kernel)

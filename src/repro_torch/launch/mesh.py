@@ -1,14 +1,27 @@
 """Host mesh construction and device resolution.
 
-The reference builds a `jax.make_mesh` over the host's devices. This slice
-runs on one device, so the host mesh is a 1x1 record exposing what the
-lowering and the mode bodies read: `.shape[axis]`, `.axis_names` and the
-`.device` the tensors live on.
+The reference builds a `jax.make_mesh` over the host's devices. The port
+has two meshes, both exposing what the lowering and the mode bodies read
+(`.shape[axis]`, `.axis_names`, the `.device` the tensors live on):
+
+- `HostMesh`, the 1x1 mesh of one device: every collective over it is the
+  identity and nothing is launched for it (one H100);
+- `DistMesh`, a mesh over an initialised `torch.distributed` world of more
+  than one rank: this rank's coordinates, and a process group for each
+  axis and for each sub-axis of every `MeshView` the lowering can name,
+  all created when the mesh is made (the modes reduce over one axis at a
+  time; the world's default group gathers the global result).
+
+`make_host_mesh` returns a `DistMesh` when a process group of more than
+one rank is initialised, else a `HostMesh`. NCCL puts one rank on each
+card, so on one H100 it is always the 1x1 mesh; the multi-rank meshes run
+in the CPU tests as gloo processes (`tests/test_torch_dist.py`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Tuple
+import math
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -19,6 +32,85 @@ class HostMesh:
     axis_names: Tuple[str, ...] = ("data", "model")
     shape: Mapping[str, int] = dataclasses.field(
         default_factory=lambda: {"data": 1, "model": 1})
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def _strides(axis_names: Sequence[str],
+             shape: Mapping[str, int]) -> Dict[str, int]:
+    """Rank strides of a row-major mesh: the last axis is minor."""
+    out, step = {}, 1
+    for ax in reversed(axis_names):
+        out[ax] = step
+        step *= shape[ax]
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DistMesh:
+    """A device mesh over an initialised `torch.distributed` world.
+
+    Ranks fill the mesh row-major, as `jax.make_mesh` fills its device
+    grid: rank = sum of coordinate x stride, the last axis minor. `groups`
+    maps a tuple of global ranks (ascending, which is axis order) to its
+    process group; it holds every group this rank belongs to, created on
+    every rank in one order by `make_dist_mesh`. A view (`view`) shares
+    them: no group is ever created lazily."""
+    device: torch.device
+    axis_names: Tuple[str, ...]
+    shape: Mapping[str, int]
+    rank: int
+    strides: Mapping[str, int]
+    groups: Mapping[Tuple[int, ...], Any]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def coord(self, axis: str, rank: Optional[int] = None) -> int:
+        """The coordinate of `rank` (this one by default) on `axis`."""
+        r = self.rank if rank is None else rank
+        return r // self.strides[axis] % self.shape[axis]
+
+    def axis_ranks(self, axis: str, rank: Optional[int] = None
+                   ) -> Tuple[int, ...]:
+        """The global ranks that share every coordinate of `rank` (this one
+        by default) but the one on `axis`, in axis order."""
+        r = self.rank if rank is None else rank
+        base = r - self.coord(axis, r) * self.strides[axis]
+        return tuple(base + c * self.strides[axis]
+                     for c in range(self.shape[axis]))
+
+    def group(self, axis: str):
+        """The process group along `axis` through this rank."""
+        ranks = self.axis_ranks(axis)
+        if ranks not in self.groups:
+            raise KeyError(f"no process group for axis {axis} (ranks "
+                           f"{ranks}); groups are made by make_dist_mesh")
+        return self.groups[ranks]
+
+    def view(self, splits) -> "DistMesh":
+        """The mesh with physical axes split into sub-axes (a `MeshView`'s
+        `splits`: outer-major, so the device order is kept), sharing this
+        mesh's process groups."""
+        split_map = dict(splits)
+        names, shape, strides = [], {}, {}
+        for ax in self.axis_names:
+            subs = split_map.get(ax, ((ax, self.shape[ax]),))
+            if math.prod(size for _, size in subs) != self.shape[ax]:
+                raise ValueError(f"view {subs} does not split axis {ax} of "
+                                 f"size {self.shape[ax]}")
+            step = self.strides[ax]
+            for name, size in reversed(subs):
+                strides[name] = step
+                step *= size
+            for name, size in subs:
+                names.append(name)
+                shape[name] = size
+        return DistMesh(self.device, tuple(names), shape, self.rank, strides,
+                        self.groups)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -32,6 +124,49 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def make_host_mesh(device="cuda") -> HostMesh:
-    """The 1x1 ('data', 'model') mesh of one device."""
-    return HostMesh(device=resolve_device(device))
+def make_dist_mesh(shape: Tuple[int, int], device,
+                   axis_names: Tuple[str, str] = ("data", "model")
+                   ) -> DistMesh:
+    """A (rows, cols) `DistMesh` over the initialised world. Collective:
+    every rank calls it with the same arguments, and it creates, in one
+    order, the process group of every axis and of every sub-axis of the
+    views `core.lower.mesh_views` lists (the only views a plan can name)."""
+    import torch.distributed as dist
+    from repro_torch.core.lower import mesh_views
+
+    world = dist.get_world_size()
+    sizes = dict(zip(axis_names, shape))
+    if math.prod(shape) != world:
+        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
+                         f"the world has {world}")
+    mesh = DistMesh(torch.device(device), tuple(axis_names), sizes,
+                    dist.get_rank(), _strides(axis_names, sizes), {})
+    wanted = []
+    for m in [mesh] + [mesh.view(v.splits)
+                       for v in mesh_views(sizes, *axis_names)]:
+        for ax in m.axis_names:
+            if m.shape[ax] < 2:
+                continue
+            for r in range(world):
+                ranks = m.axis_ranks(ax, r)
+                if ranks not in wanted:
+                    wanted.append(ranks)
+    groups = {}
+    for ranks in wanted:                 # the same order on every rank
+        group = dist.new_group(list(ranks))
+        if mesh.rank in ranks:
+            groups[ranks] = group
+    return dataclasses.replace(mesh, groups=groups)
+
+
+def make_host_mesh(device="cuda"):
+    """The host's mesh: over an initialised process group of more than one
+    rank, a (world, 1) ('data', 'model') `DistMesh`, as the reference's
+    `make_host_mesh` lays out its devices; otherwise the 1x1 mesh of one
+    device."""
+    dev = resolve_device(device)
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return make_dist_mesh((dist.get_world_size(), 1), dev)
+    return HostMesh(device=dev)

@@ -7,7 +7,7 @@ Port of `repro/launch/train.py` on one device (the device's 1x1 mesh):
 
 Runs on the card unless `--device cpu` is given; with no card it raises.
 Without `--smoke` the model is the full configuration, still on one device
-(`--multi-pod` waits for the multi-rank slice).
+(`--multi-pod` waits for multi-rank training with sharded parameters).
 
 Features: deterministic stateless data, microbatching, optional int8
 gradient compression, atomic checkpoints + auto-resume, heartbeat files,
@@ -46,8 +46,8 @@ from repro_torch.obs import (Tracer, build_run_report, render_run_report,
 from repro_torch.optim import adamw, compress
 from repro_torch.train.steps import make_train_step
 
-_ROADMAP_MULTI_RANK = ("ROADMAP.md, queue 1: multi-rank modes over "
-                       "torch.distributed")
+_ROADMAP_MULTI_RANK = ("ROADMAP.md, queue 1: multi-rank training with "
+                       "sharded parameters")
 
 
 def parse_args(argv=None) -> argparse.Namespace:

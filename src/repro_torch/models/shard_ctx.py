@@ -5,13 +5,15 @@ before the model runs and no-ops when absent:
 
 1. **Activation-sharding context** (`set_mesh` / `constrain_tokens`): in
    the reference it pins the residual stream's (batch=dp) layout at every
-   block boundary. On one device there is nothing to pin, so
-   `constrain_tokens` is the identity until the multi-rank slice.
+   block boundary. In the port activations are whole on every rank (the
+   mode bodies take their blocks and gather their outputs), so there is
+   nothing to pin and `constrain_tokens` is the identity on every mesh.
 
 2. **GEMM-routing context** (`set_gemm_context` / `GemmContext`): the mesh
    context extended into a full gemm context. It carries the device mesh plus
    the deployment `Planner` whose warmed plan cache decides how each model
-   matmul executes; `repro_torch.models.matmul.pmm` consults it at trace time and
+   matmul executes (a `HostMesh` of one device or a `DistMesh` over a
+   `torch.distributed` world); `repro_torch.models.matmul.pmm` consults it at trace time and
    dispatches through `repro_torch.core.gemm.dit_gemm`. The context also records
    every (tag, GEMMShape) the model actually traces — the ground truth that
    `repro_torch.deploy.planner.model_workload` is cross-validated against — and
@@ -234,5 +236,5 @@ def gemm_context(ctx: GemmContext) -> Iterator[GemmContext]:
 
 def constrain_tokens(x: torch.Tensor) -> torch.Tensor:
     """(B, S, D) or (B, S): batch over the DP axes when it divides — the
-    identity on one device, which is all this slice runs."""
+    identity in the port, whose activations are whole on every rank."""
     return x

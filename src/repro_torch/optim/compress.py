@@ -5,8 +5,8 @@ feedback. The gradient is quantized before the pod-axis reduction and the
 quantization residual is carried into the next step. Gradients and
 residuals are name -> tensor mappings (the model's parameter names).
 `torch.round` rounds half to even, as `jnp.round` does. On one device there
-is no reduction to shrink, so the round trip only shapes the numerics the
-multi-rank slice will reduce.
+is no reduction to shrink, so the round trip only shapes the numerics that
+multi-rank training with sharded parameters will reduce.
 """
 from __future__ import annotations
 

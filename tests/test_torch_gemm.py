@@ -1,7 +1,7 @@
 """Parity of the PyTorch port's `dit_gemm` with the JAX reference on a 1x1
 mesh: every exec mode, forward and grads, with and without a plan-carried
-inner kernel; plan-driven dispatch of batched operands; and the refusal of
-multi-device meshes until the port's `torch.distributed` slice.
+inner kernel; plan-driven dispatch of batched operands. The multi-rank
+meshes are held to the reference in tests/test_torch_dist.py.
 
 The reference mesh uses Auto axis types (jax 0.9's `make_mesh` defaults to
 Explicit axes, on which the reference's modes raise). Both sides accumulate
@@ -176,13 +176,3 @@ def test_schedule_dispatch_lowers_and_matches_reference(dataflow):
     assert plans[0] == plans[1]
     close(outs[1], outs[0], shape[2])
 
-
-def test_multi_device_mesh_raises():
-    mesh = HostMesh(device=torch.device("cpu"), shape={"data": 2, "model": 2})
-    a, b = torch.ones(8, 8), torch.ones(8, 8)
-    for mode in ("auto", "summa", "cannon", "splitk", "allgather"):
-        with pytest.raises(NotImplementedError, match="torch.distributed"):
-            tgemm.dit_gemm(a, b, mesh, mode=mode)
-    view = tlower.MeshView(splits=(("model", (("model", 1), ("splitk", 2))),))
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        view.materialize(host_mesh(("data", "model")))

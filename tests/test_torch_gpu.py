@@ -324,6 +324,96 @@ def test_wgmma_matches_plain_at_the_train_shapes(cuda, shape, b_major):
         assert mmad_mod.launch_count() == before + 3
 
 
+@pytest.mark.parametrize("shape", TRAIN_SHAPES,
+                         ids=["qo", "kv", "gate_up", "down", "lm_head"])
+def test_backward_products_at_the_train_shapes(cuda, shape):
+    """The backward of each train GEMM on the tensor-core kernel:
+    da = g @ b.T and db = a.T @ g, the operands views (b.T K-contiguous,
+    lm_head's `embed` N-contiguous, a.T M-contiguous), one launch each,
+    against the fp32 plain version under `tensor_core_atol` plus one bf16
+    ulp (each is rounded once to bf16)."""
+    m, k, n, block = shape
+    g = torch.Generator(device=cuda).manual_seed(m + 3 * k + n)
+    lm_head = n == 256000
+    a, b = _wgmma_operands(m, k, n, "k" if lm_head else "n", torch.bfloat16,
+                           g, cuda)
+    grad = _draw((m, n), torch.bfloat16, g, cuda)
+    g32 = grad.float()
+    for x, y in ((grad, b.T), (a.T, grad)):
+        assert _plan(x, y, block, cuda)[0] == mmad_mod.WGMMA
+    assert mmad_mod.wgmma_a_major(a.T) == "m"
+    before = mmad_mod.launch_count()
+    da, db = ops.backward_products(g32, a, b)
+    torch.cuda.synchronize()
+    assert mmad_mod.launch_count() == before + 2
+    assert da.dtype == db.dtype == torch.bfloat16
+    _assert_close(da, ref.mmad_ref(grad, b.T, torch.float32), n,
+                  torch.bfloat16, tensor_cores=True)
+    del da
+    _assert_close(db, ref.mmad_ref(a.T, grad, torch.float32), m,
+                  torch.bfloat16, tensor_cores=True)
+
+
+def test_local_matmul_backward_runs_on_the_tensor_cores(cuda):
+    """bf16 operands on the card: the forward and both backward products
+    are `mmad` launches (three), and the grads match the fp32 products of
+    the same bf16 values; fp32 operands keep the fp32 backward (one
+    launch)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    kernel = InnerKernel(128, 128, 64, dtype="bfloat16")
+    a = _draw((256, 512), torch.bfloat16, g, cuda).requires_grad_(True)
+    b = _draw((512, 384), torch.bfloat16, g, cuda).requires_grad_(True)
+    grad = _draw((256, 384), torch.bfloat16, g, cuda)
+    before = mmad_mod.launch_count()
+    ops.local_matmul(a, b, kernel).backward(grad.float())
+    torch.cuda.synchronize()
+    assert mmad_mod.launch_count() == before + 3
+    _assert_close(a.grad, grad.float() @ b.detach().float().T, 384,
+                  torch.bfloat16, tensor_cores=True)
+    _assert_close(b.grad, a.detach().float().T @ grad.float(), 256,
+                  torch.bfloat16, tensor_cores=True)
+    x = a.detach().float().requires_grad_(True)
+    before = mmad_mod.launch_count()
+    ops.local_matmul(x, b.detach().float(), kernel).sum().backward()
+    assert mmad_mod.launch_count() == before + 1
+
+
+@pytest.mark.parametrize("composition", ["merge", "ring"])
+def test_flat_attention_takes_bf16_products_on_the_card(cuda, composition):
+    """The routed attention's einsums on the card: bf16 q, k, v take
+    tensor-core products with fp32 sums and fp32 out (`aten::bmm.dtype`,
+    whose backward the port writes), as the reference's DEFAULT-precision
+    einsums do on its chip; the CPU keeps the fp32 einsums. Output and the
+    grads of q, k and v against the CPU on the same bf16 values: within
+    2e-2 (bf16's 2^-8 relative rounding of the output and of the backward's
+    cotangent, on unit-normal inputs)."""
+    from repro_torch.core import attention, lower
+    from repro_torch.launch.mesh import HostMesh
+    plan = lower.ExecPlan(
+        mode="flat_" + composition, axes={"row": "data", "col": "model"},
+        kwargs={"composition": composition, "head_shard": False,
+                "kv_chunk": 256}, view=None, requested="flat_attention",
+        grid=(1, 1, 1), shape=(0, 0, 0))
+    g = torch.Generator().manual_seed(8)
+    shapes = {"q": (2, 64, 8, 32), "k": (2, 64, 2, 32), "v": (2, 64, 2, 32)}
+    host = {n: torch.randn(sh, generator=g).bfloat16()
+            for n, sh in shapes.items()}
+    ct = torch.randn(shapes["q"], generator=g)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        x = {n: t.to(dev, copy=True).requires_grad_(True)
+             for n, t in host.items()}
+        assert attention._tensor_core_einsums(x["q"], x["k"], x["v"]) == (
+            dev.type == "cuda")
+        y = attention.flat_attention(x["q"], x["k"], x["v"],
+                                     HostMesh(device=dev), plan)
+        y.float().backward(ct.to(dev))
+        out[dev.type] = [y.float().cpu()] + [x[n].grad.float().cpu()
+                                             for n in "qkv"]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
 RAGGED = [
     # (m, k, n): no dim a multiple of the 128 x 256 tile or the 64-deep K
     # step; bf16 rows of 8 elements are the narrowest a tensor map takes
@@ -465,9 +555,10 @@ def assert_first_adam_step(old, new_t, new_j, g_t, g_j, lr, wd, eps,
 
 def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, tmp_path,
                                                       capsys):
-    """One routed train step (bf16 smoke config) on the card, with the tile
-    kernel and the fp32 backward, against the same step on the CPU (the
-    plain versions): loss and grad norm within 2e-2 relative, the serve
+    """One routed train step (bf16 smoke config) on the card, with the
+    tensor-core kernel forward and backward, against the same step on the
+    CPU (the plain versions, fp32 backward): loss and grad norm within 2e-2
+    relative, the serve
     tests' bf16 tolerance; parameters as `assert_first_adam_step` holds
     them (the first step is about lr * sign(g): within an ulp where the
     grads agree in sign, at most one step where they do not), which an
@@ -495,8 +586,10 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, tmp_path,
             shard_ctx.set_gemm_context(None)
         assert ctx.stats.resolve_rate == 1.0
         if dev.type == "cuda":
-            assert mmad_mod.launch_count() == ctx.stats.executed_gemm == 2 * (
-                7 * cfg.n_layers + 1)
+            # forward and remat recompute, plus the backward's two products
+            # for each forward dispatch
+            assert ctx.stats.executed_gemm == 2 * (7 * cfg.n_layers + 1)
+            assert mmad_mod.launch_count() == 2 * ctx.stats.executed_gemm
         out[dev.type] = (m, {k: v.detach().float().cpu().numpy()
                              for k, v in params.named_parameters()},
                          {k: v.cpu().numpy() / (1 - opt.b1)

@@ -712,7 +712,8 @@ def test_train_main_on_cpu_writes_a_resolved_run_report(tmp_path, capsys):
 
 def test_train_without_a_card_raises(monkeypatch):
     """No CPU fallback: without `--device cpu` and with no card, the
-    launcher raises; `--multi-pod` waits for the multi-rank slice."""
+    launcher raises; `--multi-pod` waits for multi-rank training with
+    sharded parameters."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--arch", "gemma-2b", "--smoke", "--skip-plan-warmup"])

@@ -4,9 +4,10 @@ The kernel itself runs only on the card (tests/test_torch_gpu.py); what
 decides that it runs — the TMA-legality predicate `wgmma_b_major`, the
 launch layout `wgmma_geometry` and `plan_launch`'s choice of variant — is
 Python over shapes, dtypes, strides and alignment, so it is checked here
-on CPU tensors. The last test runs gemma-2b-smoke's routed train step on
-the CPU with a recorder around `mmad` and asserts that every routed
-forward GEMM would take the tensor-core variant on the card.
+on CPU tensors. The last tests run gemma-2b-smoke's routed train step on
+the CPU with a recorder around `mmad` and assert that every routed
+forward GEMM, and every product of the backward, would take the
+tensor-core variant on the card.
 
 This file imports neither jax nor the JAX package.
 """
@@ -51,7 +52,11 @@ def _predicate_cases():
         ("fp32 A, bf16 B", _t((64, 512), torch.float32), w, None),
         ("bf16 A, fp16 B", a, _t((512, 384), f16), None),
         ("K = 130: 260-byte rows", _t((64, 130)), _t((130, 384)), None),
-        ("A M-contiguous", _t((512, 64)).T, w, None),
+        ("A M-contiguous", _t((512, 64)).T, w, "n"),
+        ("A M-contiguous, B K-contiguous", _t((512, 64)).T, embed.T, None),
+        ("A M-contiguous, 2-byte row stride", _t((512, 65))[:, :64].T, w,
+         None),
+        ("A neither dim contiguous", _t((128, 1024))[:, ::2], w, None),
         ("A base 2 bytes off", wide[:, 1:513], w, None),
         ("A base 16 bytes off", wide[:, 8:520], w, "n"),
         ("B rows of 12 elements", a, _t((512, 12)), None),
@@ -68,9 +73,10 @@ CASES = _predicate_cases()
 
 @pytest.mark.parametrize("name,a,b,want", CASES, ids=[c[0] for c in CASES])
 def test_wgmma_b_major_is_the_tma_legality_predicate(name, a, b, want):
-    """bf16 or fp16 on both sides, A K-contiguous, B N- or K-contiguous,
-    16-byte aligned bases and 16-byte whole, non-overlapping rows; anything
-    else is None (the SIMT tile kernel)."""
+    """bf16 or fp16 on both sides, A K- or M-contiguous, B N- or
+    K-contiguous in a pair the kernel is built for ((K, N), (K, K),
+    (MN, N)), 16-byte aligned bases and 16-byte whole, non-overlapping
+    rows; anything else is None (the SIMT tile kernel)."""
     assert mmad_mod.wgmma_b_major(a, b) == want
 
 
@@ -157,6 +163,17 @@ ROUTES = [
     # few rows whose B no stream kernel loads: tensor cores
     ("bf16 decode, 7-wide padded B", _t((4, 512)), _t((512, 8))[:, :7],
      mmad_mod.WGMMA),
+    # the backward's products: da = g @ b.T, db = a.T @ g
+    ("bf16 da on a weight's b.T", _t((256, 384)), _t((512, 384)).T,
+     mmad_mod.WGMMA),
+    ("bf16 da on embed", _t((256, 384)), _t((384, 512)), mmad_mod.WGMMA),
+    ("bf16 db on a.T", _t((512, 256)).T, _t((512, 384)), mmad_mod.WGMMA),
+    ("fp16 db on a.T", _t((512, 256), torch.float16).T,
+     _t((512, 384), torch.float16), mmad_mod.WGMMA),
+    ("bf16 a.T against a K-contiguous B", _t((512, 256)).T,
+     _t((384, 512)).T, mmad_mod.TILE),
+    ("fp32 db on a.T", _t((512, 256), torch.float32).T,
+     _t((512, 384), torch.float32), mmad_mod.TILE),
 ]
 
 
@@ -251,3 +268,103 @@ def test_every_routed_train_gemm_qualifies_for_the_tensor_cores(tmp_path,
     assert majors == {"n", "k"}
     lm_head = [r for r in seen if r["shape"][1] == cfg.vocab]
     assert lm_head and all(r["major"] == "k" for r in lm_head)
+
+
+def test_wgmma_a_major_reads_strides():
+    """'k' for an activation, 'm' for its transpose, None for a view
+    contiguous along neither dimension or with 16-byte-broken rows."""
+    x = _t((256, 512))
+    assert mmad_mod.wgmma_a_major(x) == "k"
+    assert mmad_mod.wgmma_a_major(x.T) == "m"
+    assert mmad_mod.wgmma_a_major(x[:, ::2]) is None
+    assert mmad_mod.wgmma_a_major(_t((256, 130))) is None
+    assert mmad_mod.wgmma_a_major(_t((130, 260))[:, :256].T) is None
+    assert mmad_mod.wgmma_a_major(_t((130, 264))[:, :256].T) == "m"
+
+
+# ---------------------------------------------------------------------------
+# the backward: every product would take the tensor cores, g exactly bf16
+# ---------------------------------------------------------------------------
+
+def test_every_backward_product_qualifies_for_the_tensor_cores(
+        tmp_path, capsys, monkeypatch):
+    """gemma-2b-smoke (bf16) takes one routed train step on the CPU with
+    `tensor_core_backward` made to ignore the device, so the backward
+    calls `backward_products` as it does on the card. A recorder around
+    `mmad` sees every product: bf16 on both sides, TMA-legal, sent to the
+    tensor-core variant with the (A, B) majors the kernel is built for —
+    da = g @ b.T as (K, K) on a (K, N) weight and (K, N) on lm_head's
+    `embed`, db = a.T @ g as (MN, N). At every backward call g equals its
+    bf16 rounding exactly, so rounding it loses nothing."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh, train
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import init_params, make_trainable
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
+    seq = 32
+    cfg = dataclasses.replace(smoke_config("gemma-2b"), dtype=torch.bfloat16)
+    planner = train.warm_train_plans(cfg, 2, seq, str(tmp_path), (4, 4), 12)
+    params = make_trainable(init_params(torch.Generator().manual_seed(0),
+                                        cfg, "cpu"))
+    batch = {k: torch.from_numpy(v).long() for k, v in SyntheticLM(
+        DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=2)
+    ).batch(0).items()}
+    seen, grads = [], []
+    real_mmad, real_products = ops.mmad, ops.backward_products
+    state = {"backward": False}
+
+    def recorder(a, b, block_shape=(128, 128, 128), out_dtype=None):
+        if state["backward"]:
+            m, k = a.shape
+            n = b.shape[1]
+            major = mmad_mod.wgmma_b_major(a, b)
+            seen.append({
+                "shape": (m, n, k), "dtypes": (a.dtype, b.dtype),
+                "majors": (mmad_mod.wgmma_a_major(a), major),
+                "out": out_dtype,
+                "route": mmad_mod.plan_launch(
+                    m, n, k, block_shape, N_SMS, mmad_mod.b_layout(b),
+                    b.element_size(), major)[0]})
+        return real_mmad(a, b, block_shape, out_dtype)
+
+    def products(g, a, b):
+        grads.append(bool(torch.equal(g, g.bfloat16().float())))
+        state["backward"] = True
+        try:
+            return real_products(g, a, b)
+        finally:
+            state["backward"] = False
+
+    monkeypatch.setattr(ops, "mmad", recorder)
+    monkeypatch.setattr(ops, "backward_products", products)
+    monkeypatch.setattr(ops, "tensor_core_backward",
+                        lambda a, b: a.dtype == b.dtype == torch.bfloat16)
+    ctx = shard_ctx.GemmContext(mesh=mesh.make_host_mesh("cpu"),
+                                planner=planner)
+    with shard_ctx.gemm_context(ctx):
+        make_train_step(cfg, adamw.AdamWConfig())(
+            params, adamw.init(params), None, batch)
+    capsys.readouterr()
+    # one backward call (two products) per forward dispatch: half the
+    # routed dispatches, the other half being the remat recompute
+    assert len(grads) == ctx.stats.executed_gemm // 2 == 7 * cfg.n_layers + 1
+    assert all(grads)
+    assert len(seen) == 2 * len(grads) == ctx.stats.executed_gemm
+    bad = [r for r in seen if r["route"] != mmad_mod.WGMMA]
+    assert not bad, bad[:3]
+    for r in seen:
+        assert r["dtypes"] == (torch.bfloat16, torch.bfloat16), r
+        assert r["out"] == torch.float32, r
+    majors = {}
+    for r in seen:
+        majors.setdefault(r["majors"], set()).add(r["shape"][1] == cfg.d_model
+                                                  and r["shape"][2]
+                                                  == cfg.vocab)
+    # da on the weights (K, K), da on lm_head's embed (K, N), db (MN, N)
+    assert set(majors) == {("k", "k"), ("k", "n"), ("m", "n")}
+    assert majors[("k", "n")] == {True}
+    assert set(majors) <= set(mmad_mod.WGMMA_MAJORS)
