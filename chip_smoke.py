@@ -21,12 +21,13 @@ Phases (any failure exits non-zero and prints no result line):
 4. serve   — full-width, full-depth gemma-2b (random weights from a seed)
              through `repro_torch.launch.serve`: batch 4, prompt 32, gen
              32. Asserts plan-resolve rate 1.0, no silent degrade, one
-             `mmad` launch per routed GEMM dispatch, finite logits, and
-             first-step logits that match an unrouted run; then the device
-             busy share of the same decode steps, read from one profiled
-             window (`device_profile`: padded at its edges, which the
-             profiler may lose), in which every routed GEMM must be one
-             mmad kernel and no split-K reduce kernel may run;
+             `mmad` launch per routed GEMM dispatch, an observed workload
+             equal to `model_workload`'s, finite logits, and first-step
+             logits that match an unrouted run; then the device busy share
+             of the same decode steps, read from one profiled window
+             (`device_profile`: padded at its edges, which the profiler may
+             lose), in which every routed GEMM must be one mmad kernel and
+             no split-K reduce kernel may run;
 5. train   — full-width, full-depth gemma-2b (random weights from a
              seed) through `repro_torch.launch.train`'s own setup: batch 2,
              seq 1024, lr 1e-4, three steps on one fixed `SyntheticLM`
@@ -47,14 +48,33 @@ Phases (any failure exits non-zero and prints no result line):
              the crash-resume loop at smoke width on the card: a failure
              injected at step 3 with a checkpoint every 2 steps must end
              on the parameters of an uninterrupted run, bitwise;
-6. timing  — per decode shape and per train shape the kernel's time (held
+6. serve deepseek-moe-16b and serve qwen3-14b — the serve phase's
+             checks at full width and depth for the MoE model (28 layers,
+             64 routed experts top-6 + 2 shared; the router on `mmad` in
+             fp32) and the dense GQA model with qk-norm (40 layers, 40 / 8
+             heads). For the MoE model the first step's expert choices are
+             counted: between the routed and unrouted runs, and between
+             the two routers on the same input, each bounded; its logits
+             are held to the unrouted step's with the routed choices
+             pinned. One traced step splits `mmad` time from the kernels
+             of the MoE einsums (`moe.einsums` span). Plan warm-up time and
+             each phase's peak memory are printed; each model is freed
+             before the next phase;
+7. chunked_sdpa — `chunked_sdpa` against `_sdpa` at b = 1, seq 4096
+             (and a ragged 4000), bf16, causal, gemma-2b's heads (8 / 1 /
+             256) and qwen3-14b's (40 / 8 / 128): forward and the grads of
+             q, k and v within `ATTN_TOL`, then their times beside
+             `scaled_dot_product_attention`'s and their peak memory;
+8. timing  — per decode shape (gemma-2b, deepseek-moe-16b with its fp32
+             router, qwen3-14b) and per train shape the kernel's time (held
              to the tolerance again) beside the plain version's, one
              `torch.matmul` call's, the bound and the roofline share (bound
              / kernel time); per train shape also its TFLOPS and its
              backward's two `mmad` products beside their plain version,
-             bf16 `torch.matmul` and their bound;
-7. report  — one JSON line per kernel, the nvidia-smi line, and last the
-             `{"ok": true, "device": ...}` line.
+             bf16 `torch.matmul` and their bound; and deepseek-moe-16b's
+             expert einsums per decode step beside their bound;
+9. report  — one JSON line per kernel and path, the nvidia-smi line, and
+             last the `{"ok": true, "device": ...}` line.
 
 Exits 2 with no result when no CUDA device is present. Imports nothing of
 JAX and nothing of the JAX package.
@@ -73,6 +93,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12          # H100 SXM data sheet: HBM3 bandwidth
 H100_BF16_FLOPS = 989.4e12          # H100 SXM data sheet: dense bf16 tensor
+H100_FP32_FLOPS = 67e12             # H100 SXM data sheet: fp32, CUDA cores
 BATCH, PROMPT, GEN = 4, 32, 32
 SEED = 0
 # the train phase: the longest sequence the ported attention takes without
@@ -110,6 +131,16 @@ TRAIN_CASES = [
 # taken in different orders; one-ulp flips then travel through 18 layers of
 # untrained random weights, which amplify them (measured 1.8e-2 on an H100).
 FIRST_STEP_REL_L2 = 5e-2
+# MoE first step. The two routers' logits differ by summation order alone
+# (fp32 mmad against fp32 x @ w, ~1e-6): a choice flips on the same input
+# only where the k-th and (k+1)-th gates tie that closely, which random
+# weights make rare (~1e-5 per token-layer), so at most one is allowed.
+# Between the routed and unrouted runs the layers' inputs differ by bf16
+# roundings taken in other orders, and a choice flips where those move a
+# gate across its neighbour; a router computing anything else would
+# disagree on nearly every token-layer.
+SAME_INPUT_FLIPS = 1
+MOE_FLIP_SHARE = 0.2
 
 
 def fail(msg: str) -> None:
@@ -158,12 +189,14 @@ SPIN_KERNEL = "spin_kernel"             # what torch.cuda._sleep launches
 
 
 @contextlib.contextmanager
-def device_profile(torch, dev):
-    """A device-only `torch.profiler` window around the block's work, with
-    `PROFILE_EDGE_S` of host pause and `PROFILE_EDGE_KERNELS` spin kernels
-    at each edge; yields the profiler. `device_kernels` leaves the spin
-    kernels out."""
+def device_profile(torch, dev, host: bool = False):
+    """A device-only (`host`: and host-activity) `torch.profiler` window
+    around the block's work, with `PROFILE_EDGE_S` of host pause and
+    `PROFILE_EDGE_KERNELS` spin kernels at each edge; yields the profiler.
+    `device_kernels` leaves the spin kernels out."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     torch.cuda.synchronize(dev)
     with torch.profiler.profile(activities=acts) as prof:
         time.sleep(PROFILE_EDGE_S)
@@ -281,6 +314,7 @@ def check_kernels(torch, mmad_mod, ref) -> float:
         (4, 2048, 256000, (4, 512, 256), True),     # lm_head: embed.T, unsplit
         (4, 2048, 256, (4, 512, 256), True),        # column stream, split K
         (4, 512, 270336, (4, 512, 256), False),     # row stream, no fixup
+        (4, 2048, 64, (4, 256, 64), False),         # deepseek's fp32 router
         (2, 512, 384, (2, 128, 128), False),        # bm = 2
         (48, 120, 192, (24, 96, 40), False),        # tile: non-power-of-two
         (5, 130, 7, (8, 128, 128), False),          # tile: ragged
@@ -413,14 +447,16 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
     rows = []
     for (m, n, k), info in sorted(table.items()):
         block, count = info["block"], info["count"]
-        a = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-        copies = max(1, math.ceil(120e6 / (k * n * 2)))
-        if n == cfg.vocab:          # the tied lm_head: embed.T, a view
+        dtype = info.get("dtype", torch.bfloat16)   # the router's is fp32
+        size = torch.finfo(dtype).bits // 8
+        a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+        copies = max(1, math.ceil(120e6 / (k * n * size)))
+        if cfg.tie_embeddings and n == cfg.vocab:   # lm_head: embed.T, a view
             ws = [torch.randn((n, k), generator=g, device=dev)
-                  .to(torch.bfloat16).T for _ in range(copies)]
+                  .to(dtype).T for _ in range(copies)]
         else:
             ws = [torch.randn((k, n), generator=g, device=dev)
-                  .to(torch.bfloat16) for _ in range(copies)]
+                  .to(dtype) for _ in range(copies)]
         it = {"i": 0}
 
         def nxt():
@@ -429,7 +465,7 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
 
         variant = mmad_mod.plan_launch(
             m, n, k, block, torch.cuda.get_device_properties(dev)
-            .multi_processor_count, mmad_mod.b_layout(ws[0]), 2,
+            .multi_processor_count, mmad_mod.b_layout(ws[0]), size,
             mmad_mod.wgmma_b_major(a, ws[0]))[0]
         got = mmad_mod.mmad(a, ws[0], block, torch.float32)
         want = ref.mmad_ref(a, ws[0], torch.float32)
@@ -448,9 +484,11 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
         kernel_ms = timed(lambda: mmad_mod.mmad(a, nxt(), block,
                                                 torch.float32))
         flops = 2 * m * n * k
-        t_bytes = (m * k * 2 + k * n * 2 + m * n * 4) / H100_BYTES_PER_S * 1e3
-        t_ops = flops / H100_BF16_FLOPS * 1e3
-        row = {"path": "train" if train else "decode", "shape": [m, n, k],
+        t_bytes = ((m * k + k * n) * size + m * n * 4) / H100_BYTES_PER_S * 1e3
+        t_ops = flops / (H100_FP32_FLOPS if dtype == torch.float32
+                         else H100_BF16_FLOPS) * 1e3
+        row = {"path": f"{cfg.name} {'train' if train else 'decode'}",
+               "shape": [m, n, k], "dtype": str(dtype).split(".")[-1],
                "block": list(block), "variant": variant,
                "launches_per_step": count,
                "kernel_ms": kernel_ms,
@@ -529,7 +567,7 @@ def time_backward(torch, mmad_mod, ref, a, w, nxt, block, g, timed):
 
 
 def busy_share(torch, params, cfg, planner, prompts, dev,
-               unprofiled_step_ms: float, gemms_per_step: int) -> None:
+               unprofiled_step_ms: float, gemms_per_step: int) -> dict:
     """Device busy time and wall time per decode step, both read from one
     window: the main run's batch, prompts and positions (prefill token by
     token through a fresh routed context, then its GEN decode steps under
@@ -537,7 +575,8 @@ def busy_share(torch, params, cfg, planner, prompts, dev,
     device activity is traced: tracing every host op would slow the host,
     and with it the window, severalfold. Fails unless each of the step's
     `gemms_per_step` mmad calls ran as one kernel and none of them as the
-    tile kernel's separate split-K reduce."""
+    tile kernel's separate split-K reduce. Returns per step the busy, wall
+    and `mmad` ms."""
     from repro_torch.launch import serve
     from repro_torch.models import shard_ctx
     from repro_torch.models.model import decode_init
@@ -569,26 +608,175 @@ def busy_share(torch, params, cfg, planner, prompts, dev,
         fail(f"{mmad_calls} mmad kernels ran in {GEN} decode steps of "
              f"{gemms_per_step} routed GEMMs")
     mmad_ms = sum(us for us, _, name in kernels if "mmad" in name) / 1e3 / GEN
-    for us, count, name in kernels[:8]:
+    for us, count, name in kernels[:10]:
         print(f"  device {us / 1e3 / GEN:8.3f} ms/step  {count / GEN:7.1f} "
               f"calls/step  {name[:80]}", flush=True)
-    print(f"profiled window of {GEN} decode steps (batch {BATCH}, positions "
-          f"{PROMPT}-{PROMPT + GEN - 1}): device busy {busy_ms:.3f} ms per "
-          f"step ({mmad_ms:.3f} ms in mmad) against {wall_ms:.3f} ms per "
-          f"step wall in the same window: busy share {busy_ms / wall_ms:.1%}"
-          f"; the rest is host time between launches (the unprofiled main "
-          f"run took {unprofiled_step_ms:.3f} ms per step); the profile "
-          f"kept {edges[0]} + {edges[1]} of its 2 x {PROFILE_EDGE_KERNELS} "
-          f"edge kernels", flush=True)
+    print(f"profiled window of {GEN} {cfg.name} decode steps (batch {BATCH}, "
+          f"positions {PROMPT}-{PROMPT + GEN - 1}): device busy {busy_ms:.3f} "
+          f"ms per step ({mmad_ms:.3f} ms in mmad) against {wall_ms:.3f} ms "
+          f"per step wall in the same window: "
+          f"busy share {busy_ms / wall_ms:.1%}; the rest is host time between "
+          f"launches (the unprofiled main run took {unprofiled_step_ms:.3f} "
+          f"ms per step); the profile kept {edges[0]} + {edges[1]} of its 2 x "
+          f"{PROFILE_EDGE_KERNELS} edge kernels", flush=True)
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "mmad_ms": mmad_ms}
 
 
-def serve_gemma(torch, mmad_mod, cfg, dev):
+def tag_layers(cfg, tag: str) -> int:
+    """How many times a decode step dispatches the GEMM of `tag`: once per
+    layer that has it (attention in every layer, the dense MLP in the dense
+    layers, the router and shared experts in the MoE layers), lm_head
+    once."""
+    if tag == "lm_head":
+        return 1
+    moe_layers = cfg.n_layers - cfg.n_dense_layers if cfg.n_experts else 0
+    if tag.startswith("moe."):
+        return moe_layers
+    if tag.startswith("mlp."):
+        return cfg.n_layers - moe_layers
+    return cfg.n_layers
+
+
+def routing_census(torch, params, cfg, planner, prompts, dev):
+    """The MoE first decode step three ways, each layer's top-k choice
+    recorded: routed (router on `mmad` in fp32), unrouted with its own
+    choices (router `x @ w`), and unrouted with the routed run's choices
+    pinned (gates still its own). Returns the routed and pinned logits, and
+    counts over token-layers: choices that differ between the routed and
+    free unrouted runs, and choices the two routers make differently on the
+    same input (each routed layer's input also goes through `x @ w`)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, shard_ctx
+    from repro_torch.models.matmul import pmm
+    from repro_torch.models.model import decode_init, decode_step
+
+    real = moe.route
+    routed_choices, free_choices = [], []
+    same_input = {"flips": 0}
+
+    def differ(a, b):
+        return int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+
+    def in_routed(p, xt, c):
+        topv, topi = real(p, xt, c)
+        ctx = shard_ctx.get_gemm_context()
+        shard_ctx.set_gemm_context(None)
+        try:
+            same_input["flips"] += differ(topi, real(p, xt, c)[1])
+        finally:
+            shard_ctx.set_gemm_context(ctx)
+        routed_choices.append(topi)
+        return topv, topi
+
+    def in_free(p, xt, c):
+        topv, topi = real(p, xt, c)
+        free_choices.append(topi)
+        return topv, topi
+
+    pinned_queue = []
+
+    def in_pinned(p, xt, c):
+        gates = torch.softmax(pmm(xt.float(), p.router, tag="moe.router"),
+                              dim=-1)
+        topi = pinned_queue.pop(0)
+        topv = gates.gather(-1, topi)
+        return topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9), topi
+
+    def first_step(route):
+        moe.route = route
+        caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
+        return decode_step(params, caches, prompts[:, :1], 0, cfg)[0]
+
+    with torch.inference_mode():
+        try:
+            shard_ctx.set_gemm_context(None)
+            free = first_step(in_free)
+            serve.install_gemm_context(planner, dev)
+            routed = first_step(in_routed)
+            shard_ctx.set_gemm_context(None)
+            pinned_queue.extend(routed_choices)
+            plain = first_step(in_pinned)
+        finally:
+            moe.route = real
+            shard_ctx.set_gemm_context(None)
+    if pinned_queue or len(free_choices) != len(routed_choices):
+        fail("the three first steps routed different numbers of MoE layers")
+    flips = sum(differ(a, b) for a, b in zip(routed_choices, free_choices))
+    token_layers = sum(int(t.shape[0] * t.shape[1]) for t in routed_choices)
+    free_rel = float((routed - free).norm() / free.norm())
+    return routed, plain, {"token_layers": token_layers, "flips": flips,
+                           "same_input_flips": same_input["flips"],
+                           "free_rel_l2": free_rel}
+
+
+def step_split(torch, params, cfg, planner, prompts, dev,
+               gemms_per_step: int) -> dict:
+    """Device time of one routed decode step (the first, on fresh caches)
+    by where it goes: `mmad` kernels (by name), and the kernels launched
+    inside the MoE layers' dispatch, expert and combine einsums (the
+    `moe.einsums` profiler span, its device time summed over its ops'
+    kernels). A device-only window holds no span ranges, so this step is
+    traced with host activity too, which slows the host but not the
+    kernels."""
+    from repro_torch.launch import serve
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import decode_init, decode_step
+    from torch.autograd import DeviceType
+
+    serve.install_gemm_context(planner, dev)
+    with torch.inference_mode():
+        caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
+        decode_step(params, caches, prompts[:, :1], 0, cfg)     # warm
+        caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
+        with device_profile(torch, dev, host=True) as prof:
+            decode_step(params, caches, prompts[:, :1], 0, cfg)
+    shard_ctx.set_gemm_context(None)
+    edge_kernels_kept(torch, prof)
+    events = prof.events()
+    spans = [e for e in events if e.name == "moe.einsums"
+             and e.device_type == DeviceType.CPU]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name != "moe.einsums" and SPIN_KERNEL not in e.name
+               and not e.name.startswith("dit_gemm.")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    mmad_ms = sum(e.time_range.elapsed_us() for e in kernels
+                  if "mmad" in e.name) / 1e3
+    mmad_calls = sum("mmad" in e.name for e in kernels)
+    if mmad_calls != gemms_per_step:
+        fail(f"{mmad_calls} mmad kernels ran in the traced step of "
+             f"{gemms_per_step} routed GEMMs")
+    if len(spans) != cfg.n_layers - cfg.n_dense_layers:
+        fail(f"the traced step holds {len(spans)} 'moe.einsums' spans for "
+             f"{cfg.n_layers - cfg.n_dense_layers} MoE layers")
+    einsums_ms = sum(e.device_time_total for e in spans) / 1e3
+    if not 0 < einsums_ms < busy_ms:
+        fail(f"the MoE einsums' device time {einsums_ms} ms is not a part "
+             f"of the step's {busy_ms} ms")
+    print(f"one traced {cfg.name} decode step (host activity traced too): "
+          f"device busy {busy_ms:.3f} ms, of it {mmad_ms:.3f} ms in mmad and "
+          f"{einsums_ms:.3f} ms in the MoE dispatch, expert and combine "
+          f"einsums ({len(spans)} spans), "
+          f"{busy_ms - mmad_ms - einsums_ms:.3f} ms elsewhere", flush=True)
+    return {"step_busy_ms": busy_ms, "step_mmad_ms": mmad_ms,
+            "moe_einsums_ms": einsums_ms}
+
+
+def serve_model(torch, mmad_mod, cfg, dev):
+    """One serve phase at full width and depth: the first decode step
+    routed against unrouted; then the main path, `serve.generate` on a
+    fresh routed context with the launch count from zero, its run report
+    and assertions; then the device profile of the same decode steps.
+    Returns the launches, the per-step launch table per shape, and the
+    numbers the report prints."""
     from repro_torch.core.lower import lower_schedule
     from repro_torch.launch import serve
     from repro_torch.models import shard_ctx
     from repro_torch.models.model import decode_init, decode_step, init_params
     from repro_torch.obs import render_run_report
 
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
                          dev)
@@ -597,27 +785,55 @@ def serve_gemma(torch, mmad_mod, cfg, dev):
           f"parameters ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab}, {cfg.dtype}) initialised in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
-    plan_dir = ROOT / "build" / "chip_smoke" / "plan_cache"
+    plan_dir = ROOT / "build" / "chip_smoke" / "plan_cache" / cfg.name
     shutil.rmtree(plan_dir, ignore_errors=True)
+    t0 = time.perf_counter()
     planner = serve.warm_plan_cache(cfg, BATCH, PROMPT, PROMPT + GEN,
                                     str(plan_dir), (4, 4), 12)
+    warm_s = time.perf_counter() - t0
+    print(f"plan warm-up for {cfg.name}: {warm_s:.2f}s", flush=True)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                             generator=gen).to(dev)
 
-    # first decode step, unrouted (no context: x @ w) vs routed
-    with torch.inference_mode():
-        shard_ctx.set_gemm_context(None)
-        caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
-        plain, _ = decode_step(params, caches, prompts[:, :1], 0, cfg)
-        serve.install_gemm_context(planner, dev)
-        caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
-        routed, _ = decode_step(params, caches, prompts[:, :1], 0, cfg)
+    # first decode step, unrouted (no context: x @ w) vs routed; an MoE
+    # model's unrouted step takes the routed step's expert choices, and
+    # the choices themselves are counted apart
+    summary = {"warmup_s": warm_s}
+    if cfg.n_experts:
+        routed, plain, census = routing_census(torch, params, cfg, planner,
+                                               prompts, dev)
+        summary.update(census)
+        print(f"first decode step, top-{cfg.moe_top_k} expert choices over "
+              f"{census['token_layers']} token-layers: "
+              f"{census['flips']} differ between the routed and the "
+              f"unrouted run (limit {MOE_FLIP_SHARE:.0%} of them; free "
+              f"unrouted logits rel L2 {census['free_rel_l2']:.3e}, not "
+              f"held), {census['same_input_flips']} between the two "
+              f"routers on the same input (limit {SAME_INPUT_FLIPS})",
+              flush=True)
+        if census["same_input_flips"] > SAME_INPUT_FLIPS:
+            fail(f"the mmad router and x @ w chose different experts on the "
+                 f"same input for {census['same_input_flips']} token-layers")
+        if census["flips"] > MOE_FLIP_SHARE * census["token_layers"]:
+            fail(f"{census['flips']} of {census['token_layers']} token-layers "
+                 f"chose other experts routed than unrouted")
+    else:
+        with torch.inference_mode():
+            shard_ctx.set_gemm_context(None)
+            caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
+            plain, _ = decode_step(params, caches, prompts[:, :1], 0, cfg)
+            serve.install_gemm_context(planner, dev)
+            caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
+            routed, _ = decode_step(params, caches, prompts[:, :1], 0, cfg)
+            shard_ctx.set_gemm_context(None)
     rel = float((routed - plain).norm() / plain.norm())
     max_abs = float((routed - plain).abs().max())
-    print(f"first decode step, routed vs unrouted logits: rel L2 {rel:.3e} "
-          f"(tolerance {FIRST_STEP_REL_L2}), max abs {max_abs:.3e}, "
-          f"greedy tokens equal in "
+    summary["first_step_rel_l2"] = rel
+    print(f"first decode step, routed vs unrouted logits"
+          f"{' (expert choices pinned)' if cfg.n_experts else ''}: rel L2 "
+          f"{rel:.3e} (tolerance {FIRST_STEP_REL_L2}), max abs "
+          f"{max_abs:.3e}, greedy tokens equal in "
           f"{int((routed.argmax(-1) == plain.argmax(-1)).sum())}/{BATCH} "
           f"rows", flush=True)
     if not rel <= FIRST_STEP_REL_L2:
@@ -646,10 +862,18 @@ def serve_gemma(torch, mmad_mod, cfg, dev):
     if launches == 0 or launches != stats.executed_gemm:
         fail(f"mmad launched {launches} times for "
              f"{stats.executed_gemm} routed GEMM dispatches")
-    busy_share(torch, params, cfg, planner, prompts, dev,
-               out["t_gen"] / GEN * 1e3, launches // (PROMPT + GEN))
+    workload = report["workload"]
+    if workload["covered"] != 1.0 or workload["extra"] or workload["missing"]:
+        fail(f"the observed workload is not model_workload's: {workload}")
+    steps = PROMPT + GEN
+    summary.update(busy_share(torch, params, cfg, planner, prompts, dev,
+                              out["t_gen"] / GEN * 1e3, launches // steps))
+    if cfg.n_experts:
+        summary.update(step_split(torch, params, cfg, planner, prompts, dev,
+                                  launches // steps))
 
     tok_s = BATCH * GEN / out["t_gen"]
+    summary.update(tok_s=tok_s, step_ms=out["t_gen"] / GEN * 1e3)
     card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else str(dev))
     print(f"serve {cfg.name} on {card}: prefill "
@@ -659,19 +883,27 @@ def serve_gemma(torch, mmad_mod, cfg, dev):
           f"dispatches, resolve rate {stats.resolve_rate}", flush=True)
     print("sample generations:", out["tokens"][:2, :8].tolist(), flush=True)
 
-    # what one decode step launches, per shape, at the plan's geometry
-    steps = PROMPT + GEN
+    # what one decode step launches, per shape, at the plan's geometry: the
+    # routed GEMMs (the expert einsums are recorded, not dispatched)
     per_step = {}
-    for (tag, shape), _ in stats.observed.items():
+    for tag, shape in ctx.resolved:
+        if not hasattr(shape, "m"):             # attention
+            continue
         plan = planner.plan_cached(shape)
         ep = lower_schedule(plan.schedule, ctx.mesh, shape=shape)
         key = (shape.m, shape.n, shape.k)
-        rec = per_step.setdefault(key, {"block": ep.inner_kernel.geometry(),
-                                        "count": 0})
-        rec["count"] += cfg.n_layers if tag != "lm_head" else 1
+        rec = per_step.setdefault(key, {
+            "block": ep.inner_kernel.geometry(), "count": 0,
+            "dtype": torch.float32 if tag == "moe.router" else cfg.dtype})
+        rec["count"] += tag_layers(cfg, tag)
     if sum(r["count"] for r in per_step.values()) * steps != launches:
         fail("per-step launch table does not add up to the launches")
-    return launches, per_step
+    if dev.type == "cuda":
+        summary["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"{cfg.name} serve phase: peak device memory "
+              f"{summary['peak_gb']:.2f} GB", flush=True)
+    del params, planner
+    return launches, per_step, summary
 
 
 def train_steps(torch, s, batch, dev, n: int):
@@ -964,6 +1196,155 @@ def train_gemma(torch, mmad_mod, dev, arch_args):
     return per_step, bwd_per_step, table, summary
 
 
+# chunked_sdpa against _sdpa on the card: (name, heads, kv heads, head dim,
+# sequence). On bf16 q, k, v both take exact products with fp32 sums; the
+# chunked form takes them on the tensor cores and rounds each block's
+# unnormalised p (and in the backward the cotangent and ds) to bf16 where
+# _sdpa rounds the normalised probabilities, and both round out and the
+# grads to bf16 (2^-8 relative). Each of out, dq, dk, dv must agree within
+# ATTN_TOL of the largest |value| of _sdpa's.
+ATTN_CASES = [("gemma-2b", 8, 1, 256, 4096), ("qwen3-14b", 40, 8, 128, 4096),
+              ("qwen3-14b", 40, 8, 128, 4000)]
+ATTN_TOL = 2e-2
+
+
+def attention_vs_plain(torch, dev):
+    """`chunked_sdpa` (the unfused attention past 1024 tokens) against
+    `_sdpa` at b = 1 on bf16 inputs, causal, forward and the grads of q, k
+    and v; then the host-paced ms of each, forward and forward + backward,
+    beside one `scaled_dot_product_attention` call (PyTorch's fused
+    attention, GQA expanded) and the forward's bound; and the peak memory
+    each takes above its inputs."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import _sdpa, chunked_sdpa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = []
+    for name, h, hkv, d, s in ATTN_CASES:
+        q, k, v = (torch.randn((1, s, n, d), generator=g, device=dev)
+                   .to(torch.bfloat16).requires_grad_(True)
+                   for n in (h, hkv, hkv))
+        ct = torch.randn((1, s, h, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        results, peaks = {}, {}
+        for label, fn in (("chunked", chunked_sdpa), ("plain", _sdpa)):
+            q.grad = k.grad = v.grad = None
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = fn(q, k, v, causal=True)
+            out.backward(ct)
+            torch.cuda.synchronize(dev)
+            peaks[label] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+            results[label] = [out.detach()] + [t.grad for t in (q, k, v)]
+        errs = [float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max())
+                for a, b in zip(results["chunked"], results["plain"])]
+        if not all(math.isfinite(e) and e <= ATTN_TOL for e in errs):
+            fail(f"chunked_sdpa {name} s={s}: error over max |plain| "
+                 f"(out, dq, dk, dv) {errs} exceeds {ATTN_TOL}")
+        del results
+
+        def fwd(fn):
+            def run():
+                with torch.no_grad():
+                    fn(q, k, v, causal=True)
+            return run
+
+        def fwd_bwd(fn):
+            def run():
+                q.grad = k.grad = v.grad = None
+                fn(q, k, v, causal=True).backward(ct)
+            return run
+
+        def library(qq, kk, vv, causal):
+            out = F.scaled_dot_product_attention(
+                qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                is_causal=causal, enable_gqa=True)
+            return out.transpose(1, 2)
+
+        t_bytes = (2 * s * h * d + 2 * s * hkv * d) * 2 / H100_BYTES_PER_S
+        t_ops = 2 * s * s * h * d / H100_BF16_FLOPS    # causal: half of 4
+        row = {"case": name, "heads": [h, hkv, d], "seq": s,
+               "err_over_max": errs,
+               "chunked_ms": wall_ms(torch, fwd(chunked_sdpa), 3, 1),
+               "plain_ms": wall_ms(torch, fwd(_sdpa), 3, 1),
+               "library_ms": wall_ms(torch, fwd(library), 3, 1),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "chunked_fwd_bwd_ms": wall_ms(torch, fwd_bwd(chunked_sdpa),
+                                             3, 1),
+               "plain_fwd_bwd_ms": wall_ms(torch, fwd_bwd(_sdpa), 3, 1),
+               "library_fwd_bwd_ms": wall_ms(torch, fwd_bwd(library), 3, 1),
+               "chunked_peak_gb": peaks["chunked"],
+               "plain_peak_gb": peaks["plain"]}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, ct
+        torch.cuda.empty_cache()
+    print(f"chunked_sdpa vs _sdpa (causal, bf16, b = 1): {len(rows)} cases "
+          f"agree within {ATTN_TOL} of max |plain| in out, dq, dk and dv",
+          flush=True)
+    return rows
+
+
+def time_expert_einsums(torch, cfg, dev, seed: int) -> dict:
+    """The three expert einsums of one MoE layer at the decode step's
+    capacity (batch 4: every expert's gate, up and down weights multiplied,
+    as the one-hot dispatch does), device ms per step (times the MoE
+    layers) beside the bound of reading those weights once."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import activation
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = moe.Experts(g, cfg, dev)
+    cap = moe._capacity(BATCH, cfg)
+    xe = torch.randn((1, cfg.n_experts, cap, cfg.d_model), generator=g,
+                     device=dev).to(cfg.dtype)
+
+    def experts():
+        h = activation(cfg, torch.einsum("gecd,edf->gecf", xe, p.gate),
+                       torch.einsum("gecd,edf->gecf", xe, p.up))
+        return torch.einsum("gecf,efd->gecd", h, p.down)
+
+    layers = cfg.n_layers - cfg.n_dense_layers
+    weight_bytes = 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 2
+    row = {"path": f"{cfg.name} decode", "einsums": "expert gate, up, down",
+           "cap": cap, "layers": layers,
+           "ms": device_ms(torch, experts) * layers,
+           "bound_ms": weight_bytes / H100_BYTES_PER_S * 1e3 * layers,
+           "bound_by": "bytes"}
+    print(json.dumps(row), flush=True)
+    del p, xe
+    torch.cuda.empty_cache()
+    return row
+
+
+def release(torch) -> None:
+    """Free what a phase left on the card before the next one."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def path_entry(name: str, path: str, launches: int, rows) -> dict:
+    """One `kernels` entry for `mmad` on a decode path: the step's launches
+    and, per step, the timed shapes' sums."""
+    def per_step(key):
+        return sum(r[key] * r["launches_per_step"] for r in rows)
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mmad.cu",
+        "replaces": "src/repro/kernels/mmad.py:80", "path": path,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": per_step("kernel_ms"), "plain_ms": per_step("plain_ms"),
+        "bound_ms": per_step("bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+        else "operations",
+        "library_ms": per_step("library_ms")}
+
+
 def main() -> int:
     try:
         import torch
@@ -999,11 +1380,12 @@ def main() -> int:
     phase("kernels vs plain")
     check_kernels(torch, mmad_mod, ref)
 
-    phase("serve")
+    phase("serve gemma-2b")
     from repro_torch.configs import get_config
     cfg = get_config("gemma-2b")
     dev = torch.device("cuda")
-    launches, per_step = serve_gemma(torch, mmad_mod, cfg, dev)
+    launches, per_step, _ = serve_model(torch, mmad_mod, cfg, dev)
+    release(torch)
 
     phase("train")
     train_launches, train_bwd_launches, train_table, train_summary = \
@@ -1011,6 +1393,17 @@ def main() -> int:
                     ["--arch", "gemma-2b", "--device", "cuda", "--batch",
                      str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
     resume_check(torch, dev)
+    release(torch)
+
+    served = {}
+    for arch in ("deepseek-moe-16b", "qwen3-14b"):
+        phase(f"serve {arch}")
+        served[arch] = serve_model(torch, mmad_mod, get_config(arch), dev)
+        release(torch)
+
+    phase("chunked_sdpa vs plain")
+    attn_rows = attention_vs_plain(torch, dev)
+    release(torch)
 
     # times below are per gemma-2b decode step at batch 4, and per train
     # step at batch 2 x seq 1024: the sum over the step's launches of each
@@ -1019,6 +1412,11 @@ def main() -> int:
     rows = time_shapes(torch, mmad_mod, ref, cfg, per_step, dev, SEED + 1)
     train_rows = time_shapes(torch, mmad_mod, ref, cfg, train_table, dev,
                              SEED + 2, train=True)
+    path_rows = {arch: time_shapes(torch, mmad_mod, ref, get_config(arch),
+                                   table, dev, SEED + 4 + i)
+                 for i, (arch, (_, table, _)) in enumerate(served.items())}
+    experts_row = time_expert_einsums(torch, get_config("deepseek-moe-16b"),
+                                      dev, SEED + 6)
 
     def per_step_ms(key, rows=rows):
         return sum(r[key] * r["launches_per_step"] for r in rows)
@@ -1053,6 +1451,27 @@ def main() -> int:
           f"{train_summary['busy_ms'] / train_summary['wall_ms']:.1%}",
           flush=True)
 
+    for arch, (arch_launches, _, summary) in served.items():
+        rows_ = path_rows[arch]
+        entry = path_entry("mmad", arch, arch_launches, rows_)
+        einsums = (f"; the MoE einsums {summary['moe_einsums_ms']:.3f} ms "
+                   f"per step in the profile, the expert einsums "
+                   f"{experts_row['ms']:.3f} ms timed against a bound of "
+                   f"{experts_row['bound_ms']:.3f} ms"
+                   if arch == "deepseek-moe-16b" else "")
+        print(f"decode {arch} (batch {BATCH}): {summary['tok_s']:.1f} tok/s "
+              f"({summary['step_ms']:.3f} ms per step); mmad "
+              f"{arch_launches // (PROMPT + GEN)} launches per step, "
+              f"{entry['ms']:.3f} ms from the timed shapes against a bound "
+              f"of {entry['bound_ms']:.3f} ms (share "
+              f"{entry['bound_ms'] / entry['ms']:.1%}) and torch.matmul's "
+              f"{entry['library_ms']:.3f} ms ({summary['mmad_ms']:.3f} ms "
+              f"in the profile){einsums}; device busy share "
+              f"{summary['busy_ms'] / summary['wall_ms']:.1%}; plan warm-up "
+              f"{summary['warmup_s']:.2f}s; peak {summary['peak_gb']:.2f} GB",
+              flush=True)
+    print(json.dumps({"chunked_sdpa": attn_rows, "moe_expert_einsums":
+                      experts_row}), flush=True)
     print(json.dumps({"kernels": [{
         "name": "mmad", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mmad.cu",
@@ -1084,7 +1503,9 @@ def main() -> int:
         "train_backward_library_ms": backward_library,
         "train_backward_max_abs_err": max(r["backward_max_abs_err"]
                                           for r in train_rows),
-    }]}), flush=True)
+    }] + [path_entry(f"mmad/{arch}", f"{arch} decode, batch {BATCH}",
+                     served[arch][0], rows_)
+          for arch, rows_ in path_rows.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
-# gemma-2b is the one architecture of the first port slice; the other nine
-# configs join with their block kinds (ROADMAP.md, queue 1).
-from repro_torch.configs import gemma_2b
+# The architectures ported so far: the dense GQA family (gemma-2b, olmo-1b,
+# phi4-mini-3.8b, qwen3-14b) and the first MoE family (deepseek-moe-16b).
+# The other five configs join with their block kinds (ROADMAP.md, queue 1).
+from repro_torch.configs import (deepseek_moe_16b, gemma_2b, olmo_1b,
+                                 phi4_mini_3_8b, qwen3_14b)
 from repro_torch.configs.registry import (SHAPES, SUBQUADRATIC, cells,
                                           get_config, list_archs,
                                           smoke_config)

@@ -10,9 +10,14 @@ runs its arithmetic in the `mmad` CUDA kernel. At shutdown the launcher
 reports the plan-resolve rate over the matmuls the model actually ran and
 cross-validates `model_workload`'s prediction against them.
 
-Runs on the card unless `--device cpu` is given; with no card it raises.
+Every ported architecture serves this way (`--arch` gemma-2b, olmo-1b,
+phi4-mini-3.8b, qwen3-14b, deepseek-moe-16b): an MoE model's router and
+shared experts are routed GEMMs, and its expert einsums are recorded under
+the tags `model_workload` predicts, so the warm-up covers them and the
+cross-validation holds. Runs on the card unless `--device cpu` is given;
+with no card it raises.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --batch 4 --prompt-len 32 --gen 32
 """
 from __future__ import annotations

@@ -3,8 +3,9 @@ decode path against a preallocated KV cache.
 
 Port of the dense half of `repro/models/attention.py`. The projection
 matmuls are the DiT-scheduled GEMMs (`pmm`), and attention itself goes
-through the `pattn` funnel. MLA and `chunked_sdpa` (prefill and training
-over 1024 tokens) are later slices of the port (ROADMAP.md, queue 1).
+through the `pattn` funnel; past 1024 tokens its unfused form is
+`chunked_sdpa`, the reference's flash attention. MLA is a later slice of
+the port (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -42,12 +43,174 @@ def gqa_params(generator, cfg: ModelConfig, device="cuda") -> GQA:
     return GQA(generator, cfg, device)
 
 
-def chunked_sdpa(q, k, v, causal: bool, chunk_q: int = 256,
-                 chunk_k: int = 256, scale: Optional[float] = None):
-    """The reference's flash attention for sequences over 1024 tokens."""
-    raise NotImplementedError(
-        "chunked_sdpa (attention over more than 1024 tokens) is not ported "
-        "yet (ROADMAP.md, queue 1: attention and the model zoo)")
+def _chunk(s: int, target: int) -> int:
+    """Chunk size for a length-`s` axis: the target, capped at `s`. The
+    tail block is padded up to a full chunk and masked, so the chunk count
+    stays O(s / target) for every length."""
+    return max(1, min(target, s))
+
+
+def _causal_skip(qi: int, kj: int, cq: int, ck: int) -> bool:
+    """Whether key block `kj` lies wholly after query block `qi` (every
+    logit masked). Such a block adds exactly nothing: its p is exp(-1e30 -
+    m) = 0 and its correction exp(0) = 1, forward and backward, so the
+    loops leave it out where the reference computes and masks it."""
+    return kj * ck > qi * cq + cq - 1
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's `_flash` custom_vjp on (b*hkv, s, g, d) blocks.
+
+    Forward: online softmax over key blocks for each query block, running
+    max and sum in fp32; saves q, k, v, out and lse, O(S). Backward:
+    recomputes each block's p from lse, as the reference's
+    `_flash_vjp_bwd`. `tc`, a 16-bit dtype, takes bf16 (or fp16) products
+    with fp32 sums and fp32 out on the card (the reference's
+    DEFAULT-precision einsums on its chip); None keeps every product fp32,
+    as the reference's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, cq, ck, sk_valid, tc):
+        bh, sq_p, g, d = q.shape
+        dv = v.shape[-1]
+        nq, nk = sq_p // cq, k.shape[1] // ck
+        out = torch.empty((bh, sq_p, g, dv), dtype=torch.float32,
+                          device=q.device)
+        lse = torch.empty((bh, sq_p, g), dtype=torch.float32,
+                          device=q.device)
+        for qi in range(nq):
+            q_blk = q[:, qi * cq:(qi + 1) * cq].reshape(bh, cq * g, d)
+            m_run = torch.full((bh, cq, g), NEG_INF, dtype=torch.float32,
+                               device=q.device)
+            l_run = torch.zeros_like(m_run)
+            acc = torch.zeros((bh, cq * g, dv), dtype=torch.float32,
+                              device=q.device)
+            for kj in range(nk):
+                if causal and _causal_skip(qi, kj, cq, ck):
+                    continue
+                logits = _block_logits(q_blk, k, qi, kj, causal, scale, cq,
+                                       ck, g, sk_valid, tc)
+                m_new = torch.maximum(m_run, logits.amax(-1))
+                p = torch.exp(logits - m_new[..., None])
+                corr = torch.exp(m_run - m_new)
+                l_run = l_run * corr + p.sum(-1)
+                acc = (acc.view(bh, cq, g, dv) * corr[..., None]).view(
+                    bh, cq * g, dv) + _mm(p.view(bh, cq * g, ck),
+                                          v[:, kj * ck:(kj + 1) * ck], tc)
+                m_run = m_new
+            l_safe = torch.clamp(l_run, min=1e-30)
+            out[:, qi * cq:(qi + 1) * cq] = (
+                acc.view(bh, cq, g, dv) / l_safe[..., None])
+            lse[:, qi * cq:(qi + 1) * cq] = m_run + torch.log(l_safe)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, cq, ck, sk_valid, tc)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, cq, ck, sk_valid, tc = ctx.args
+        bh, sq_p, g, d = q.shape
+        dv = v.shape[-1]
+        nq, nk = sq_p // cq, k.shape[1] // ck
+        dout = dout.float()
+        delta = (dout * out).sum(-1)                       # (bh, sq_p, g)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv_ = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+        for qi in range(nq):
+            rows = slice(qi * cq, (qi + 1) * cq)
+            q_blk = q[:, rows].reshape(bh, cq * g, d)
+            do_blk = dout[:, rows].reshape(bh, cq * g, dv)
+            lse_blk, dl_blk = lse[:, rows, :, None], delta[:, rows, :, None]
+            dq_blk = dq[:, rows].view(bh, cq * g, d)
+            for kj in range(nk):
+                if causal and _causal_skip(qi, kj, cq, ck):
+                    continue
+                cols = slice(kj * ck, (kj + 1) * ck)
+                logits = _block_logits(q_blk, k, qi, kj, causal, scale, cq,
+                                       ck, g, sk_valid, tc)
+                p = torch.exp(logits - lse_blk)            # (bh, cq, g, ck)
+                dp = _mm(do_blk, v[:, cols].mT, tc).view(bh, cq, g, ck)
+                ds = (p * (dp - dl_blk) * scale).view(bh, cq * g, ck)
+                dq_blk += _mm(ds, k[:, cols], tc)
+                dk[:, cols] += _mm(ds.mT, q_blk, tc)
+                dv_[:, cols] += _mm(p.view(bh, cq * g, ck).mT, do_blk, tc)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv_.to(v.dtype), None, None,
+                None, None, None, None)
+
+
+def _mm(x: torch.Tensor, y: torch.Tensor, tc) -> torch.Tensor:
+    """Batched x @ y with an fp32 result. `tc` is None (fp32 operands) or
+    the 16-bit dtype both operands round to for tensor-core products."""
+    if tc is not None:
+        return torch.ops.aten.bmm.dtype(x.to(tc), y.to(tc), torch.float32)
+    return torch.bmm(x.float(), y.float())
+
+
+def _block_logits(q_blk, k, qi, kj, causal, scale, cq, ck, g, sk_valid,
+                  tc) -> torch.Tensor:
+    """Scaled, masked logits of query block `qi` against key block `kj`:
+    (bh, cq, g, ck) fp32. Key positions >= `sk_valid` are tail padding.
+    The causal mask is applied only to blocks that cross the diagonal: one
+    whose last key precedes its first query masks nothing."""
+    bh = q_blk.shape[0]
+    k_blk = k[:, kj * ck:(kj + 1) * ck]
+    logits = (_mm(q_blk, k_blk.mT, tc) * scale).view(bh, cq, g, ck)
+    kpos = kj * ck + torch.arange(ck, device=k.device)
+    if causal and (kj + 1) * ck - 1 > qi * cq:
+        qpos = qi * cq + torch.arange(cq, device=k.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        logits = logits.masked_fill(~mask[None, :, None, :], NEG_INF)
+    if (kj + 1) * ck > sk_valid:
+        logits = logits.masked_fill(~(kpos < sk_valid)[None, None, None, :],
+                                    NEG_INF)
+    return logits
+
+
+def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, chunk_q: int = 256, chunk_k: int = 256,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention over query and key chunks, never materializing the
+    (Sq, Sk) logits: O(S) memory in both directions (the backward
+    recomputes each block from the saved log-sum-exp). The memory-feasible
+    path past 1024 tokens: 4k training, 32k prefill.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D) with GQA head grouping. Ragged
+    lengths pad the tail chunk; padded key positions are masked, padded
+    query rows sliced off (their cotangent is zero). CPU tensors compute
+    in fp32 as the reference does; bf16 or fp16 tensors on the card take
+    16-bit products with fp32 sums (`core.attention`'s rule for the routed
+    attention einsums)."""
+    from repro_torch.core.attention import _tensor_core_einsums
+    from repro_torch.models import accounting
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    g = h // hkv
+    cq = _chunk(sq, accounting.chunk(chunk_q))
+    ck = _chunk(sk, accounting.chunk(chunk_k))
+    nq, nk = -(-sq // cq), -(-sk // ck)
+    pad_q, pad_k = nq * cq - sq, nk * ck - sk
+    if scale is None:
+        scale = d ** -0.5
+    tc = q.dtype if _tensor_core_einsums(q, k, v) else None
+    work = tc or torch.float32
+
+    def heads_first(x, s_pad, pad, per):
+        # (b, s, hkv*per, e) -> (b*hkv, s_pad, per, e), zero tail rows
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) if pad else x
+        e = x.shape[-1]
+        return (x.reshape(b, s_pad, hkv, per, e).transpose(1, 2)
+                .reshape(b * hkv, s_pad, per, e).to(work))
+
+    qh = heads_first(q, nq * cq, pad_q, g)
+    kh = heads_first(k, nk * ck, pad_k, 1)[:, :, 0]
+    vh = heads_first(v, nk * ck, pad_k, 1)[:, :, 0]
+    out = _Flash.apply(qh, kh, vh, causal, scale, cq, ck, sk, tc)
+    out = (out.view(b, hkv, nq * cq, g, dv).transpose(1, 2)
+           .reshape(b, nq * cq, h, dv))
+    return out[:, :sq].to(q.dtype)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

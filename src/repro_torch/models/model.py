@@ -1,9 +1,13 @@
 """Top-level model assembly.
 
-Port of `repro/models/model.py` for the dense `block_pattern == "attn"`
-family without experts, frontend or encoder (gemma-2b and its kin). The
-reference stacks layer parameters and scans over them; eagerly, a
-`ModuleList` of blocks and a Python loop do the same work. Entry points:
+Port of `repro/models/model.py` for the `block_pattern == "attn"` family
+without frontend or encoder: the dense GQA stacks (gemma-2b, olmo-1b,
+phi4-mini, qwen3-14b), one group of attention blocks, and the MoE stacks
+(deepseek-moe-16b), whose leading dense layers come before a group of MoE
+blocks. The reference stacks each group's parameters and scans over them;
+eagerly, a `ModuleList` per group and a Python loop do the same work, with
+the reference's group names (`layers`, or `dense_layers` + `moe_layers`;
+the decode caches `layers`, or `dense` + `moe`). Entry points:
 `init_params` (an `nn.Module` drawn from a seeded `torch.Generator`),
 `forward` (logits, or hidden states for the chunked training loss),
 `decode_init` + `decode_step` (one-token serve step against preallocated
@@ -15,7 +19,7 @@ Other families raise `NotImplementedError` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +28,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import shard_ctx
 from repro_torch.models.common import (ModelConfig, apply_mlp, apply_norm,
                                        dense_init, mlp_params, norm_params,
@@ -34,16 +39,13 @@ _ROADMAP_ZOO = "ROADMAP.md, queue 1: attention and the model zoo"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """This slice ports the dense attention family only."""
+    """The ported families: dense GQA and MoE attention stacks."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"encoder-decoder stacks are not ported "
                                   f"yet ({_ROADMAP_ZOO})")
     if cfg.block_pattern != "attn":
         raise NotImplementedError(f"block pattern {cfg.block_pattern!r} "
                                   f"(SSM / xLSTM) is not ported yet "
-                                  f"({_ROADMAP_ZOO})")
-    if cfg.n_experts:
-        raise NotImplementedError(f"MoE blocks are not ported yet "
                                   f"({_ROADMAP_ZOO})")
     if cfg.attn != "gqa":
         raise NotImplementedError(f"{cfg.attn!r} attention is not ported yet "
@@ -66,9 +68,21 @@ class AttnBlock(nn.Module):
         self.mlp = mlp_params(generator, cfg, device=device)
 
 
+class MoEBlock(nn.Module):
+    """An attention block whose MLP is the MoE layer."""
+
+    def __init__(self, generator, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.ln1 = norm_params(cfg, device)
+        self.attn = attn.gqa_params(generator, cfg, device)
+        self.ln2 = norm_params(cfg, device)
+        self.moe = moe_lib.moe_params(generator, cfg, device)
+
+
 class Model(nn.Module):
-    """Parameters of a dense decoder: `embed` (vocab, d), `layers`, `ln_f`,
-    and `lm_head` (d, vocab) when embeddings are untied."""
+    """Parameters of a decoder: `embed` (vocab, d), the layer groups
+    (`layers`; or `dense_layers` and `moe_layers`), `ln_f`, and `lm_head`
+    (d, vocab) when embeddings are untied."""
 
     def __init__(self, generator, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -80,8 +94,30 @@ class Model(nn.Module):
         self.ln_f = norm_params(cfg, device)
         self.lm_head = (None if cfg.tie_embeddings else dense_init(
             generator, cfg.d_model, cfg.vocab, cfg.dtype, device))
-        self.layers = nn.ModuleList(AttnBlock(generator, cfg, device)
-                                    for _ in range(cfg.n_layers))
+        if not cfg.n_experts:
+            self.layers = nn.ModuleList(AttnBlock(generator, cfg, device)
+                                        for _ in range(cfg.n_layers))
+            return
+        if cfg.n_dense_layers:
+            self.dense_layers = nn.ModuleList(
+                AttnBlock(generator, cfg, device)
+                for _ in range(cfg.n_dense_layers))
+        self.moe_layers = nn.ModuleList(
+            MoEBlock(generator, cfg, device)
+            for _ in range(cfg.n_layers - cfg.n_dense_layers))
+
+
+# (parameter group, decode-cache key) in the order the layers run
+_GROUPS = (("layers", "layers"), ("dense_layers", "dense"),
+           ("moe_layers", "moe"))
+
+
+def _groups(params: Model) -> Iterator[Tuple[str, nn.ModuleList]]:
+    """(decode-cache key, blocks) of each layer group the model has."""
+    for name, key in _GROUPS:
+        blocks = getattr(params, name, None)
+        if blocks is not None:
+            yield key, blocks
 
 
 def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -94,36 +130,42 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig,
     return Model(generator, cfg, device)
 
 
+def _flatten(tree: Mapping[str, Any], prefix: str = ""
+             ) -> Iterator[Tuple[str, Any]]:
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            yield from _flatten(value, name + ".")
+        else:
+            yield name, value
+
+
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device="cuda") -> Model:
-    """The reference's parameter pytree (numpy leaves, layers stacked on a
-    leading axis) as this package's model on `device` (the card unless the
-    caller passes `device="cpu"`; with no card that raises). bf16 leaves
-    arrive as `ml_dtypes.bfloat16` and go through fp32, which is exact."""
+    """The reference's parameter pytree (numpy leaves, each layer group
+    stacked on a leading axis: `layers`, or `dense_layers` + `moe_layers`
+    with their stacked expert leaves) as this package's model on `device`
+    (the card unless the caller passes `device="cpu"`; with no card that
+    raises). Leaf paths name the parameters: block i of group G takes
+    `G.<path>[i]`. bf16 leaves arrive as `ml_dtypes.bfloat16` and go
+    through fp32, which is exact."""
     _check_supported(cfg)
     device = resolve_device(device)
     model = Model(None, cfg, device="meta")
+    dtypes = {name: p.dtype for name, p in model.named_parameters()}
+    stacked = {name for name, _ in _GROUPS}
 
-    def t(a, dtype):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=dtype)
-
-    state = {"embed": t(tree["embed"], cfg.dtype)}
-    if model.ln_f.scale is not None:
-        state["ln_f.scale"] = t(tree["ln_f"]["scale"], torch.float32)
-    if model.lm_head is not None:
-        state["lm_head"] = t(tree["lm_head"], cfg.dtype)
-    layers = tree["layers"]
-    for i in range(cfg.n_layers):
-        pre = f"layers.{i}."
-        for ln in ("ln1", "ln2"):
-            if layers[ln]:
-                state[pre + ln + ".scale"] = t(layers[ln]["scale"][i],
-                                               torch.float32)
-        for name in ("wq", "wk", "wv", "wo"):
-            state[pre + "attn." + name] = t(layers["attn"][name][i], cfg.dtype)
-        for name in ("gate", "up", "down"):
-            state[pre + "mlp." + name] = t(layers["mlp"][name][i], cfg.dtype)
+    state = {}
+    for name, leaf in _flatten(tree):
+        group, _, rest = name.partition(".")
+        if group in stacked:
+            for i in range(len(leaf)):
+                state[f"{group}.{i}.{rest}"] = leaf[i]
+        else:
+            state[name] = leaf
+    state = {name: torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device=device, dtype=dtypes.get(name, torch.float32))
+        for name, a in state.items()}
     model.load_state_dict(state, strict=True, assign=True)
     for p in model.parameters():
         p.requires_grad_(False)
@@ -143,15 +185,18 @@ def make_trainable(params: Model) -> Model:
 # blocks and entry points
 # ---------------------------------------------------------------------------
 
-def _attn_block(p: AttnBlock, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, cache=None, causal: bool = True):
+def _block(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+           cache=None, causal: bool = True):
+    """An attention block, then its MLP, or for a `MoEBlock` its MoE layer
+    (the reference's `_attn_block` / `_moe_block`)."""
     h = apply_norm(p.ln1, x, cfg)
     a, new_cache = attn.gqa_attention(p.attn, h, cfg, positions, cache,
                                       causal=causal)
     x = x + a
     h = apply_norm(p.ln2, x, cfg)
-    x = x + apply_mlp(p.mlp, h, cfg)
-    return x, new_cache
+    if isinstance(p, MoEBlock):
+        return x + moe_lib.apply_moe(p.moe, h, cfg), new_cache
+    return x + apply_mlp(p.mlp, h, cfg), new_cache
 
 
 def remat_call(fn, *args):
@@ -166,9 +211,9 @@ def remat_call(fn, *args):
         return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _layer(p: AttnBlock, x: torch.Tensor, cfg: ModelConfig,
+def _layer(p, x: torch.Tensor, cfg: ModelConfig,
            positions: torch.Tensor) -> torch.Tensor:
-    return shard_ctx.constrain_tokens(_attn_block(p, x, cfg, positions)[0])
+    return shard_ctx.constrain_tokens(_block(p, x, cfg, positions)[0])
 
 
 def lm_head_weight(params: Model, cfg: ModelConfig) -> torch.Tensor:
@@ -196,11 +241,12 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     remat = remat and torch.is_grad_enabled()
-    for layer in params.layers:
-        if remat:
-            x = remat_call(_layer, layer, x, cfg, positions)
-        else:
-            x = _layer(layer, x, cfg, positions)
+    for _, blocks in _groups(params):
+        for layer in blocks:
+            if remat:
+                x = remat_call(_layer, layer, x, cfg, positions)
+            else:
+                x = _layer(layer, x, cfg, positions)
     x = apply_norm(params.ln_f, x, cfg)
     if return_hidden:
         return x
@@ -210,11 +256,12 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
 
 def decode_init(params: Model, cfg: ModelConfig, batch: int,
                 max_len: int) -> Dict[str, Any]:
-    """Preallocated per-layer KV caches for one-token decode steps."""
+    """Preallocated per-layer KV caches for one-token decode steps, one list
+    per layer group (`layers`, or `dense` and `moe`)."""
     _check_supported(cfg)
     device = params.embed.device
-    return {"layers": [attn.make_kv_cache(cfg, batch, max_len, device)
-                       for _ in range(cfg.n_layers)]}
+    return {key: [attn.make_kv_cache(cfg, batch, max_len, device)
+                  for _ in blocks] for key, blocks in _groups(params)}
 
 
 def decode_step(params: Model, caches: Dict[str, Any], tokens: torch.Tensor,
@@ -229,10 +276,13 @@ def decode_step(params: Model, caches: Dict[str, Any], tokens: torch.Tensor,
     x = shard_ctx.constrain_tokens(params.embed[tokens].to(cfg.dtype))
     pos = int(position)
     positions = torch.arange(pos, pos + tokens.shape[1], device=x.device)
-    new_layers = []
-    for layer, cache in zip(params.layers, caches["layers"]):
-        x, new_cache = _attn_block(layer, x, cfg, positions, cache=cache)
-        new_layers.append(new_cache)
+    new_caches = dict(caches)
+    for key, blocks in _groups(params):
+        new: List[Dict[str, Any]] = []
+        for layer, cache in zip(blocks, caches[key]):
+            x, new_cache = _block(layer, x, cfg, positions, cache=cache)
+            new.append(new_cache)
+        new_caches[key] = new
     x = apply_norm(params.ln_f, x, cfg)
     logits = pmm(x, lm_head_weight(params, cfg), tag="lm_head")
-    return logits[:, -1].float(), dict(caches, layers=new_layers)
+    return logits[:, -1].float(), new_caches

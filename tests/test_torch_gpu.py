@@ -634,3 +634,83 @@ def test_forward_remat_gives_the_same_grads_on_the_card(cuda, tmp_path,
         torch.testing.assert_close(g1[k], g0[k], rtol=1e-5, atol=1e-6,
                                    msg=k)
     capsys.readouterr()
+
+
+# ---------------------------------------------------------------------------
+# the model zoo: the MoE router, chunked attention, routed MoE decode
+# ---------------------------------------------------------------------------
+
+def test_fp32_router_route_matches_plain(cuda):
+    """deepseek-moe-16b's router at decode, fp32 x (4, 2048) @ fp32 router
+    (2048, 64): a stream kernel with 4-byte elements, held to the IEEE
+    tolerance (no tensor-core term: fp32 never takes the tensor cores),
+    and bitwise repeatable."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a = _draw((4, 2048), torch.float32, g, cuda)
+    b = _draw((2048, 64), torch.float32, g, cuda)
+    block = (4, 256, 64)
+    variant, _, _ = mmad_mod.plan_launch(
+        4, 64, 2048, block, torch.cuda.get_device_properties(cuda)
+        .multi_processor_count, mmad_mod.b_layout(b), 4,
+        mmad_mod.wgmma_b_major(a, b))
+    assert variant in (mmad_mod.ROW_STREAM, mmad_mod.COL_STREAM)
+    got = mmad_mod.mmad(a, b, block, torch.float32)
+    _assert_close(got, ref.mmad_ref(a, b, torch.float32), 2048)
+    assert torch.equal(mmad_mod.mmad(a, b, block, torch.float32), got)
+
+
+def test_chunked_sdpa_matches_plain_on_the_card(cuda):
+    """`chunked_sdpa` past 1024 tokens on the card (bf16 q, k, v: 16-bit
+    tensor-core products with fp32 sums) against `_sdpa` (fp32 einsums),
+    causal, GQA 8 / 2, a ragged length (1100 = 4 x 256 + 76): out and the
+    grads of q, k and v within 2e-2 of the largest |value| of `_sdpa`'s
+    (bf16 rounding, 2^-8 relative, of p and of the outputs, taken at other
+    points)."""
+    from repro_torch.models.attention import _sdpa, chunked_sdpa
+    g = torch.Generator(device=cuda).manual_seed(12)
+    shapes = [(1, 1100, 8, 64), (1, 1100, 2, 64), (1, 1100, 2, 64)]
+    xs = [torch.randn(s, generator=g, device=cuda).bfloat16()
+          .requires_grad_(True) for s in shapes]
+    ct = torch.randn(shapes[0], generator=g, device=cuda).bfloat16()
+    res = {}
+    for name, fn in (("chunked", chunked_sdpa), ("plain", _sdpa)):
+        for x in xs:
+            x.grad = None
+        out = fn(*xs, causal=True)
+        out.backward(ct)
+        res[name] = [out.detach()] + [x.grad for x in xs]
+    for got, want in zip(res["chunked"], res["plain"]):
+        assert got.is_cuda and bool(torch.isfinite(got).all())
+        err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+        assert float(err) <= 2e-2
+
+
+def test_routed_smoke_moe_decode_launches_one_kernel_per_dispatch(
+        cuda, tmp_path, capsys):
+    """deepseek-moe-16b-smoke routed on the card: every routed GEMM (the
+    attention projections, the dense MLP, the fp32 router and the shared
+    experts) one `mmad` launch; the expert einsums are recorded, not
+    dispatched."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import init_params
+    cfg = smoke_config("deepseek-moe-16b")
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                         cuda)
+    planner = serve.warm_plan_cache(cfg, 2, 4, 8, str(tmp_path), (4, 4), 12)
+    ctx = serve.install_gemm_context(planner, cuda)
+    try:
+        mmad_mod.reset_launch_count()
+        prompts = torch.randint(0, cfg.vocab, (2, 4), device=cuda)
+        out = serve.generate(params, cfg, prompts, 4)
+    finally:
+        shard_ctx.set_gemm_context(None)
+    assert bool(torch.isfinite(out["logits"]).all())
+    assert ctx.stats.resolve_rate == 1.0
+    moe_layers = cfg.n_layers - cfg.n_dense_layers
+    per_step = 4 * cfg.n_layers + 3 * cfg.n_dense_layers + 4 * moe_layers + 1
+    assert mmad_mod.launch_count() == ctx.stats.executed_gemm == 8 * per_step
+    assert {"moe.expert_gate", "moe.expert_down"} <= {
+        tag for tag, _ in ctx.stats.observed}
+    capsys.readouterr()
