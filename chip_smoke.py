@@ -60,21 +60,42 @@ Phases (any failure exits non-zero and prints no result line):
              of the MoE einsums (`moe.einsums` span). Plan warm-up time and
              each phase's peak memory are printed; each model is freed
              before the next phase;
+   serve deepseek-v2-236b — the same at full width and 6 layers (1 dense +
+             5 MoE of 160 routed experts; the full 60 do not fit one card):
+             MLA decodes in its absorbed form, and the run report must
+             show `model_workload`'s shapes, `mla.*` included; then, on
+             the same weights, one routed batched forward of the prompt
+             runs MLA's naive form (its GEMMs at M = 128 on the
+             tensor-core kernel), held to the absorbed decode's logits at
+             the last prompt position with the decode's expert choices
+             pinned (`naive_vs_absorbed`);
+   train deepseek-moe-16b — the train phase's checks at full width and 4
+             layers (1 dense + 3 MoE; AdamW over the full 28 needs more
+             than 200 GB): routed first, each route call's expert choices
+             recorded and checked against `x @ w` on the same input, then
+             unrouted with those choices pinned as the yardstick; the fp32
+             router runs forward on the SIMT tile kernel and backward as
+             fp32 `torch.matmul`, which the launch census and the profile
+             count apart;
 7. chunked_sdpa — `chunked_sdpa` against `_sdpa` at b = 1, seq 4096
              (and a ragged 4000), bf16, causal, gemma-2b's heads (8 / 1 /
              256) and qwen3-14b's (40 / 8 / 128): forward and the grads of
              q, k and v within `ATTN_TOL`, then their times beside
              `scaled_dot_product_attention`'s and their peak memory;
 8. timing  — per decode shape (gemma-2b, deepseek-moe-16b with its fp32
-             router, qwen3-14b) and per train shape the kernel's time (held
-             to the tolerance again) beside the plain version's, one
-             `torch.matmul` call's, the bound and the roofline share (bound
-             / kernel time); per train shape also its TFLOPS and its
-             backward's two `mmad` products beside their plain version,
-             bf16 `torch.matmul` and their bound; and deepseek-moe-16b's
-             expert einsums per decode step beside their bound;
-9. report  — one JSON line per kernel and path, the nvidia-smi line, and
-             last the `{"ok": true, "device": ...}` line.
+             router, qwen3-14b, deepseek-v2-236b) and per train shape
+             (gemma-2b, deepseek-moe-16b with its fp32 router on the SIMT
+             tile kernel) the kernel's time (held to the tolerance again)
+             beside the plain version's, one `torch.matmul` call's, the
+             bound and the roofline share (bound / kernel time); per bf16
+             train shape also its TFLOPS and its backward's two `mmad`
+             products beside their plain version, bf16 `torch.matmul` and
+             their bound (the router's: its fp32 `torch.matmul` products);
+             and the expert einsums per decode step (both MoE models) and
+             per train step, forward and backward, beside their bounds;
+9. report  — one JSON line per kernel and path, the total time, the
+             nvidia-smi line, and last the `{"ok": true, "device": ...}`
+             line.
 
 Exits 2 with no result when no CUDA device is present. Imports nothing of
 JAX and nothing of the JAX package.
@@ -82,6 +103,7 @@ JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import shutil
@@ -91,6 +113,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12          # H100 SXM data sheet: HBM3 bandwidth
 H100_BF16_FLOPS = 989.4e12          # H100 SXM data sheet: dense bf16 tensor
 H100_FP32_FLOPS = 67e12             # H100 SXM data sheet: fp32, CUDA cores
@@ -141,6 +164,24 @@ FIRST_STEP_REL_L2 = 5e-2
 # disagree on nearly every token-layer.
 SAME_INPUT_FLIPS = 1
 MOE_FLIP_SHARE = 0.2
+# MoE training (deepseek-moe-16b at full width, MOE_TRAIN_LAYERS deep: 1
+# dense + 3 MoE layers, 2.27 B parameters, ~27 GB with AdamW's fp32
+# moments; the full 28 layers need more than 200 GB). Same-input router
+# flips over all its route calls (forward, recompute, final loss): 2,048
+# tokens x 3 layers x 7 calls; a near-tie within fp32 summation noise is
+# ~1e-5 per token-layer (see above), so this allows ten times that.
+MOE_TRAIN_LAYERS = 4
+TRAIN_SAME_INPUT_FLIP_SHARE = 1e-4
+# deepseek-v2-236b serves at full width, SERVE_V2_LAYERS deep (1 dense + 5
+# MoE layers, 21.2 B parameters, 42.5 GB of bf16; the full 60 layers are
+# ~472 GB). MLA's naive form against its absorbed form, relative L2 of the
+# last prompt position's logits: the same function with bf16 roundings at
+# other points (K up-projected and rounded, against the query absorbed and
+# rounded) and other kernels (the tensor-core tile at M = 128 against the
+# stream kernels at M = 4), through 6 layers of random weights; the
+# routed-vs-unrouted bound above.
+SERVE_V2_LAYERS = 6
+NAIVE_ABSORBED_REL_L2 = FIRST_STEP_REL_L2
 
 
 def fail(msg: str) -> None:
@@ -430,12 +471,59 @@ def check_kernels(torch, mmad_mod, ref) -> float:
     return worst
 
 
+def shape_operands(torch, mmad_mod, ref, cfg, m, n, k, block, dtype, g, dev,
+                   copies: int = 1):
+    """A GEMM shape's operands as its path lays them out (an activation
+    (m, k); `copies` weights (k, n), N-contiguous, or lm_head's embed.T
+    when the embeddings are tied), and the kernel held to its plain
+    version on the first at the plan's `block`, at the tolerance of the
+    variant `plan_launch` picks. Returns (a, weights, variant, max abs
+    err, err over tolerance)."""
+    size = torch.finfo(dtype).bits // 8
+    a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    if cfg.tie_embeddings and n == cfg.vocab:       # lm_head: embed.T, a view
+        ws = [torch.randn((n, k), generator=g, device=dev).to(dtype).T
+              for _ in range(copies)]
+    else:
+        ws = [torch.randn((k, n), generator=g, device=dev).to(dtype)
+              for _ in range(copies)]
+    variant = mmad_mod.plan_launch(
+        m, n, k, block,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        mmad_mod.b_layout(ws[0]), size, mmad_mod.wgmma_b_major(a, ws[0]))[0]
+    got = mmad_mod.mmad(a, ws[0], block, torch.float32)
+    want = ref.mmad_ref(a, ws[0], torch.float32)
+    ratio = tolerance_ratio(torch, got, want, k, torch.float32,
+                            variant == mmad_mod.WGMMA)
+    if not ratio <= 1.0:
+        fail(f"mmad at shape {m}x{n}x{k} ({dtype}, block {block}, variant "
+             f"{variant}): error {ratio:.2f}x its tolerance")
+    return a, ws, variant, float((got - want).abs().max()), ratio
+
+
+def hold_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int) -> float:
+    """Every shape of `table` (as `launch_table` gives it) held once to
+    its plain version at the plan's block; returns the worst error over
+    its tolerance."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    worst = 0.0
+    for (m, n, k, _), info in sorted(table.items()):
+        a, ws, _, _, ratio = shape_operands(torch, mmad_mod, ref, cfg, m, n,
+                                            k, info["block"], info["dtype"],
+                                            g, dev)
+        worst = max(worst, ratio)
+        del a, ws
+    torch.cuda.empty_cache()
+    return worst
+
+
 def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
                 train: bool = False):
-    """Per GEMM shape of one step (`table`: (m, n, k) -> the plan's block
-    and the launches per step): the kernel's device time, held to its
-    tolerance again, beside the plain version's, one `torch.matmul` call's
-    (bf16 cuBLAS), the bound and the roofline share, at the plan's block
+    """Per GEMM shape of one step (`table`: (m, n, k[, dtype]) -> the
+    plan's block, the launches per step and the operand dtype): the
+    kernel's device time, held to its tolerance again, beside the plain
+    version's, one `torch.matmul` call's (cuBLAS in the operands' dtype),
+    the bound and the roofline share, at the plan's block
     geometry. Weights rotate through enough copies to exceed the 50 MB L2,
     as a step's do. Decode rows add the host's pace per kernel call; train
     rows add the TFLOPS and the backward's two `mmad` products (da = g @
@@ -445,37 +533,19 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
     bound."""
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    for (m, n, k), info in sorted(table.items()):
-        block, count = info["block"], info["count"]
+    for key, info in sorted(table.items()):
+        (m, n, k), block, count = key[:3], info["block"], info["count"]
         dtype = info.get("dtype", torch.bfloat16)   # the router's is fp32
         size = torch.finfo(dtype).bits // 8
-        a = torch.randn((m, k), generator=g, device=dev).to(dtype)
         copies = max(1, math.ceil(120e6 / (k * n * size)))
-        if cfg.tie_embeddings and n == cfg.vocab:   # lm_head: embed.T, a view
-            ws = [torch.randn((n, k), generator=g, device=dev)
-                  .to(dtype).T for _ in range(copies)]
-        else:
-            ws = [torch.randn((k, n), generator=g, device=dev)
-                  .to(dtype) for _ in range(copies)]
+        a, ws, variant, err, ratio = shape_operands(
+            torch, mmad_mod, ref, cfg, m, n, k, block, dtype, g, dev, copies)
         it = {"i": 0}
 
         def nxt():
             it["i"] = (it["i"] + 1) % copies
             return ws[it["i"]]
 
-        variant = mmad_mod.plan_launch(
-            m, n, k, block, torch.cuda.get_device_properties(dev)
-            .multi_processor_count, mmad_mod.b_layout(ws[0]), size,
-            mmad_mod.wgmma_b_major(a, ws[0]))[0]
-        got = mmad_mod.mmad(a, ws[0], block, torch.float32)
-        want = ref.mmad_ref(a, ws[0], torch.float32)
-        ratio = tolerance_ratio(torch, got, want, k, torch.float32,
-                                variant == mmad_mod.WGMMA)
-        if not ratio <= 1.0:
-            fail(f"mmad at shape {m}x{n}x{k}: error {ratio:.2f}x its "
-                 f"tolerance")
-        err = float((got - want).abs().max())
-        del got, want
         iters, warmup = (5, 1) if m * n * k > 1e11 else (20, 3)
 
         def timed(fn):
@@ -501,9 +571,14 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
                "max_abs_err": err, "err_over_tolerance": ratio}
         if train:
             row["kernel_tflops"] = flops / kernel_ms / 1e9
-            row.update(time_backward(torch, mmad_mod, ref, a, ws[0], nxt,
-                                     block, g, timed))
             row["backward_calls_per_step"] = info["backward_calls"]
+            if dtype == torch.float32:      # the router: torch.matmul's
+                row.update(time_fp32_backward(torch, a, ws[0], nxt, g, timed))
+                row["fp32_backward_calls_per_step"] = info[
+                    "fp32_backward_calls"]
+            else:
+                row.update(time_backward(torch, mmad_mod, ref, a, ws[0], nxt,
+                                         block, g, timed))
         else:
             row["kernel_call_wall_ms"] = wall_ms(
                 torch, lambda: mmad_mod.mmad(a, nxt(), block, torch.float32))
@@ -562,6 +637,31 @@ def time_backward(torch, mmad_mod, ref, a, w, nxt, block, g, timed):
         "backward_bound_ms": bound,
         "backward_bound_by": "bytes" if by_bytes else "operations",
         "backward_max_abs_err": err, "backward_err_over_tolerance": ratio}
+    del grad
+    return out
+
+
+def time_fp32_backward(torch, a, w, nxt, g, timed):
+    """The backward of an fp32 train GEMM (the MoE router, a @ w) as
+    `_LocalMatmul` runs it: da = grad @ w.T and db = a.T @ grad as two fp32
+    `torch.matmul` calls (IEEE, TF32 off), device time and bound."""
+    m, k = a.shape
+    n = w.shape[1]
+    grad = torch.randn((m, n), generator=g, device=a.device)
+
+    def run():
+        y = nxt()
+        return torch.matmul(grad, y.T), torch.matmul(a.T, grad)
+
+    bound, by_bytes = 0.0, True
+    for mm, nn, kk in ((m, k, n), (k, n, m)):       # da, db
+        t_bytes = (mm * kk + kk * nn + mm * nn) * 4 / H100_BYTES_PER_S
+        t_ops = 2 * mm * nn * kk / H100_FP32_FLOPS
+        bound += max(t_bytes, t_ops) * 1e3
+        by_bytes = by_bytes and t_bytes >= t_ops
+    out = {"fp32_backward_matmul_ms": timed(run),
+           "fp32_backward_bound_ms": bound,
+           "fp32_backward_bound_by": "bytes" if by_bytes else "operations"}
     del grad
     return out
 
@@ -646,67 +746,36 @@ def routing_census(torch, params, cfg, planner, prompts, dev):
     free unrouted runs, and choices the two routers make differently on the
     same input (each routed layer's input also goes through `x @ w`)."""
     from repro_torch.launch import serve
-    from repro_torch.models import moe, shard_ctx
-    from repro_torch.models.matmul import pmm
+    from repro_torch.models import shard_ctx
     from repro_torch.models.model import decode_init, decode_step
 
-    real = moe.route
-    routed_choices, free_choices = [], []
-    same_input = {"flips": 0}
-
-    def differ(a, b):
-        return int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
-
-    def in_routed(p, xt, c):
-        topv, topi = real(p, xt, c)
-        ctx = shard_ctx.get_gemm_context()
-        shard_ctx.set_gemm_context(None)
-        try:
-            same_input["flips"] += differ(topi, real(p, xt, c)[1])
-        finally:
-            shard_ctx.set_gemm_context(ctx)
-        routed_choices.append(topi)
-        return topv, topi
-
-    def in_free(p, xt, c):
-        topv, topi = real(p, xt, c)
-        free_choices.append(topi)
-        return topv, topi
-
-    pinned_queue = []
-
-    def in_pinned(p, xt, c):
-        gates = torch.softmax(pmm(xt.float(), p.router, tag="moe.router"),
-                              dim=-1)
-        topi = pinned_queue.pop(0)
-        topv = gates.gather(-1, topi)
-        return topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9), topi
-
-    def first_step(route):
-        moe.route = route
+    def first_step():
         caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
         return decode_step(params, caches, prompts[:, :1], 0, cfg)[0]
 
+    free, routed = ChoiceLog(torch), ChoiceLog(torch)
     with torch.inference_mode():
         try:
             shard_ctx.set_gemm_context(None)
-            free = first_step(in_free)
+            with free.recording():
+                free_logits = first_step()
             serve.install_gemm_context(planner, dev)
-            routed = first_step(in_routed)
+            with routed.recording():
+                routed_logits = first_step()
             shard_ctx.set_gemm_context(None)
-            pinned_queue.extend(routed_choices)
-            plain = first_step(in_pinned)
+            with routed.pinned():
+                plain = first_step()
         finally:
-            moe.route = real
             shard_ctx.set_gemm_context(None)
-    if pinned_queue or len(free_choices) != len(routed_choices):
+    if len(free.choices) != len(routed.choices):
         fail("the three first steps routed different numbers of MoE layers")
-    flips = sum(differ(a, b) for a, b in zip(routed_choices, free_choices))
-    token_layers = sum(int(t.shape[0] * t.shape[1]) for t in routed_choices)
-    free_rel = float((routed - free).norm() / free.norm())
-    return routed, plain, {"token_layers": token_layers, "flips": flips,
-                           "same_input_flips": same_input["flips"],
-                           "free_rel_l2": free_rel}
+    flips = sum(choice_flips(a, b)
+                for a, b in zip(routed.choices, free.choices))
+    free_rel = float((routed_logits - free_logits).norm() / free_logits.norm())
+    return routed_logits, plain, {
+        "token_layers": routed.token_layers, "flips": flips,
+        "same_input_flips": routed.same_input_flips(),
+        "free_rel_l2": free_rel}
 
 
 def step_split(torch, params, cfg, planner, prompts, dev,
@@ -762,14 +831,36 @@ def step_split(torch, params, cfg, planner, prompts, dev,
             "moe_einsums_ms": einsums_ms}
 
 
-def serve_model(torch, mmad_mod, cfg, dev):
-    """One serve phase at full width and depth: the first decode step
-    routed against unrouted; then the main path, `serve.generate` on a
-    fresh routed context with the launch count from zero, its run report
-    and assertions; then the device profile of the same decode steps.
-    Returns the launches, the per-step launch table per shape, and the
-    numbers the report prints."""
+def launch_table(torch, cfg, planner, ctx) -> dict:
+    """What one decode step, or one forward, of `ctx`'s run launches, per
+    shape, at the plan's block geometry: (m, n, k, dtype) -> the block, the
+    launches (each routed GEMM once per layer that has it, lm_head once)
+    and the operand dtype (the router's fp32). The expert einsums are
+    recorded, not dispatched, and attention is not a GEMM here."""
     from repro_torch.core.lower import lower_schedule
+
+    table = {}
+    for tag, shape in ctx.resolved:
+        if not hasattr(shape, "m"):             # attention
+            continue
+        plan = planner.plan_cached(shape)
+        ep = lower_schedule(plan.schedule, ctx.mesh, shape=shape)
+        dtype = torch.float32 if tag == "moe.router" else cfg.dtype
+        key = (shape.m, shape.n, shape.k, str(dtype))
+        rec = table.setdefault(key, {
+            "block": ep.inner_kernel.geometry(), "count": 0, "dtype": dtype})
+        rec["count"] += tag_layers(cfg, tag)
+    return table
+
+
+def serve_model(torch, mmad_mod, cfg, dev, after=None):
+    """One serve phase at full width (and the depth `cfg` gives): the first
+    decode step routed against unrouted; then the main path,
+    `serve.generate` on a fresh routed context with the launch count from
+    zero, its run report and assertions; then the device profile of the
+    same decode steps; then `after(params, planner, prompts)`, when given,
+    on the same weights. Returns the launches, the per-step launch table
+    per shape, and the numbers the report prints."""
     from repro_torch.launch import serve
     from repro_torch.models import shard_ctx
     from repro_torch.models.model import decode_init, decode_step, init_params
@@ -883,27 +974,92 @@ def serve_model(torch, mmad_mod, cfg, dev):
           f"dispatches, resolve rate {stats.resolve_rate}", flush=True)
     print("sample generations:", out["tokens"][:2, :8].tolist(), flush=True)
 
-    # what one decode step launches, per shape, at the plan's geometry: the
-    # routed GEMMs (the expert einsums are recorded, not dispatched)
-    per_step = {}
-    for tag, shape in ctx.resolved:
-        if not hasattr(shape, "m"):             # attention
-            continue
-        plan = planner.plan_cached(shape)
-        ep = lower_schedule(plan.schedule, ctx.mesh, shape=shape)
-        key = (shape.m, shape.n, shape.k)
-        rec = per_step.setdefault(key, {
-            "block": ep.inner_kernel.geometry(), "count": 0,
-            "dtype": torch.float32 if tag == "moe.router" else cfg.dtype})
-        rec["count"] += tag_layers(cfg, tag)
+    per_step = launch_table(torch, cfg, planner, ctx)
     if sum(r["count"] for r in per_step.values()) * steps != launches:
         fail("per-step launch table does not add up to the launches")
     if dev.type == "cuda":
         summary["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         print(f"{cfg.name} serve phase: peak device memory "
               f"{summary['peak_gb']:.2f} GB", flush=True)
+    if after is not None:
+        summary.update(after(params, planner, prompts))
     del params, planner
     return launches, per_step, summary
+
+
+def naive_vs_absorbed(torch, mmad_mod, cfg, dev, params, planner, prompts):
+    """MLA's two forms on the same weights: the routed absorbed decode of
+    the prompt, token by token through the cache (each step's expert
+    choices recorded), against one routed batched `forward` of the prompt,
+    which runs the naive form (K and V up-projected, attention at dn + dr;
+    its GEMMs at M = batch x prompt on the tensor-core kernel, each shape
+    then held to the plain version at the plan's block), the decode's
+    expert choices pinned token by token. The forward routes all
+    the prompt's tokens at once, where a buffer of the one-hot dispatch can
+    overflow and drop a token; a decode step at batch 4 cannot overflow
+    one (4 tokens, at least 4 slots). So the forward's capacity is raised
+    to hold every token, and both compute the same function: the last
+    position's logits are held to NAIVE_ABSORBED_REL_L2."""
+    import dataclasses
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, shard_ctx
+    from repro_torch.models.model import decode_init, decode_step, forward
+
+    b, p = prompts.shape
+    choices = ChoiceLog(torch)
+    serve.install_gemm_context(planner, dev)
+    with torch.inference_mode(), choices.recording():
+        caches = decode_init(params, cfg, b, p)
+        for i in range(p):
+            absorbed, caches = decode_step(params, caches,
+                                           prompts[:, i:i + 1], i, cfg)
+    del caches
+    layers = cfg.n_layers - cfg.n_dense_layers
+
+    def by_layer(steps):
+        # step i's MoE layer j routes (1, b, k); the forward's layer j
+        # routes (1, b * p, k), token (row, position) at row * p + position
+        per_step = [steps[i * layers:(i + 1) * layers] for i in range(p)]
+        return [torch.stack([per_step[i][j][0] for i in range(p)], 1)
+                .reshape(1, b * p, -1) for j in range(layers)]
+
+    full = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k + 1e-6)
+    if moe._capacity(b * p, full) < b * p:
+        fail("the raised capacity does not hold every token")
+    ctx = serve.install_gemm_context(planner, dev)
+    mmad_mod.reset_launch_count()
+    with torch.inference_mode(), choices.pinned(by_layer):
+        naive = forward(params, prompts, full, remat=False)[:, -1]
+    launches = mmad_mod.launch_count()
+    shard_ctx.set_gemm_context(None)
+    if launches != ctx.stats.executed_gemm:
+        fail(f"the naive forward launched mmad {launches} times for "
+             f"{ctx.stats.executed_gemm} routed GEMM dispatches")
+    table = launch_table(torch, cfg, planner, ctx)
+    if sum(r["count"] for r in table.values()) != launches:
+        fail(f"the naive forward's launch table {table} does not add up to "
+             f"its {launches} launches")
+    worst = hold_shapes(torch, mmad_mod, ref, cfg, table, dev, SEED + 3)
+    print(f"the naive forward's {len(table)} GEMM shapes "
+          f"{sorted(k[:3] for k in table)} held to the plain version at the "
+          f"plan's blocks: worst err/tol {worst:.3f}", flush=True)
+    rel = float((naive - absorbed).norm() / absorbed.norm())
+    print(f"MLA naive form (one batched forward of the {p}-token prompt, "
+          f"{launches} mmad launches, attention "
+          f"{sorted(ctx.stats.modes.items())}) against the absorbed decode "
+          f"at position {p - 1}, expert choices pinned: logits rel L2 "
+          f"{rel:.3e} (tolerance {NAIVE_ABSORBED_REL_L2}), max abs "
+          f"{float((naive - absorbed).abs().max()):.3e}, greedy tokens equal "
+          f"in {int((naive.argmax(-1) == absorbed.argmax(-1)).sum())}/{b} "
+          f"rows; {choices.same_input_flips()} of {choices.token_layers} "
+          f"decode token-layers chose otherwise under x @ w on the same "
+          f"input", flush=True)
+    if not (math.isfinite(rel) and rel <= NAIVE_ABSORBED_REL_L2):
+        fail(f"MLA's naive and absorbed forms differ: rel L2 {rel}")
+    return {"naive_absorbed_rel_l2": rel, "naive_launches": launches,
+            "naive_shapes": len(table), "naive_err_over_tolerance": worst}
 
 
 def train_steps(torch, s, batch, dev, n: int):
@@ -958,6 +1114,8 @@ def check_trajectory(losses, norms, ref_losses, ref_norms) -> None:
 
 
 TENSOR_CORE_KERNEL = "mmad_wgmma_kernel"
+SIMT_TILE_KERNEL = "mmad_tile_kernel"
+SPLITK_REDUCE_KERNEL = "mmad_splitk_reduce"
 # substrings of the names of cuBLAS's and CUTLASS's GEMM kernels, and of
 # those among them that read fp32 operands: on an H100 (torch 2.11, CUDA
 # 12.8) an fp32 matmul or einsum runs cutlass_80_simt_sgemm_*, a bf16 one
@@ -968,13 +1126,21 @@ FP32_GEMM = ("sgemm", "simt", "f32f32_f32f32", "nvjet_s")
 
 
 def train_profile(torch, mmad_mod, s, state, batch, dev,
-                  launches_per_step: int):
+                  launches_per_step: int, simt_per_step: int = 0,
+                  fp32_backward_per_step: int = 0):
     """One more step under a device-only profile: busy and wall time from
     one window; every mmad kernel must be the tensor-core kernel, as many
     as the step's launches (one per routed dispatch and two per backward
     call; it fixes a K split up in the same launch, so no reduce kernel
-    runs); and no GEMM kernel of the step may take fp32 operands on the
-    CUDA cores, the backward's among them."""
+    runs), except the `simt_per_step` fp32 launches of an MoE router, which
+    run the SIMT tile kernel (each followed by at most one split-K reduce
+    kernel). The library GEMM kernels that take fp32 operands on the CUDA
+    cores must be exactly those the reference computes in fp32: the
+    router's backward, two `torch.matmul` products per fp32 backward call,
+    and the MoE combine weights' einsum, once per route call (one per
+    router launch: forward and remat recompute) and once in each MoE
+    layer's backward (one per fp32 backward call). A dense step has none;
+    a bf16 product that fell to fp32 would add one."""
     with device_profile(torch, dev) as prof:
         t0 = time.perf_counter()
         state, _ = s.step_fn(state, batch)
@@ -984,36 +1150,56 @@ def train_profile(torch, mmad_mod, s, state, batch, dev,
     kernels = device_kernels(torch, prof)
     mmad = [(us, count, name) for us, count, name in kernels
             if "mmad" in name]
-    other = [name for _, _, name in mmad if TENSOR_CORE_KERNEL not in name]
+
+    def calls(kernel):
+        return sum(count for _, count, name in mmad if kernel in name)
+
+    tiles, simt = calls(TENSOR_CORE_KERNEL), calls(SIMT_TILE_KERNEL)
+    reduces = calls(SPLITK_REDUCE_KERNEL)
+    other = [name for _, _, name in mmad
+             if not any(k in name for k in (TENSOR_CORE_KERNEL,
+                                            SIMT_TILE_KERNEL,
+                                            SPLITK_REDUCE_KERNEL))]
     if other:
-        fail(f"the train step launched mmad kernels other than the "
-             f"tensor-core kernel: {other}")
-    tiles = sum(count for _, count, name in mmad)
-    if tiles != launches_per_step:
-        fail(f"{tiles} tensor-core kernels ran in a step of "
-             f"{launches_per_step} mmad launches")
+        fail(f"the train step launched other mmad kernels: {other}")
+    if (tiles != launches_per_step - simt_per_step or simt != simt_per_step
+            or reduces > simt):
+        fail(f"{tiles} tensor-core, {simt} SIMT tile and {reduces} reduce "
+             f"kernels ran in a step of {launches_per_step} mmad launches, "
+             f"{simt_per_step} of them fp32")
     library = [(us, count, name) for us, count, name in kernels
                if "mmad" not in name
                and any(w in name.lower() for w in LIBRARY_GEMM)]
-    fp32 = [name[:100] for _, _, name in library
+    fp32 = [(us, count, name) for us, count, name in library
             if any(w in name.lower() for w in FP32_GEMM)]
-    if fp32:
-        fail(f"the train step ran fp32 CUDA-core GEMM kernels: {fp32}")
+    want_fp32 = simt_per_step + 3 * fp32_backward_per_step
+    if sum(count for _, count, _ in fp32) != want_fp32:
+        fail(f"the train step ran {sum(count for _, count, _ in fp32)} fp32 "
+             f"CUDA-core GEMM kernels, not the {want_fp32} of its "
+             f"{fp32_backward_per_step} fp32 backward calls and "
+             f"{simt_per_step} route calls: "
+             f"{[(count, name[:100]) for _, count, name in fp32]}")
     for us, count, name in library:
         print(f"  library GEMM {us / 1e3:9.3f} ms/step  {count:6d} "
               f"calls/step  {name[:100]}", flush=True)
     busy_ms = sum(us for us, _, _ in kernels) / 1e3
     mmad_ms = sum(us for us, _, _ in mmad) / 1e3
+    simt_ms = sum(us for us, _, name in mmad
+                  if TENSOR_CORE_KERNEL not in name) / 1e3
+    fp32_ms = sum(us for us, _, _ in fp32) / 1e3
     for us, count, name in kernels[:10]:
         print(f"  device {us / 1e3:9.3f} ms/step  {count:6d} calls/step  "
               f"{name[:80]}", flush=True)
     print(f"profiled train step: device busy {busy_ms:.3f} ms ({mmad_ms:.3f} "
-          f"ms in mmad: {tiles} tensor-core kernels) "
+          f"ms in mmad: {tiles} tensor-core kernels, {simt} SIMT tile "
+          f"kernels + {reduces} reduces taking {simt_ms:.3f} ms; "
+          f"{want_fp32} fp32 library GEMMs {fp32_ms:.3f} ms) "
           f"against {wall_ms:.3f} ms wall in the same window: busy share "
           f"{busy_ms / wall_ms:.1%}; the profile kept {edges[0]} + "
           f"{edges[1]} of its 2 x {PROFILE_EDGE_KERNELS} edge kernels",
           flush=True)
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "mmad_ms": mmad_ms}
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "mmad_ms": mmad_ms,
+            "simt_ms": simt_ms, "fp32_library_ms": fp32_ms}
 
 
 def resume_check(torch, dev):
@@ -1055,11 +1241,106 @@ def resume_check(torch, dev):
           f"6-step run's, bitwise", flush=True)
 
 
-def train_gemma(torch, mmad_mod, dev, arch_args):
-    """The train phase's main path: full-width gemma-2b (as `arch_args`
-    name it), three routed steps on one fixed batch with per-layer remat.
-    Returns the per-step launch count, the per-shape launch table and the
-    numbers the report prints."""
+class ChoiceLog:
+    """Expert choices across runs: `recording` wraps `models.moe.route` to
+    keep each call's top-k choice with its input and a copy of the router
+    weights it saw (an optimizer step updates them in place), and adds no
+    other device work and no host sync to the run it records;
+    `same_input_flips` then counts the calls where the unrouted router
+    (`x @ w`, no context) chooses otherwise on the same input. `pinned`
+    wraps `route` to hand the recorded choices back, call by call, to a run
+    that takes its gates from its own router. Training runs the same route
+    calls in the same order whether routed or not (forward, then each layer
+    again in the backward's recomputation), so the queue lines up."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.choices = []
+        self.inputs = []
+
+    @property
+    def token_layers(self) -> int:
+        return sum(int(t.shape[0] * t.shape[1]) for t in self.choices)
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro_torch.models import moe
+        real = moe.route
+
+        def route(p, xt, c):
+            topv, topi = real(p, xt, c)
+            self.choices.append(topi.detach())
+            self.inputs.append((xt.detach(), p.router.detach().clone(), c))
+            return topv, topi
+
+        moe.route = route
+        try:
+            yield self
+        finally:
+            moe.route = real
+
+    def same_input_flips(self) -> int:
+        """Recorded calls' token-layers whose top-k set `x @ w` on the
+        recorded input and router weights does not choose."""
+        from types import SimpleNamespace
+        from repro_torch.models import moe, shard_ctx
+        ctx = shard_ctx.get_gemm_context()
+        shard_ctx.set_gemm_context(None)
+        try:
+            with self.torch.inference_mode():
+                return sum(choice_flips(topi, moe.route(
+                    SimpleNamespace(router=w), xt, c)[1])
+                    for topi, (xt, w, c) in zip(self.choices, self.inputs))
+        finally:
+            shard_ctx.set_gemm_context(ctx)
+
+    @contextlib.contextmanager
+    def pinned(self, arrange=None):
+        """Hand back the recorded choices in order (`arrange` maps the
+        queue, call by call, to what each route call takes); fails if a
+        call finds the queue empty or leaves any behind."""
+        from repro_torch.models import moe
+        from repro_torch.models.matmul import pmm
+        torch = self.torch
+        real = moe.route
+        queue = list(arrange(self.choices) if arrange else self.choices)
+
+        def route(p, xt, c):
+            gates = torch.softmax(pmm(xt.float(), p.router, tag="moe.router"),
+                                  dim=-1)
+            if not queue:
+                fail("a pinned run routed more MoE layers than were recorded")
+            topi = queue.pop(0)
+            if topi.shape[:2] != xt.shape[:2]:
+                fail(f"pinned choices {tuple(topi.shape)} for tokens "
+                     f"{tuple(xt.shape[:2])}")
+            topv = gates.gather(-1, topi)
+            return (topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9),
+                    topi)
+
+        moe.route = route
+        try:
+            yield self
+        finally:
+            moe.route = real
+        if queue:
+            fail(f"a pinned run left {len(queue)} recorded choices unused")
+
+
+def choice_flips(a, b) -> int:
+    """Token-layers whose top-k sets differ between two (G, TL, k) choices."""
+    return int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+
+
+def train_model(torch, mmad_mod, dev, arch_args, cfg=None):
+    """A train phase's main path: a full-width model (as `arch_args` name
+    it; `cfg`, when given, its depth cut), three routed steps on one fixed
+    batch with per-layer remat, each step's expert choices recorded, then
+    held to three unrouted steps that take those choices pinned. An MoE
+    model's fp32 router runs forward on `mmad`'s SIMT tile kernel and
+    backward as fp32 `torch.matmul`.
+    Returns the per-step launch count, the backward's per-step launches,
+    the per-shape launch table and the numbers the report prints."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, train
     from repro_torch.models import shard_ctx
@@ -1073,29 +1354,25 @@ def train_gemma(torch, mmad_mod, dev, arch_args):
     shutil.rmtree(plan_dir, ignore_errors=True)
     s = train.setup(train.parse_args(
         arch_args + ["--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
-                     "--plan-cache", str(plan_dir)]))
+                     "--plan-cache", str(plan_dir)]), cfg=cfg)
+    cfg = s.cfg
+    moe = bool(cfg.n_experts)
     batch = s.batch_arrays(s.data.batch(0))
-    print(f"train {s.cfg.name}: batch {s.args.batch} x seq {s.args.seq}, "
-          f"lr {TRAIN_LR}, set up (plans warmed) in "
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    print(f"train {cfg.name}: {cfg.n_layers} layers, batch {s.args.batch} x "
+          f"seq {s.args.seq}, lr {TRAIN_LR}, set up (plans warmed) in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
 
-    # the yardstick: the same steps unrouted (x @ w, PyTorch's backward)
-    shard_ctx.set_gemm_context(None)
-    state, ref_losses, ref_norms, _ = train_steps(torch, s, batch, dev,
-                                                  TRAIN_STEPS)
-    with torch.no_grad():
-        ref_losses.append(float(steps.loss_fn(state[0], batch, s.cfg)))
-    del state
-    torch.cuda.empty_cache()
-
     # the main path: a fresh routing context and state, counts from zero;
-    # the tally records each forward mmad call's shape, and the backward's
-    # calls by their forward shape, with the mmad calls they make (the
-    # wrapper counts its launches)
+    # the tally records each forward mmad call's shape and operand dtype,
+    # and the backward's calls by their forward shape, with the mmad calls
+    # they make (the wrapper counts its launches) and the fp32 backward
+    # calls that take `torch.matmul` instead
     ctx = serve.install_gemm_context(s.planner, dev)
-    tally, bwd_tally = {}, {}
+    tally, bwd_tally, fp32_bwd, dtypes = {}, {}, {}, {}
     real, real_products = ops.mmad, ops.backward_products
-    inside = {"backward": 0, "calls": 0}
+    inside = {"backward": 0, "calls": 0, "local_matmul_backward": 0}
 
     def tallied(a, b, *args, **kw):
         if inside["backward"]:
@@ -1103,6 +1380,7 @@ def train_gemma(torch, mmad_mod, dev, arch_args):
         else:
             key = (a.shape[0], b.shape[1], a.shape[1])
             tally[key] = tally.get(key, 0) + 1
+            dtypes[key] = a.dtype
         return real(a, b, *args, **kw)
 
     def tallied_products(g, a, b):
@@ -1115,84 +1393,146 @@ def train_gemma(torch, mmad_mod, dev, arch_args):
             inside["backward"] -= 1
 
     real_backward = ops._LocalMatmul.backward
+    real_choice = ops.tensor_core_backward
 
-    def counted_backward(ctx, g):
+    def counted_backward(ctx_, g):
         inside["local_matmul_backward"] += 1
-        return real_backward(ctx, g)
+        return real_backward(ctx_, g)
 
-    inside["local_matmul_backward"] = 0
+    def counted_choice(a, b):
+        # the backward's route: two mmad products, or fp32 torch.matmul
+        on_mmad = real_choice(a, b)
+        if not on_mmad:
+            if not a.dtype == b.dtype == torch.float32:
+                fail(f"a {a.dtype} x {b.dtype} backward left mmad")
+            key = (a.shape[0], b.shape[1], a.shape[1])
+            fp32_bwd[key] = fp32_bwd.get(key, 0) + 1
+        return on_mmad
+
+    choices = ChoiceLog(torch)      # a dense model records none
     ops.mmad, ops.backward_products = tallied, tallied_products
     ops._LocalMatmul.backward = staticmethod(counted_backward)
+    ops.tensor_core_backward = counted_choice
     mmad_mod.reset_launch_count()
     try:
-        state, losses, norms, step_ms = train_steps(torch, s, batch, dev,
-                                                    TRAIN_STEPS)
+        with choices.recording():
+            state, losses, norms, step_ms = train_steps(torch, s, batch, dev,
+                                                        TRAIN_STEPS)
     finally:
         ops.mmad, ops.backward_products = real, real_products
         ops._LocalMatmul.backward = staticmethod(real_backward)
+        ops.tensor_core_backward = real_choice
     launches = mmad_mod.launch_count()
     stats = ctx.stats
     executed = stats.executed_gemm
     report = build_run_report("train", stats=stats.to_dict(),
                               tracer=s.tracer,
-                              extra={"arch": s.cfg.name,
+                              extra={"arch": cfg.name,
                                      "steps": TRAIN_STEPS})
     for line in render_run_report(report):
         print(line, flush=True)
     params = state[0]
-    print(f"{sum(p.numel() for p in params.parameters())} trainable "
-          f"parameters + fp32 AdamW moments; step ms "
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{n_params} trainable parameters + fp32 AdamW moments; step ms "
           f"{[round(t, 3) for t in step_ms]}", flush=True)
-    with torch.no_grad():
-        losses.append(float(steps.loss_fn(params, batch, s.cfg)))
-    check_trajectory(losses, norms, ref_losses, ref_norms)
+    with torch.no_grad(), choices.recording():
+        losses.append(float(steps.loss_fn(params, batch, cfg)))
     if stats.resolve_rate != 1.0:
         fail(f"train plan-resolve rate {stats.resolve_rate}")
     if stats.silent_degrades:
         fail(f"{stats.silent_degrades} silent degrades in training")
     # every routed dispatch launches once (forward and remat recompute);
-    # each forward dispatch's backward call launches its two products
+    # each forward dispatch's backward call launches its two products,
+    # unless its operands are fp32 (the MoE router): that backward is two
+    # fp32 torch.matmul products and launches nothing
     bwd_calls = sum(bwd_tally.values())
+    fp32_calls = sum(fp32_bwd.values())
     if executed == 0 or sum(tally.values()) != executed:
         fail(f"{sum(tally.values())} forward mmad calls for {executed} "
              f"routed GEMM dispatches in training")
-    if 2 * bwd_calls != executed or inside["calls"] != 2 * bwd_calls:
+    if (2 * (bwd_calls + fp32_calls) != executed
+            or inside["calls"] != 2 * bwd_calls):
         fail(f"{bwd_calls} backward calls made {inside['calls']} mmad calls "
-             f"for {executed} routed GEMM dispatches")
-    if inside["local_matmul_backward"] != bwd_calls:
-        fail(f"{inside['local_matmul_backward'] - bwd_calls} of "
-             f"{inside['local_matmul_backward']} local_matmul backward calls "
-             f"took the fp32 products")
+             f"and {fp32_calls} took fp32 torch.matmul, for {executed} "
+             f"routed GEMM dispatches")
+    if inside["local_matmul_backward"] != bwd_calls + fp32_calls:
+        fail(f"{inside['local_matmul_backward']} local_matmul backward calls "
+             f"for {bwd_calls} on mmad and {fp32_calls} in fp32")
+    fp32_keys = {k for k, dt in dtypes.items() if dt == torch.float32}
+    if fp32_bwd.keys() != fp32_keys or (fp32_keys and not moe):
+        fail(f"fp32 backward shapes {sorted(fp32_bwd)} are not the fp32 "
+             f"forward's {sorted(fp32_keys)}")
     if launches != executed + 2 * bwd_calls or launches % TRAIN_STEPS:
         fail(f"mmad launched {launches} times for {executed} routed GEMM "
              f"dispatches and {bwd_calls} backward calls in training")
-    if bwd_tally.keys() != tally.keys():
-        fail(f"backward shapes {sorted(bwd_tally)} are not the forward's "
-             f"{sorted(tally)}")
+    if bwd_tally.keys() | fp32_bwd.keys() != tally.keys():
+        fail(f"backward shapes {sorted(bwd_tally)} + {sorted(fp32_bwd)} are "
+             f"not the forward's {sorted(tally)}")
     per_step = launches // TRAIN_STEPS
     bwd_per_step = 2 * bwd_calls // TRAIN_STEPS
     blocks = {(sh.m, sh.n, sh.k): ep.inner_kernel.geometry()
               for (_, sh), ep in ctx.resolved.items()
               if hasattr(sh, "m") and ep.inner_kernel is not None}
     table = {key: {"block": blocks[key], "count": n // TRAIN_STEPS,
-                   "backward_calls": bwd_tally[key] // TRAIN_STEPS}
+                   "dtype": dtypes[key],
+                   "backward_calls": bwd_tally.get(key, 0) // TRAIN_STEPS,
+                   "fp32_backward_calls": fp32_bwd.get(key, 0) // TRAIN_STEPS}
              for key, n in tally.items()}
+    simt_per_step = sum(r["count"] for r in table.values()
+                        if r["dtype"] == torch.float32)
+    print(f"train launch census: {executed} routed dispatches (forward + "
+          f"remat recompute) launched mmad once each; {bwd_calls} bf16 "
+          f"backward calls launched 2 each ({2 * bwd_calls}); {fp32_calls} "
+          f"fp32 backward calls (shapes {sorted(fp32_bwd)}) ran on fp32 "
+          f"torch.matmul and launched none; total {launches} = "
+          f"{executed} + 2 x {bwd_calls}", flush=True)
 
-    prof = train_profile(torch, mmad_mod, s, state, batch, dev, per_step)
+    prof = train_profile(torch, mmad_mod, s, state, batch, dev, per_step,
+                         simt_per_step, fp32_calls // TRAIN_STEPS)
     shard_ctx.set_gemm_context(None)
     set_tracer(None)
+    del state, params
+    release(torch)
+    summary = {}
+    if moe:
+        flips = choices.same_input_flips()
+        summary.update(token_layers=choices.token_layers,
+                       same_input_flips=flips)
+        print(f"expert choices over the routed run: {flips} of "
+              f"{choices.token_layers} token-layers chose otherwise under "
+              f"x @ w on the same input (limit "
+              f"{TRAIN_SAME_INPUT_FLIP_SHARE:.0e} of them); the unrouted run "
+              f"takes the routed run's choices pinned", flush=True)
+        if flips > TRAIN_SAME_INPUT_FLIP_SHARE * choices.token_layers:
+            fail(f"the mmad router and x @ w chose different experts on the "
+                 f"same input for {flips} token-layers")
+    choices.inputs.clear()
+    # the yardstick: the same steps unrouted (x @ w, PyTorch's backward),
+    # the routed run's expert choices pinned
+    with choices.pinned():
+        state, ref_losses, ref_norms, _ = train_steps(torch, s, batch, dev,
+                                                      TRAIN_STEPS)
+        with torch.no_grad():
+            ref_losses.append(float(steps.loss_fn(state[0], batch, cfg)))
+    del state
+    release(torch)
+    check_trajectory(losses, norms, ref_losses, ref_norms)
     mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
     tokens = s.args.batch * s.args.seq
-    summary = {"step_ms": step_ms, "mean_step_ms": mean_ms,
-               "tokens_per_s": tokens / mean_ms * 1e3, **prof}
-    print(f"train {s.cfg.name} on {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}: "
+    summary.update(step_ms=step_ms, mean_step_ms=mean_ms,
+                   tokens_per_s=tokens / mean_ms * 1e3, **prof)
+    if dev.type == "cuda":
+        summary["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else str(dev))
+    print(f"train {cfg.name} on {card}: "
           f"{mean_ms:.3f} ms per step (steps 1-{TRAIN_STEPS - 1}) = "
           f"{summary['tokens_per_s']:.1f} training tokens/s at batch "
           f"{s.args.batch} x seq {s.args.seq}; {per_step} mmad launches per "
           f"step = {per_step - bwd_per_step} routed GEMM dispatches (forward "
           f"+ remat recompute) + {bwd_per_step} backward products, resolve "
-          f"rate {stats.resolve_rate}", flush=True)
-    del state, params
+          f"rate {stats.resolve_rate}; peak {summary.get('peak_gb', 0):.2f} "
+          f"GB", flush=True)
     return per_step, bwd_per_step, table, summary
 
 
@@ -1288,18 +1628,25 @@ def attention_vs_plain(torch, dev):
     return rows
 
 
-def time_expert_einsums(torch, cfg, dev, seed: int) -> dict:
-    """The three expert einsums of one MoE layer at the decode step's
-    capacity (batch 4: every expert's gate, up and down weights multiplied,
-    as the one-hot dispatch does), device ms per step (times the MoE
-    layers) beside the bound of reading those weights once."""
+def time_expert_einsums(torch, cfg, dev, seed: int, tokens: int = BATCH,
+                        train: bool = False) -> dict:
+    """The three expert einsums of one MoE layer at the dispatch geometry of
+    `tokens` tokens (`_dp_groups` groups at their capacity; a decode step
+    at batch 4 multiplies every expert's gate, up and down weights, as the
+    one-hot dispatch does), device ms per step (times the MoE layers)
+    beside the bound: reading the weights once and the operations at the
+    bf16 peak, whichever is longer. `train` adds the backward (grads of the
+    dispatched tokens and of the three weights), timed as forward +
+    backward less the forward, beside its bound (the weights read again,
+    their grads written, twice the operations)."""
     from repro_torch.models import moe
     from repro_torch.models.common import activation
 
     g = torch.Generator(device=dev).manual_seed(seed)
     p = moe.Experts(g, cfg, dev)
-    cap = moe._capacity(BATCH, cfg)
-    xe = torch.randn((1, cfg.n_experts, cap, cfg.d_model), generator=g,
+    groups = moe._dp_groups(tokens)
+    cap = moe._capacity(tokens // groups, cfg)
+    xe = torch.randn((groups, cfg.n_experts, cap, cfg.d_model), generator=g,
                      device=dev).to(cfg.dtype)
 
     def experts():
@@ -1309,11 +1656,36 @@ def time_expert_einsums(torch, cfg, dev, seed: int) -> dict:
 
     layers = cfg.n_layers - cfg.n_dense_layers
     weight_bytes = 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 2
-    row = {"path": f"{cfg.name} decode", "einsums": "expert gate, up, down",
-           "cap": cap, "layers": layers,
-           "ms": device_ms(torch, experts) * layers,
-           "bound_ms": weight_bytes / H100_BYTES_PER_S * 1e3 * layers,
-           "bound_by": "bytes"}
+    flops = 2 * 3 * groups * cfg.n_experts * cap * cfg.d_model * cfg.moe_d_ff
+
+    def bound(n_bytes, n_flops):
+        t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+        t_ops = n_flops / H100_BF16_FLOPS * 1e3
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    act_bytes = 2 * xe.numel() * 2                  # tokens in, results out
+    fwd_bound, fwd_by = bound(weight_bytes + act_bytes, flops)
+    with torch.no_grad():
+        fwd_ms = device_ms(torch, experts)
+    row = {"path": f"{cfg.name} {'train' if train else 'decode'}",
+           "einsums": "expert gate, up, down", "groups": groups, "cap": cap,
+           "layers": layers, "ms": fwd_ms * layers,
+           "bound_ms": fwd_bound * layers, "bound_by": fwd_by}
+    if train:
+        for t in (xe, p.gate, p.up, p.down):
+            t.requires_grad_(True)
+        ct = torch.randn(xe.shape, generator=g, device=dev).to(cfg.dtype)
+
+        def fwd_bwd():
+            torch.autograd.grad(experts(), (xe, p.gate, p.up, p.down), ct)
+
+        bwd_bound, bwd_by = bound(2 * weight_bytes + 2 * act_bytes,
+                                  2 * flops)
+        row.update(backward_ms=(device_ms(torch, fwd_bwd, iters=10) - fwd_ms)
+                   * layers, backward_bound_ms=bwd_bound * layers,
+                   backward_bound_by=bwd_by)
+        del ct
     print(json.dumps(row), flush=True)
     del p, xe
     torch.cuda.empty_cache()
@@ -1343,6 +1715,55 @@ def path_entry(name: str, path: str, launches: int, rows) -> dict:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
         else "operations",
         "library_ms": per_step("library_ms")}
+
+
+def train_args(arch: str):
+    """The train phases' launcher flags (the config's depth cut, if any,
+    goes to `launch.train.setup` as a config: the launcher has no depth
+    flag)."""
+    return ["--arch", arch, "--device", "cuda", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ)]
+
+
+def train_path_entry(name: str, path: str, launches: int, rows) -> dict:
+    """One `kernels` entry for `mmad` on a train path: the run's launches
+    and, per step, the timed shapes' forward sums (each shape times its
+    launches) plus their backward's (each shape's two products times its
+    backward calls; an fp32 shape has none on `mmad`), with the fp32
+    router's row on the SIMT tile kernel apart."""
+    def fwd(key):
+        return sum(r[key] * r["launches_per_step"] for r in rows)
+
+    def bwd(key):
+        return sum(r[key] * r["backward_calls_per_step"] for r in rows
+                   if r["backward_calls_per_step"])
+
+    simt = [r for r in rows if r["dtype"] == "float32"]
+    entry = {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mmad.cu",
+        "replaces": "src/repro/kernels/mmad.py:80", "path": path,
+        "launches": launches,
+        "max_abs_err": max(max(r["max_abs_err"],
+                               r.get("backward_max_abs_err", 0.0))
+                           for r in rows),
+        "forward_ms": fwd("kernel_ms"), "forward_bound_ms": fwd("bound_ms"),
+        "forward_plain_ms": fwd("plain_ms"),
+        "forward_library_ms": fwd("library_ms"),
+        "backward_ms": bwd("backward_ms"),
+        "backward_bound_ms": bwd("backward_bound_ms"),
+        "backward_plain_ms": bwd("backward_plain_ms"),
+        "backward_library_ms": bwd("backward_library_ms"),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                     else "operations"),
+        "simt_router": ({k: simt[0][k] for k in (
+            "shape", "variant", "launches_per_step", "kernel_ms", "bound_ms",
+            "plain_ms", "library_ms", "fp32_backward_matmul_ms",
+            "fp32_backward_bound_ms", "fp32_backward_calls_per_step")}
+            if simt else None)}
+    for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
+        entry[key] = entry[f"forward_{key}"] + entry[f"backward_{key}"]
+    return entry
 
 
 def main() -> int:
@@ -1389,17 +1810,33 @@ def main() -> int:
 
     phase("train")
     train_launches, train_bwd_launches, train_table, train_summary = \
-        train_gemma(torch, mmad_mod, dev,
-                    ["--arch", "gemma-2b", "--device", "cuda", "--batch",
-                     str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+        train_model(torch, mmad_mod, dev, train_args("gemma-2b"))
     resume_check(torch, dev)
     release(torch)
 
-    served = {}
+    served, served_cfgs = {}, {}
     for arch in ("deepseek-moe-16b", "qwen3-14b"):
         phase(f"serve {arch}")
-        served[arch] = serve_model(torch, mmad_mod, get_config(arch), dev)
+        served_cfgs[arch] = get_config(arch)
+        served[arch] = serve_model(torch, mmad_mod, served_cfgs[arch], dev)
         release(torch)
+
+    arch = "deepseek-v2-236b"
+    phase(f"serve {arch} ({SERVE_V2_LAYERS} layers)")
+    v2 = served_cfgs[arch] = dataclasses.replace(get_config(arch),
+                                                 n_layers=SERVE_V2_LAYERS)
+    served[arch] = serve_model(
+        torch, mmad_mod, v2, dev,
+        after=lambda params, planner, prompts: naive_vs_absorbed(
+            torch, mmad_mod, v2, dev, params, planner, prompts))
+    release(torch)
+
+    arch = "deepseek-moe-16b"
+    phase(f"train {arch} ({MOE_TRAIN_LAYERS} layers)")
+    moe_cfg = dataclasses.replace(get_config(arch), n_layers=MOE_TRAIN_LAYERS)
+    moe_launches, _, moe_table, moe_summary = train_model(
+        torch, mmad_mod, dev, train_args(arch), cfg=moe_cfg)
+    release(torch)
 
     phase("chunked_sdpa vs plain")
     attn_rows = attention_vs_plain(torch, dev)
@@ -1412,11 +1849,17 @@ def main() -> int:
     rows = time_shapes(torch, mmad_mod, ref, cfg, per_step, dev, SEED + 1)
     train_rows = time_shapes(torch, mmad_mod, ref, cfg, train_table, dev,
                              SEED + 2, train=True)
-    path_rows = {arch: time_shapes(torch, mmad_mod, ref, get_config(arch),
+    path_rows = {arch: time_shapes(torch, mmad_mod, ref, served_cfgs[arch],
                                    table, dev, SEED + 4 + i)
                  for i, (arch, (_, table, _)) in enumerate(served.items())}
-    experts_row = time_expert_einsums(torch, get_config("deepseek-moe-16b"),
-                                      dev, SEED + 6)
+    moe_rows = time_shapes(torch, mmad_mod, ref, moe_cfg, moe_table, dev,
+                           SEED + 8, train=True)
+    experts_rows = {arch: time_expert_einsums(torch, served_cfgs[arch], dev,
+                                              SEED + 6)
+                    for arch in ("deepseek-moe-16b", "deepseek-v2-236b")}
+    moe_experts = time_expert_einsums(torch, moe_cfg, dev, SEED + 9,
+                                      tokens=TRAIN_BATCH * TRAIN_SEQ,
+                                      train=True)
 
     def per_step_ms(key, rows=rows):
         return sum(r[key] * r["launches_per_step"] for r in rows)
@@ -1454,11 +1897,12 @@ def main() -> int:
     for arch, (arch_launches, _, summary) in served.items():
         rows_ = path_rows[arch]
         entry = path_entry("mmad", arch, arch_launches, rows_)
+        experts_row = experts_rows.get(arch)
         einsums = (f"; the MoE einsums {summary['moe_einsums_ms']:.3f} ms "
                    f"per step in the profile, the expert einsums "
                    f"{experts_row['ms']:.3f} ms timed against a bound of "
                    f"{experts_row['bound_ms']:.3f} ms"
-                   if arch == "deepseek-moe-16b" else "")
+                   if experts_row else "")
         print(f"decode {arch} (batch {BATCH}): {summary['tok_s']:.1f} tok/s "
               f"({summary['step_ms']:.3f} ms per step); mmad "
               f"{arch_launches // (PROMPT + GEN)} launches per step, "
@@ -1470,8 +1914,40 @@ def main() -> int:
               f"{summary['busy_ms'] / summary['wall_ms']:.1%}; plan warm-up "
               f"{summary['warmup_s']:.2f}s; peak {summary['peak_gb']:.2f} GB",
               flush=True)
+    moe_entry = train_path_entry("mmad/deepseek-moe-16b-train",
+                                 f"deepseek-moe-16b train, {MOE_TRAIN_LAYERS} "
+                                 f"layers, batch {TRAIN_BATCH} x seq "
+                                 f"{TRAIN_SEQ}", moe_launches * TRAIN_STEPS,
+                                 moe_rows)
+    router = moe_entry["simt_router"]
+    print(f"train deepseek-moe-16b ({MOE_TRAIN_LAYERS} layers, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}): "
+          f"{moe_summary['mean_step_ms']:.3f} ms per step = "
+          f"{moe_summary['tokens_per_s']:.1f} training tokens/s, peak "
+          f"{moe_summary['peak_gb']:.2f} GB; mmad {moe_launches} launches "
+          f"per step, forward {moe_entry['forward_ms']:.3f} ms (bound "
+          f"{moe_entry['forward_bound_ms']:.3f}, torch.matmul "
+          f"{moe_entry['forward_library_ms']:.3f}), backward "
+          f"{moe_entry['backward_ms']:.3f} ms (bound "
+          f"{moe_entry['backward_bound_ms']:.3f}, bf16 torch.matmul "
+          f"{moe_entry['backward_library_ms']:.3f}); the fp32 router "
+          f"{router['shape']} on the SIMT tile kernel "
+          f"{router['kernel_ms']:.4f} ms a launch x "
+          f"{router['launches_per_step']} (bound "
+          f"{router['bound_ms']:.4f}, fp32 torch.matmul "
+          f"{router['library_ms']:.4f}), its backward on fp32 torch.matmul "
+          f"{router['fp32_backward_matmul_ms']:.4f} ms a call x "
+          f"{router['fp32_backward_calls_per_step']} (bound "
+          f"{router['fp32_backward_bound_ms']:.4f}); the expert einsums "
+          f"forward {moe_experts['ms']:.3f} ms (bound "
+          f"{moe_experts['bound_ms']:.3f}), backward "
+          f"{moe_experts['backward_ms']:.3f} ms (bound "
+          f"{moe_experts['backward_bound_ms']:.3f}); device busy share "
+          f"{moe_summary['busy_ms'] / moe_summary['wall_ms']:.1%}",
+          flush=True)
     print(json.dumps({"chunked_sdpa": attn_rows, "moe_expert_einsums":
-                      experts_row}), flush=True)
+                      list(experts_rows.values()) + [moe_experts]}),
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "mmad", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mmad.cu",
@@ -1503,9 +1979,13 @@ def main() -> int:
         "train_backward_library_ms": backward_library,
         "train_backward_max_abs_err": max(r["backward_max_abs_err"]
                                           for r in train_rows),
-    }] + [path_entry(f"mmad/{arch}", f"{arch} decode, batch {BATCH}",
+    }] + [path_entry(f"mmad/{arch}", f"{arch} decode, batch {BATCH}"
+                     + (f", {served_cfgs[arch].n_layers} layers"
+                        if served_cfgs[arch] != get_config(arch) else ""),
                      served[arch][0], rows_)
-          for arch, rows_ in path_rows.items()]}), flush=True)
+          for arch, rows_ in path_rows.items()] + [moe_entry]}), flush=True)
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - T_START:.1f}s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 # The architectures ported so far: the dense GQA family (gemma-2b, olmo-1b,
-# phi4-mini-3.8b, qwen3-14b) and the first MoE family (deepseek-moe-16b).
-# The other five configs join with their block kinds (ROADMAP.md, queue 1).
-from repro_torch.configs import (deepseek_moe_16b, gemma_2b, olmo_1b,
-                                 phi4_mini_3_8b, qwen3_14b)
+# phi4-mini-3.8b, qwen3-14b), the MoE family (deepseek-moe-16b) and MLA
+# (deepseek-v2-236b). The other four configs join with their block kinds
+# (ROADMAP.md, queue 1).
+from repro_torch.configs import (deepseek_moe_16b, deepseek_v2_236b, gemma_2b,
+                                 olmo_1b, phi4_mini_3_8b, qwen3_14b)
 from repro_torch.configs.registry import (SHAPES, SUBQUADRATIC, cells,
                                           get_config, list_archs,
                                           smoke_config)

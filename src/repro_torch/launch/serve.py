@@ -11,7 +11,8 @@ reports the plan-resolve rate over the matmuls the model actually ran and
 cross-validates `model_workload`'s prediction against them.
 
 Every ported architecture serves this way (`--arch` gemma-2b, olmo-1b,
-phi4-mini-3.8b, qwen3-14b, deepseek-moe-16b): an MoE model's router and
+phi4-mini-3.8b, qwen3-14b, deepseek-moe-16b, deepseek-v2-236b, whose MLA
+decodes in the absorbed form): an MoE model's router and
 shared experts are routed GEMMs, and its expert einsums are recorded under
 the tags `model_workload` predicts, so the warm-up covers them and the
 cross-validation holds. Runs on the card unless `--device cpu` is given;

@@ -14,9 +14,10 @@ gradient compression, atomic checkpoints + auto-resume, heartbeat files,
 straggler logging. At startup the deployment-plan cache is warmed for the
 training workload and installed as the model stack's gemm context, so the
 forward (and recomputed) matmuls route through `dit_gemm(exec_plan=...)`
-and the `mmad` kernel, and their backward runs `local_matmul`'s two fp32
-products. `--skip-plan-warmup` turns both off. The run report is built at
-the end.
+and the `mmad` kernel, and their backward runs `local_matmul`'s two
+products (on `mmad` for bf16 operands on the card; an MoE model's fp32
+router takes fp32 `torch.matmul`). `--skip-plan-warmup` turns both off.
+The run report is built at the end.
 
 `setup` builds everything but the loop (config, planner, routing context,
 step function, state factory), so a caller can drive the same step without
@@ -125,15 +126,18 @@ def warm_train_plans(cfg: ModelConfig, batch: int, seq: int, cache_dir: str,
     return planner
 
 
-def setup(args: argparse.Namespace) -> TrainSetup:
+def setup(args: argparse.Namespace,
+          cfg: Optional[ModelConfig] = None) -> TrainSetup:
     """Resolve the device and config, warm the plan cache and install the
     routing context and tracer (unless `--skip-plan-warmup`), and build the
-    step function."""
+    step function. `cfg`, when given, is the model to train in place of the
+    one `--arch` / `--smoke` name (a caller's depth cut of it, say)."""
     if args.multi_pod:
         raise NotImplementedError(
             f"--multi-pod needs a multi-rank mesh ({_ROADMAP_MULTI_RANK})")
     device = resolve_device(args.device)
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     planner = gemm_ctx = tracer = None
     if not args.skip_plan_warmup:
         planner = warm_train_plans(cfg, args.batch, args.seq,

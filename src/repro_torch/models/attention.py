@@ -1,11 +1,10 @@
-"""Attention blocks: GQA/MQA (with qk-norm, arbitrary head_dim) and the
-decode path against a preallocated KV cache.
+"""Attention blocks: GQA/MQA (with qk-norm, arbitrary head_dim), DeepSeek-V2
+MLA, and the decode path against a preallocated KV cache.
 
-Port of the dense half of `repro/models/attention.py`. The projection
-matmuls are the DiT-scheduled GEMMs (`pmm`), and attention itself goes
-through the `pattn` funnel; past 1024 tokens its unfused form is
-`chunked_sdpa`, the reference's flash attention. MLA is a later slice of
-the port (ROADMAP.md, queue 1).
+Port of `repro/models/attention.py`. The projection matmuls are the
+DiT-scheduled GEMMs (`pmm`), and attention itself goes through the `pattn`
+funnel; past 1024 tokens its unfused form is `chunked_sdpa`, the
+reference's flash attention.
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ from torch import nn
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
                                        rms_head_norm, rope_tables)
-from repro_torch.models.matmul import pattn, pmm
+from repro_torch.models.matmul import pattn, pmm, record_gemm
 
 NEG_INF = -1e30
 
@@ -300,15 +299,134 @@ def gqa_attention(p: GQA, x: torch.Tensor, cfg: ModelConfig,
                tag="attn.o"), new_cache
 
 
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 Multi-head Latent Attention
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """MLA projections in the reference's (K, N) layout: `w_dkv` (d, r) and
+    `w_kr` (d, dr) down to the cached latent and shared rotary key, `w_uk` /
+    `w_uv` (r, h*dn) up from it, `wo` (h*dn, d); the query through `w_dq`
+    (d, q_lora_rank) and `w_uq` when `q_lora_rank` is set, else `wq`."""
+
+    def __init__(self, generator, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+        dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+
+        def init(d_in, d_out):
+            return dense_init(generator, d_in, d_out, cfg.dtype, device)
+
+        self.w_dkv = init(d, r)
+        self.w_kr = init(d, dr)
+        self.w_uk = init(r, h * dn)
+        self.w_uv = init(r, h * dn)
+        self.wo = init(h * dn, d)
+        if cfg.q_lora_rank:
+            self.w_dq = init(d, cfg.q_lora_rank)
+            self.w_uq = init(cfg.q_lora_rank, h * (dn + dr))
+        else:
+            self.wq = init(d, h * (dn + dr))
+
+
+def mla_params(generator, cfg: ModelConfig, device="cuda") -> MLA:
+    return MLA(generator, cfg, device)
+
+
+def mla_attention(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor,
+                  cache: Optional[Dict[str, object]] = None,
+                  ) -> Tuple[torch.Tensor, Optional[Dict[str, object]]]:
+    """MLA in the reference's two execution forms (DeepSeek-V2's own):
+
+    - no cache (train, prefill): the NAIVE form — K and V up-projected from
+      c_kv once, the one rotary key broadcast across the heads, attention at
+      head dim dn + dr (`mla.sdpa`);
+    - cache (decode): the ABSORBED form — W_uk folds into the query, so
+      attention runs in latent space against the cached c_kv directly, an
+      MQA with key width r + dr and value width r (`mla.decode`), and W_uv
+      un-absorbs its output. Only c_kv and the rotary key are cached.
+
+    The two absorption einsums are per-head batched contractions, which the
+    reference computes outside any Pallas kernel: they stay `torch.einsum`
+    and are recorded (count = heads) for the observed workload. As in
+    `gqa_attention`, the step's latent and rotary key are written in place
+    into the preallocated cache."""
+    b, s, _ = x.shape
+    dn, dr, h = cfg.nope_head_dim, cfg.rope_head_dim, cfg.n_heads
+    r = cfg.kv_lora_rank
+
+    if cfg.q_lora_rank:
+        q = pmm(pmm(x, p.w_dq, tag="mla.q_down"), p.w_uq, tag="mla.q_up")
+    else:
+        q = pmm(x, p.wq, tag="mla.q")
+    q = q.reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+
+    c_kv = pmm(x, p.w_dkv, tag="mla.kv_down")                   # (b, s, r)
+    k_r = pmm(x, p.w_kr, tag="mla.k_rope").reshape(b, s, 1, dr)
+
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_r = apply_rope(k_r, cos, sin)
+    scale = (dn + dr) ** -0.5
+
+    if cache is None:
+        # naive form: up-project K/V once, attention at dim dn + dr
+        k_nope = pmm(c_kv, p.w_uk, tag="mla.k_up").reshape(b, s, h, dn)
+        v = pmm(c_kv, p.w_uv, tag="mla.v_up").reshape(b, s, h, dn)
+        k_full = torch.cat([k_nope, k_r.expand(b, s, h, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        if s > 1024:
+            unfused = lambda: chunked_sdpa(q_full, k_full, v, causal=True,
+                                           scale=scale)
+        else:
+            unfused = lambda: _sdpa(q_full, k_full, v, causal=True,
+                                    scale=scale)
+        out = pattn(q_full, k_full, v, causal=True, scale=scale,
+                    tag="mla.sdpa", unfused=unfused)
+        return pmm(out.reshape(b, s, h * dn), p.wo, tag="mla.o"), None
+
+    idx = int(cache["index"])
+    cc, ckr = cache["c_kv"], cache["k_rope"]
+    cc[:, idx:idx + s] = c_kv                        # in-place cache write
+    ckr[:, idx:idx + s] = k_r
+    new_cache = {"c_kv": cc, "k_rope": ckr, "index": idx + s}
+    kv_len = torch.full((b,), idx + s, dtype=torch.int32, device=x.device)
+
+    # absorbed form: q_lat[h] = q_nope[h] @ W_uk[h]^T, (b, s, h, r)
+    record_gemm("mla.q_absorb", b * s, r, dn, count=h)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, p.w_uk.reshape(r, h, dn))
+    q_aug = torch.cat([q_lat, q_rope], dim=-1)              # (b, s, h, r+dr)
+    k_aug = torch.cat([cc[:, :, None, :], ckr], dim=-1)     # (b, sk, 1, r+dr)
+    v_lat = cc[:, :, None, :]                               # (b, sk, 1, r)
+    o_lat = pattn(q_aug, k_aug, v_lat, causal=True, q_positions=positions,
+                  kv_len=kv_len, scale=scale, tag="mla.decode",
+                  unfused=lambda: _sdpa(q_aug, k_aug, v_lat, causal=True,
+                                        q_positions=positions,
+                                        kv_len=kv_len, scale=scale))
+    # un-absorb the values: out[h] = o_lat[h] @ W_uv[h]
+    record_gemm("mla.v_unabsorb", b * s, dn, r, count=h)
+    out = torch.einsum("bshr,rhd->bshd", o_lat, p.w_uv.reshape(r, h, dn))
+    return pmm(out.reshape(b, s, h * dn), p.wo, tag="mla.o"), new_cache
+
+
 def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device="cuda") -> Dict[str, object]:
-    """Preallocated per-layer cache: K/V tensors and a host-side write index."""
-    if cfg.attn == "mla":
-        raise NotImplementedError(
-            "MLA caches are not ported yet (ROADMAP.md, queue 1: attention "
-            "and the model zoo)")
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    """Preallocated per-layer cache and a host-side write index: K/V
+    tensors, or for MLA the latent `c_kv` (batch, max_len, r) and the
+    shared rotary key `k_rope` (batch, max_len, 1, dr)."""
     device = resolve_device(device)
+    if cfg.attn == "mla":
+        return {
+            "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=cfg.dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, 1, cfg.rope_head_dim),
+                                  dtype=cfg.dtype, device=device),
+            "index": 0,
+        }
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),

@@ -3,11 +3,12 @@
 Port of `repro/models/model.py` for the `block_pattern == "attn"` family
 without frontend or encoder: the dense GQA stacks (gemma-2b, olmo-1b,
 phi4-mini, qwen3-14b), one group of attention blocks, and the MoE stacks
-(deepseek-moe-16b), whose leading dense layers come before a group of MoE
-blocks. The reference stacks each group's parameters and scans over them;
-eagerly, a `ModuleList` per group and a Python loop do the same work, with
-the reference's group names (`layers`, or `dense_layers` + `moe_layers`;
-the decode caches `layers`, or `dense` + `moe`). Entry points:
+(deepseek-moe-16b; deepseek-v2-236b, whose attention is MLA), whose leading
+dense layers come before a group of MoE blocks. The reference stacks each
+group's parameters and scans over them; eagerly, a `ModuleList` per group
+and a Python loop do the same work, with the reference's group names
+(`layers`, or `dense_layers` + `moe_layers`; the decode caches `layers`,
+or `dense` + `moe`). Entry points:
 `init_params` (an `nn.Module` drawn from a seeded `torch.Generator`),
 `forward` (logits, or hidden states for the chunked training loss),
 `decode_init` + `decode_step` (one-token serve step against preallocated
@@ -39,7 +40,7 @@ _ROADMAP_ZOO = "ROADMAP.md, queue 1: attention and the model zoo"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The ported families: dense GQA and MoE attention stacks."""
+    """The ported families: dense and MoE attention stacks, GQA or MLA."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"encoder-decoder stacks are not ported "
                                   f"yet ({_ROADMAP_ZOO})")
@@ -47,7 +48,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"block pattern {cfg.block_pattern!r} "
                                   f"(SSM / xLSTM) is not ported yet "
                                   f"({_ROADMAP_ZOO})")
-    if cfg.attn != "gqa":
+    if cfg.attn not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.attn!r} attention is not ported yet "
                                   f"({_ROADMAP_ZOO})")
     if cfg.frontend != "none":
@@ -59,11 +60,17 @@ def _check_supported(cfg: ModelConfig) -> None:
 # parameters
 # ---------------------------------------------------------------------------
 
+def _attn_params(generator, cfg: ModelConfig, device):
+    if cfg.attn == "mla":
+        return attn.mla_params(generator, cfg, device)
+    return attn.gqa_params(generator, cfg, device)
+
+
 class AttnBlock(nn.Module):
     def __init__(self, generator, cfg: ModelConfig, device="cuda"):
         super().__init__()
         self.ln1 = norm_params(cfg, device)
-        self.attn = attn.gqa_params(generator, cfg, device)
+        self.attn = _attn_params(generator, cfg, device)
         self.ln2 = norm_params(cfg, device)
         self.mlp = mlp_params(generator, cfg, device=device)
 
@@ -74,7 +81,7 @@ class MoEBlock(nn.Module):
     def __init__(self, generator, cfg: ModelConfig, device="cuda"):
         super().__init__()
         self.ln1 = norm_params(cfg, device)
-        self.attn = attn.gqa_params(generator, cfg, device)
+        self.attn = _attn_params(generator, cfg, device)
         self.ln2 = norm_params(cfg, device)
         self.moe = moe_lib.moe_params(generator, cfg, device)
 
@@ -187,11 +194,15 @@ def make_trainable(params: Model) -> Model:
 
 def _block(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
            cache=None, causal: bool = True):
-    """An attention block, then its MLP, or for a `MoEBlock` its MoE layer
-    (the reference's `_attn_block` / `_moe_block`)."""
+    """An attention block (GQA, or MLA, which is always causal), then its
+    MLP, or for a `MoEBlock` its MoE layer (the reference's `_attn_block` /
+    `_moe_block`)."""
     h = apply_norm(p.ln1, x, cfg)
-    a, new_cache = attn.gqa_attention(p.attn, h, cfg, positions, cache,
-                                      causal=causal)
+    if cfg.attn == "mla":
+        a, new_cache = attn.mla_attention(p.attn, h, cfg, positions, cache)
+    else:
+        a, new_cache = attn.gqa_attention(p.attn, h, cfg, positions, cache,
+                                          causal=causal)
     x = x + a
     h = apply_norm(p.ln2, x, cfg)
     if isinstance(p, MoEBlock):

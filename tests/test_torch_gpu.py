@@ -714,3 +714,131 @@ def test_routed_smoke_moe_decode_launches_one_kernel_per_dispatch(
     assert {"moe.expert_gate", "moe.expert_down"} <= {
         tag for tag, _ in ctx.stats.observed}
     capsys.readouterr()
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2-236b (MLA) and deepseek-moe-16b training
+# ---------------------------------------------------------------------------
+
+# (m, k, n, dtype): deepseek-v2-236b's decode GEMMs at batch 4 (the row
+# stream kernels; the router fp32), then the naive prefill's at batch 4 x
+# prompt 32 (bf16, the tensor-core kernel: `mla.k_rope`'s N = 64 and
+# `mla.kv_down`'s N = 512 are narrower than its 256-wide tile)
+V2_DECODE = [
+    (4, 5120, 1536, "bfloat16"),        # mla.q_down
+    (4, 1536, 24576, "bfloat16"),       # mla.q_up
+    (4, 5120, 512, "bfloat16"),         # mla.kv_down
+    (4, 5120, 64, "bfloat16"),          # mla.k_rope
+    (4, 16384, 5120, "bfloat16"),       # mla.o
+    (4, 5120, 12288, "bfloat16"),       # dense mlp gate, up
+    (4, 12288, 5120, "bfloat16"),       # dense mlp down
+    (4, 5120, 160, "float32"),          # moe.router
+    (4, 5120, 3072, "bfloat16"),        # shared experts gate, up
+    (4, 3072, 5120, "bfloat16"),        # shared experts down
+    (4, 5120, 102400, "bfloat16"),      # lm_head
+]
+V2_PREFILL = [
+    (128, 5120, 64), (128, 5120, 512), (128, 512, 16384), (128, 1536, 24576),
+    (128, 16384, 5120),
+]
+
+
+@pytest.mark.parametrize("shape", V2_DECODE,
+                         ids=[f"{m}x{k}x{n}-{d}" for m, k, n, d in V2_DECODE])
+def test_kernel_at_the_deepseek_v2_decode_shapes(cuda, shape):
+    """Each decode GEMM of deepseek-v2-236b on a stream kernel (the fp32
+    router too), against the plain version at the IEEE tolerance and
+    bitwise repeatable."""
+    m, k, n, dtype_name = shape
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, b = _draw((m, k), dtype, g, cuda), _draw((k, n), dtype, g, cuda)
+    block = (4, 256, 128)
+    assert _plan(a, b, block, cuda)[0] == mmad_mod.ROW_STREAM
+    got = mmad_mod.mmad(a, b, block, torch.float32)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.mmad_ref(a, b, torch.float32), k)
+    assert torch.equal(mmad_mod.mmad(a, b, block, torch.float32), got)
+
+
+@pytest.mark.parametrize("mkn", V2_PREFILL,
+                         ids=["x".join(map(str, s)) for s in V2_PREFILL])
+def test_wgmma_at_the_deepseek_v2_prefill_shapes(cuda, mkn):
+    """MLA's naive prefill GEMMs (M = 128) on the tensor-core kernel, N as
+    narrow as 64, in fp32 and bf16 out."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    a, b = _wgmma_operands(m, k, n, "n", torch.bfloat16, g, cuda)
+    block = (128, 128, 128)
+    assert _plan(a, b, block, cuda)[0] == mmad_mod.WGMMA
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = mmad_mod.mmad(a, b, block, out_dtype)
+        torch.cuda.synchronize()
+        _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype,
+                      tensor_cores=True)
+
+
+def test_fp32_router_at_the_moe_train_shape_takes_the_simt_tile_kernel(cuda):
+    """deepseek-moe-16b's router in training, fp32 x (2048, 2048) @ fp32
+    router (2048, 64): the SIMT tile kernel (fp32 never takes the tensor
+    cores, nor TF32), K split and summed by its reduce kernel, held to the
+    IEEE tolerance and bitwise repeatable; its backward is two fp32
+    `torch.matmul` products, not `mmad`."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    a = _draw((2048, 2048), torch.float32, g, cuda)
+    b = _draw((2048, 64), torch.float32, g, cuda)
+    block = (128, 64, 128)
+    variant, _, splits = _plan(a, b, block, cuda)
+    assert variant == mmad_mod.TILE and splits > 1
+    got = mmad_mod.mmad(a, b, block, torch.float32)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.mmad_ref(a, b, torch.float32), 2048)
+    assert torch.equal(mmad_mod.mmad(a, b, block, torch.float32), got)
+    assert not ops.tensor_core_backward(a, b)
+
+
+def test_mla_absorbed_decode_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                         capsys):
+    """deepseek-v2-236b-smoke's MLA block (q_lora on) decoding 8 tokens
+    routed on the card (the absorbed form: the projections on `mmad`, the
+    MQA over the latent cache at hkv = 1 and dv = r != d) against the same
+    calls on CPU tensors (the kernels' plain versions), fp32 weights: the
+    outputs and the cache within 1e-4 of the CPU's largest value."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.deploy.warmup import build_planner
+    from repro_torch.launch import mesh
+    from repro_torch.models import attention, shard_ctx
+    cfg = dataclasses.replace(smoke_config("deepseek-v2-236b"),
+                              dtype=torch.float32)
+    cpu = torch.device("cpu")
+    p = attention.mla_params(torch.Generator().manual_seed(0), cfg, cpu)
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    planner = build_planner(str(tmp_path), (4, 4), 12)
+    outs, caches = {}, {}
+    for dev in (cpu, cuda):
+        layer = attention.MLA(None, cfg, "meta")
+        layer.load_state_dict({k: v.to(dev) for k, v in
+                               p.state_dict().items()}, assign=True)
+        cache = attention.make_kv_cache(cfg, 2, 8, dev)
+        shard_ctx.set_gemm_context(shard_ctx.GemmContext(
+            mesh=mesh.make_host_mesh(dev), planner=planner))
+        try:
+            steps = []
+            with torch.inference_mode():
+                for i in range(8):
+                    y, cache = attention.mla_attention(
+                        layer, x[:, i:i + 1].to(dev), cfg,
+                        torch.arange(i, i + 1, device=dev), cache)
+                    steps.append(y.cpu())
+        finally:
+            shard_ctx.set_gemm_context(None)
+        outs[dev.type], caches[dev.type] = torch.cat(steps, 1), cache
+    scale = float(outs["cpu"].abs().max())
+    assert float((outs["cuda"] - outs["cpu"]).abs().max()) <= 1e-4 * scale
+    for key in ("c_kv", "k_rope"):
+        torch.testing.assert_close(caches["cuda"][key].cpu(),
+                                   caches["cpu"][key], rtol=1e-4, atol=1e-5)
+    assert caches["cuda"]["index"] == 8
+    capsys.readouterr()

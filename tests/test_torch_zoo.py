@@ -7,9 +7,10 @@
   serve parity tolerances of tests/test_torch_serve.py (fp32 rtol = atol =
   1e-4; bf16 rtol 2e-2, atol 5e-2) and equal greedy tokens, the same
   observed (tag, shape) keys and routing decisions, resolve rate 1.0.
-- The registry lists the five ported architectures, each full and smoke
-  config equal field by field to the reference's.
-- The families not yet ported (MLA, SSM, xLSTM, encoder-decoder, the VLM
+- The registry lists the six ported architectures, each full and smoke
+  config equal field by field to the reference's (deepseek-v2-236b's MLA
+  is held to the reference in tests/test_torch_mla.py).
+- The families not yet ported (SSM, xLSTM, encoder-decoder, the VLM
   frontend) raise `NotImplementedError` naming their ROADMAP.md item.
 """
 import dataclasses
@@ -30,8 +31,8 @@ from repro_torch.models.common import ModelConfig  # noqa: E402
 from test_torch_serve import (_decisions, _decode_jax,  # noqa: E402
                               _decode_torch)
 
-PORTED = ["deepseek-moe-16b", "gemma-2b", "olmo-1b", "phi4-mini-3.8b",
-          "qwen3-14b"]
+PORTED = ["deepseek-moe-16b", "deepseek-v2-236b", "gemma-2b", "olmo-1b",
+          "phi4-mini-3.8b", "qwen3-14b"]
 DENSE = ["olmo-1b", "phi4-mini-3.8b", "qwen3-14b"]
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=5e-2)}
@@ -87,7 +88,6 @@ def test_registry_lists_the_ported_architectures():
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("deepseek-v2-236b", "'mla' attention"),
     ("zamba2-1.2b", "mamba2_hybrid"),
     ("xlstm-1.3b", "xlstm"),
     ("seamless-m4t-medium", "encoder-decoder"),

@@ -23,7 +23,9 @@ def rows(path):
     with open(path) as f:
         for line in f:
             if line.startswith("{") and '"kernel_ms"' in line:
-                yield json.loads(line)
+                row = json.loads(line)
+                if "shape" in row:      # not the `kernels` report line
+                    yield row
 
 
 def spread(xs):
