@@ -69,6 +69,22 @@ Phases (any failure exits non-zero and prints no result line):
              tensor-core kernel), held to the absorbed decode's logits at
              the last prompt position with the decode's expert choices
              pinned (`naive_vs_absorbed`);
+   serve zamba2-1.2b and serve xlstm-1.3b — the serve phase's checks at
+             full width and full depth for the recurrent stacks (38 Mamba2
+             layers and one shared attention block used after each of 6
+             super-layers; 42 mLSTM and 6 sLSTM layers, the fp32
+             `mlstm.gates` on `mmad` at N = 8). One traced step splits
+             `mmad` time from the state updates' kernels (the
+             `mamba.state`, `mlstm.state` and `slstm.state` spans); then,
+             on the same weights, one routed batched forward of 2 x 256
+             tokens runs the chunked forms (two chunks; its GEMMs at M =
+             512 on the tensor-core kernel, `mamba.in`'s N = 8,384 ragged,
+             the fp32 gates on the SIMT tile kernel, each call held to the
+             plain version on its operands and each shape at the plan's
+             block) against the recurrent decode fed the same tokens one
+             at a time, the logits at every position held in fp32 on the
+             same weights and printed in bf16 (`chunked_vs_recurrent`);
+             their first-step routed-vs-unrouted check likewise;
    train deepseek-moe-16b — the train phase's checks at full width and 4
              layers (1 dense + 3 MoE; AdamW over the full 28 needs more
              than 200 GB): routed first, each route call's expert choices
@@ -83,7 +99,8 @@ Phases (any failure exits non-zero and prints no result line):
              q, k and v within `ATTN_TOL`, then their times beside
              `scaled_dot_product_attention`'s and their peak memory;
 8. timing  — per decode shape (gemma-2b, deepseek-moe-16b with its fp32
-             router, qwen3-14b, deepseek-v2-236b) and per train shape
+             router, qwen3-14b, deepseek-v2-236b, zamba2-1.2b, xlstm-1.3b
+             with its fp32 gates) and per train shape
              (gemma-2b, deepseek-moe-16b with its fp32 router on the SIMT
              tile kernel) the kernel's time (held to the tolerance again)
              beside the plain version's, one `torch.matmul` call's, the
@@ -182,6 +199,24 @@ TRAIN_SAME_INPUT_FLIP_SHARE = 1e-4
 # routed-vs-unrouted bound above.
 SERVE_V2_LAYERS = 6
 NAIVE_ABSORBED_REL_L2 = FIRST_STEP_REL_L2
+# The recurrent stacks' chunked forward against their recurrent decode,
+# relative L2 of the logits over every position of CHECK_BATCH x CHECK_SEQ
+# tokens (two chunks of `ssm.CHUNK`): the same function with its scans
+# summed in other orders; the MLA check's bound. It and the recurrent
+# stacks' first-step check are held in fp32, on the same weights cast up,
+# and printed in bf16 beside: a random stack amplifies its rounding noise
+# layer by layer. xlstm-1.3b's first decode step with bf16 `x @ w` against
+# fp32-summed GEMMs rounded to bf16 read rel L2 2.9e-2 at 8 of its 48
+# layers, 0.18 at 16 and 0.27 at 24 (`tools/ssm_sensitivity.py` on the
+# CPU), and its routed step against the unrouted one 0.71 at all 48 on an
+# H100: no bf16 limit tells a fault from that noise. In fp32 the same gain
+# acts on 2^-24 roundings (xlstm read 5.6e-4 on the first step and 2.4e-2
+# over 2 x 256 tokens on an H100). The bf16 kernels are held instead on
+# their own operands: every `mmad` call of the bf16 routed step and of the
+# bf16 chunked forward against the plain version on the same tensors
+# (`OperandCheck`), strided views included.
+CHECK_BATCH, CHECK_SEQ = 2, 256
+CHUNKED_RECURRENT_REL_L2 = FIRST_STEP_REL_L2
 
 
 def fail(msg: str) -> None:
@@ -722,13 +757,92 @@ def busy_share(torch, params, cfg, planner, prompts, dev,
     return {"busy_ms": busy_ms, "wall_ms": wall_ms, "mmad_ms": mmad_ms}
 
 
+class OperandCheck:
+    """Holds every `mmad` call made while `watching` to the plain version on
+    the same operands (views as the path passes them), at the tolerance of
+    the variant `plan_launch` picks; keeps the calls and the worst error
+    over tolerance. The plain products do not launch `mmad`."""
+
+    def __init__(self, torch, mmad_mod):
+        self.torch, self.mmad_mod = torch, mmad_mod
+        self.calls, self.worst = 0, 0.0
+
+    @contextlib.contextmanager
+    def watching(self):
+        from repro_torch.kernels import ops, ref
+        torch, mmad_mod = self.torch, self.mmad_mod
+        real = ops.mmad
+
+        def checked(a, b, block_shape=(128, 128, 128), out_dtype=None):
+            out = real(a, b, block_shape, out_dtype)
+            tensor_cores = a.is_cuda and mmad_mod.plan_launch(
+                a.shape[0], b.shape[1], a.shape[1], block_shape,
+                mmad_mod._num_sms(a.device), mmad_mod.b_layout(b),
+                b.element_size(),
+                mmad_mod.wgmma_b_major(a, b))[0] == mmad_mod.WGMMA
+            want = ref.mmad_ref(a, b, out_dtype or a.dtype)
+            self.worst = max(self.worst, tolerance_ratio(
+                torch, out, want, a.shape[1], out_dtype or a.dtype,
+                tensor_cores))
+            self.calls += 1
+            return out
+
+        ops.mmad = checked
+        try:
+            yield self
+        finally:
+            ops.mmad = real
+
+
+def fp32_copy(torch, cfg, params):
+    """The config and weights in fp32 (the same values, cast up)."""
+    from repro_torch.models.model import init_params
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = init_params(None, cfg32, device="meta")
+    params32.load_state_dict({k: v.float() for k, v in
+                              params.state_dict().items()}, assign=True)
+    return cfg32, params32
+
+
+def first_steps(torch, params, cfg, planner, prompts, dev, operands=None):
+    """The first decode step unrouted (no context: x @ w), then routed, its
+    `mmad` calls held by `operands` when given: (routed, unrouted)
+    logits."""
+    from repro_torch.launch import serve
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import decode_init, decode_step
+
+    with torch.inference_mode():
+        try:
+            shard_ctx.set_gemm_context(None)
+            caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
+            plain, _ = decode_step(params, caches, prompts[:, :1], 0, cfg)
+            serve.install_gemm_context(planner, dev)
+            caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
+            with (operands.watching() if operands
+                  else contextlib.nullcontext()):
+                routed, _ = decode_step(params, caches, prompts[:, :1], 0,
+                                        cfg)
+        finally:
+            shard_ctx.set_gemm_context(None)
+    return routed, plain
+
+
 def tag_layers(cfg, tag: str) -> int:
     """How many times a decode step dispatches the GEMM of `tag`: once per
     layer that has it (attention in every layer, the dense MLP in the dense
-    layers, the router and shared experts in the MoE layers), lm_head
-    once."""
+    layers, the router and shared experts in the MoE layers; zamba2's
+    Mamba2 projections in every layer and the shared block's attention and
+    MLP once per super-layer; xLSTM's mLSTM and sLSTM projections in their
+    layers), lm_head once."""
     if tag == "lm_head":
         return 1
+    if cfg.block_pattern == "mamba2_hybrid":
+        return (cfg.n_layers if tag.startswith("mamba.")
+                else cfg.n_layers // cfg.hybrid_attn_every)
+    if cfg.block_pattern == "xlstm":
+        n_super = cfg.n_layers // cfg.slstm_every
+        return n_super if tag.startswith("slstm.") else cfg.n_layers - n_super
     moe_layers = cfg.n_layers - cfg.n_dense_layers if cfg.n_experts else 0
     if tag.startswith("moe."):
         return moe_layers
@@ -778,15 +892,35 @@ def routing_census(torch, params, cfg, planner, prompts, dev):
         "free_rel_l2": free_rel}
 
 
+def state_spans(cfg) -> dict:
+    """The profiler spans of a decode step's work outside `mmad` that
+    `step_split` reads, each with the number of layers that open it once a
+    step: the MoE layers' dispatch, expert and combine einsums; the Mamba2
+    layers' conv and SSD; the mLSTM layers' C/n/m update and readout; the
+    sLSTM layers' recurrence."""
+    if cfg.block_pattern == "mamba2_hybrid":
+        return {"mamba.state": cfg.n_layers}
+    if cfg.block_pattern == "xlstm":
+        n_super = cfg.n_layers // cfg.slstm_every
+        return {"mlstm.state": cfg.n_layers - n_super, "slstm.state": n_super}
+    if cfg.n_experts:
+        return {"moe.einsums": cfg.n_layers - cfg.n_dense_layers}
+    return {}
+
+
+def span_key(name: str) -> str:
+    """The summary key of a `state_spans` span's device ms per step."""
+    return name.replace(".", "_") + "_ms"
+
+
 def step_split(torch, params, cfg, planner, prompts, dev,
                gemms_per_step: int) -> dict:
     """Device time of one routed decode step (the first, on fresh caches)
     by where it goes: `mmad` kernels (by name), and the kernels launched
-    inside the MoE layers' dispatch, expert and combine einsums (the
-    `moe.einsums` profiler span, its device time summed over its ops'
-    kernels). A device-only window holds no span ranges, so this step is
-    traced with host activity too, which slows the host but not the
-    kernels."""
+    inside each of `state_spans`' profiler spans (its device time summed
+    over its ops' kernels). A device-only window holds no span ranges, so
+    this step is traced with host activity too, which slows the host but
+    not the kernels."""
     from repro_torch.launch import serve
     from repro_torch.models import shard_ctx
     from repro_torch.models.model import decode_init, decode_step
@@ -802,11 +936,10 @@ def step_split(torch, params, cfg, planner, prompts, dev,
     shard_ctx.set_gemm_context(None)
     edge_kernels_kept(torch, prof)
     events = prof.events()
-    spans = [e for e in events if e.name == "moe.einsums"
-             and e.device_type == DeviceType.CPU]
+    want = state_spans(cfg)
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and e.name != "moe.einsums" and SPIN_KERNEL not in e.name
+               and e.name not in want and SPIN_KERNEL not in e.name
                and not e.name.startswith("dit_gemm.")]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     mmad_ms = sum(e.time_range.elapsed_us() for e in kernels
@@ -815,27 +948,37 @@ def step_split(torch, params, cfg, planner, prompts, dev,
     if mmad_calls != gemms_per_step:
         fail(f"{mmad_calls} mmad kernels ran in the traced step of "
              f"{gemms_per_step} routed GEMMs")
-    if len(spans) != cfg.n_layers - cfg.n_dense_layers:
-        fail(f"the traced step holds {len(spans)} 'moe.einsums' spans for "
-             f"{cfg.n_layers - cfg.n_dense_layers} MoE layers")
-    einsums_ms = sum(e.device_time_total for e in spans) / 1e3
-    if not 0 < einsums_ms < busy_ms:
-        fail(f"the MoE einsums' device time {einsums_ms} ms is not a part "
-             f"of the step's {busy_ms} ms")
+    out = {"step_busy_ms": busy_ms, "step_mmad_ms": mmad_ms}
+    parts = []
+    for name, layers in want.items():
+        spans = [e for e in events if e.name == name
+                 and e.device_type == DeviceType.CPU]
+        if len(spans) != layers:
+            fail(f"the traced step holds {len(spans)} {name!r} spans for "
+                 f"{layers} layers")
+        ms = sum(e.device_time_total for e in spans) / 1e3
+        if not 0 < ms < busy_ms:
+            fail(f"the device time {ms} ms of the {name!r} spans is not a "
+                 f"part of the step's {busy_ms} ms")
+        out[span_key(name)] = ms
+        parts.append(f"{ms:.3f} ms in {name} ({len(spans)} spans)")
+    rest = busy_ms - mmad_ms - sum(out[span_key(n)] for n in want)
     print(f"one traced {cfg.name} decode step (host activity traced too): "
-          f"device busy {busy_ms:.3f} ms, of it {mmad_ms:.3f} ms in mmad and "
-          f"{einsums_ms:.3f} ms in the MoE dispatch, expert and combine "
-          f"einsums ({len(spans)} spans), "
-          f"{busy_ms - mmad_ms - einsums_ms:.3f} ms elsewhere", flush=True)
-    return {"step_busy_ms": busy_ms, "step_mmad_ms": mmad_ms,
-            "moe_einsums_ms": einsums_ms}
+          f"device busy {busy_ms:.3f} ms, of it {mmad_ms:.3f} ms in mmad, "
+          f"{', '.join(parts)}, {rest:.3f} ms elsewhere", flush=True)
+    return out
+
+
+# the routed GEMMs whose operands are fp32: the MoE router and the mLSTM
+# input and forget gates' pre-activations
+FP32_TAGS = ("moe.router", "mlstm.gates")
 
 
 def launch_table(torch, cfg, planner, ctx) -> dict:
     """What one decode step, or one forward, of `ctx`'s run launches, per
     shape, at the plan's block geometry: (m, n, k, dtype) -> the block, the
     launches (each routed GEMM once per layer that has it, lm_head once)
-    and the operand dtype (the router's fp32). The expert einsums are
+    and the operand dtype (the router's and the mLSTM gates' fp32). The expert einsums are
     recorded, not dispatched, and attention is not a GEMM here."""
     from repro_torch.core.lower import lower_schedule
 
@@ -845,7 +988,7 @@ def launch_table(torch, cfg, planner, ctx) -> dict:
             continue
         plan = planner.plan_cached(shape)
         ep = lower_schedule(plan.schedule, ctx.mesh, shape=shape)
-        dtype = torch.float32 if tag == "moe.router" else cfg.dtype
+        dtype = torch.float32 if tag in FP32_TAGS else cfg.dtype
         key = (shape.m, shape.n, shape.k, str(dtype))
         rec = table.setdefault(key, {
             "block": ep.inner_kernel.geometry(), "count": 0, "dtype": dtype})
@@ -863,7 +1006,7 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     per shape, and the numbers the report prints."""
     from repro_torch.launch import serve
     from repro_torch.models import shard_ctx
-    from repro_torch.models.model import decode_init, decode_step, init_params
+    from repro_torch.models.model import init_params
     from repro_torch.obs import render_run_report
 
     if dev.type == "cuda":
@@ -909,26 +1052,41 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
         if census["flips"] > MOE_FLIP_SHARE * census["token_layers"]:
             fail(f"{census['flips']} of {census['token_layers']} token-layers "
                  f"chose other experts routed than unrouted")
-    else:
-        with torch.inference_mode():
-            shard_ctx.set_gemm_context(None)
-            caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
-            plain, _ = decode_step(params, caches, prompts[:, :1], 0, cfg)
-            serve.install_gemm_context(planner, dev)
-            caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
-            routed, _ = decode_step(params, caches, prompts[:, :1], 0, cfg)
-            shard_ctx.set_gemm_context(None)
-    rel = float((routed - plain).norm() / plain.norm())
+    recurrent = cfg.block_pattern != "attn"
+    operands = OperandCheck(torch, mmad_mod)
+    if not cfg.n_experts:
+        routed, plain = first_steps(torch, params, cfg, planner, prompts, dev,
+                                    operands if recurrent else None)
+    rel = held = float((routed - plain).norm() / plain.norm())
     max_abs = float((routed - plain).abs().max())
     summary["first_step_rel_l2"] = rel
     print(f"first decode step, routed vs unrouted logits"
           f"{' (expert choices pinned)' if cfg.n_experts else ''}: rel L2 "
-          f"{rel:.3e} (tolerance {FIRST_STEP_REL_L2}), max abs "
+          f"{rel:.3e} ("
+          f"{'in bf16, not held' if recurrent else f'tolerance {FIRST_STEP_REL_L2}'}"
+          f"), max abs "
           f"{max_abs:.3e}, greedy tokens equal in "
           f"{int((routed.argmax(-1) == plain.argmax(-1)).sum())}/{BATCH} "
           f"rows", flush=True)
-    if not rel <= FIRST_STEP_REL_L2:
-        fail(f"routed first-step logits differ from unrouted: rel L2 {rel}")
+    if recurrent:
+        cfg32, params32 = fp32_copy(torch, cfg, params)
+        routed, plain = first_steps(torch, params32, cfg32, planner, prompts,
+                                    dev)
+        del params32
+        held = float((routed - plain).norm() / plain.norm())
+        summary["first_step_rel_l2_fp32"] = held
+        summary["first_step_operands_err_over_tolerance"] = operands.worst
+        print(f"  the same step on the weights in fp32: rel L2 {held:.3e} "
+              f"(tolerance {FIRST_STEP_REL_L2}); the bf16 routed step's "
+              f"{operands.calls} mmad calls against the plain version on "
+              f"their own operands: worst err/tol {operands.worst:.3f}",
+              flush=True)
+        if not (operands.calls and operands.worst <= 1.0):
+            fail(f"the routed first step's mmad calls differ from the plain "
+                 f"version on their operands: {operands.worst:.2f}x the "
+                 f"tolerance over {operands.calls} calls")
+    if not held <= FIRST_STEP_REL_L2:
+        fail(f"routed first-step logits differ from unrouted: rel L2 {held}")
 
     # the main path: a fresh routing context, counts from zero
     ctx = serve.install_gemm_context(planner, dev)
@@ -959,7 +1117,7 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     steps = PROMPT + GEN
     summary.update(busy_share(torch, params, cfg, planner, prompts, dev,
                               out["t_gen"] / GEN * 1e3, launches // steps))
-    if cfg.n_experts:
+    if state_spans(cfg):
         summary.update(step_split(torch, params, cfg, planner, prompts, dev,
                                   launches // steps))
 
@@ -1060,6 +1218,119 @@ def naive_vs_absorbed(torch, mmad_mod, cfg, dev, params, planner, prompts):
         fail(f"MLA's naive and absorbed forms differ: rel L2 {rel}")
     return {"naive_absorbed_rel_l2": rel, "naive_launches": launches,
             "naive_shapes": len(table), "naive_err_over_tolerance": worst}
+
+
+def both_forms(torch, mmad_mod, cfg, dev, params, planner, tokens,
+               operands=None):
+    """The routed decode fed `tokens` one at a time, then one routed batched
+    `forward` of them (its `mmad` calls held on their operands by
+    `operands`, when given): (chunked logits, recurrent logits, the
+    forward's launches, its routing context, seconds of each)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import decode_init, decode_step, forward
+
+    b, s = tokens.shape
+    serve.install_gemm_context(planner, dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        caches = decode_init(params, cfg, b, s)
+        steps = []
+        for i in range(s):
+            logits, caches = decode_step(params, caches, tokens[:, i:i + 1],
+                                         i, cfg)
+            steps.append(logits)
+        recurrent = torch.stack(steps, 1)
+    serve._sync(dev)
+    recurrent_s = time.perf_counter() - t0
+    del caches, steps
+    ctx = serve.install_gemm_context(planner, dev)
+    mmad_mod.reset_launch_count()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), (operands.watching() if operands
+                                  else contextlib.nullcontext()):
+        chunked = forward(params, tokens, cfg, remat=False)
+    serve._sync(dev)
+    chunked_s = time.perf_counter() - t0
+    launches = mmad_mod.launch_count()
+    shard_ctx.set_gemm_context(None)
+    if launches != ctx.stats.executed_gemm:
+        fail(f"the chunked forward launched mmad {launches} times for "
+             f"{ctx.stats.executed_gemm} routed GEMM dispatches")
+    if ctx.stats.resolve_rate != 1.0 or ctx.stats.silent_degrades:
+        fail(f"the chunked forward resolved {ctx.stats.resolve_rate} of its "
+             f"GEMMs, {ctx.stats.silent_degrades} silent degrades")
+    if not bool(torch.isfinite(chunked).all() and
+                torch.isfinite(recurrent).all()):
+        fail(f"non-finite logits in the {cfg.dtype} chunked-vs-recurrent "
+             f"check")
+    return chunked, recurrent, launches, ctx, chunked_s, recurrent_s
+
+
+def chunked_vs_recurrent(torch, mmad_mod, cfg, dev, params, planner):
+    """A recurrent stack's two forms on the same weights: the routed decode
+    fed CHECK_BATCH x CHECK_SEQ tokens one at a time (the recurrent Mamba2
+    / mLSTM / sLSTM steps on their states, the shared attention through
+    its KV caches), against one routed batched `forward` of the same
+    tokens (the chunked SSD and mLSTM forms over two chunks). In bf16 the
+    forward's GEMMs run at M = CHECK_BATCH x CHECK_SEQ on the tensor-core
+    kernel and the fp32 gates on the SIMT tile kernel: each call is held
+    to the plain version on its own operands, and each shape at the plan's
+    block; the logits' rel L2 and greedy-token agreement are printed. On
+    the weights in fp32 the logits at every position are held to
+    CHUNKED_RECURRENT_REL_L2 (see `CHECK_BATCH`'s note)."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    tokens = torch.randint(0, cfg.vocab, (CHECK_BATCH, CHECK_SEQ),
+                           generator=gen).to(dev)
+    operands = OperandCheck(torch, mmad_mod)
+    chunked, recurrent, launches, ctx, chunked_s, recurrent_s = both_forms(
+        torch, mmad_mod, cfg, dev, params, planner, tokens, operands)
+    table = launch_table(torch, cfg, planner, ctx)
+    if sum(r["count"] for r in table.values()) != launches:
+        fail(f"the chunked forward's launch table {table} does not add up "
+             f"to its {launches} launches")
+    if not (operands.calls == launches and operands.worst <= 1.0):
+        fail(f"the chunked forward's {operands.calls} mmad calls differ "
+             f"from the plain version on their operands: "
+             f"{operands.worst:.2f}x the tolerance")
+    worst = hold_shapes(torch, mmad_mod, ref, cfg, table, dev, SEED + 3)
+    print(f"the chunked forward's {len(table)} GEMM shapes "
+          f"{sorted(k[:3] for k in table)} held to the plain version at the "
+          f"plan's blocks: worst err/tol {worst:.3f}; its {operands.calls} "
+          f"calls on their own operands: worst err/tol "
+          f"{operands.worst:.3f}", flush=True)
+    rel = float((chunked - recurrent).norm() / recurrent.norm())
+    agree = float((chunked.argmax(-1) == recurrent.argmax(-1)).float().mean())
+    del chunked, recurrent
+    cfg32, params32 = fp32_copy(torch, cfg, params)
+    chunked, recurrent, _, _, _, _ = both_forms(
+        torch, mmad_mod, cfg32, dev, params32, planner, tokens)
+    del params32
+    serve._sync(dev)
+    rel32 = float((chunked - recurrent).norm() / recurrent.norm())
+    agree32 = float((chunked.argmax(-1) == recurrent.argmax(-1))
+                    .float().mean())
+    print(f"{cfg.name} chunked forward ({CHECK_BATCH} x {CHECK_SEQ} tokens, "
+          f"{launches} mmad launches, {chunked_s:.2f}s) against the "
+          f"recurrent decode of the same tokens ({recurrent_s:.2f}s), logits "
+          f"over all positions: in bf16 rel L2 {rel:.3e} (not held), greedy "
+          f"tokens equal at {agree:.1%} of positions; on the weights in fp32 "
+          f"rel L2 {rel32:.3e} (tolerance {CHUNKED_RECURRENT_REL_L2}), max "
+          f"abs {float((chunked - recurrent).abs().max()):.3e}, greedy "
+          f"tokens equal at {agree32:.1%}", flush=True)
+    if not (math.isfinite(rel32) and rel32 <= CHUNKED_RECURRENT_REL_L2):
+        fail(f"{cfg.name}'s chunked and recurrent forms differ: rel L2 "
+             f"{rel32} in fp32")
+    return {"chunked_recurrent_rel_l2": rel32,
+            "chunked_recurrent_rel_l2_bf16": rel,
+            "chunked_token_agreement": agree32,
+            "chunked_token_agreement_bf16": agree,
+            "chunked_launches": launches, "chunked_shapes": len(table),
+            "chunked_err_over_tolerance": worst,
+            "chunked_operands_err_over_tolerance": operands.worst}
 
 
 def train_steps(torch, s, batch, dev, n: int):
@@ -1831,6 +2102,15 @@ def main() -> int:
             torch, mmad_mod, v2, dev, params, planner, prompts))
     release(torch)
 
+    for arch in ("zamba2-1.2b", "xlstm-1.3b"):
+        phase(f"serve {arch}")
+        ssm_cfg = served_cfgs[arch] = get_config(arch)
+        served[arch] = serve_model(
+            torch, mmad_mod, ssm_cfg, dev,
+            after=lambda params, planner, prompts, c=ssm_cfg:
+            chunked_vs_recurrent(torch, mmad_mod, c, dev, params, planner))
+        release(torch)
+
     arch = "deepseek-moe-16b"
     phase(f"train {arch} ({MOE_TRAIN_LAYERS} layers)")
     moe_cfg = dataclasses.replace(get_config(arch), n_layers=MOE_TRAIN_LAYERS)
@@ -1903,6 +2183,14 @@ def main() -> int:
                    f"{experts_row['ms']:.3f} ms timed against a bound of "
                    f"{experts_row['bound_ms']:.3f} ms"
                    if experts_row else "")
+        if served_cfgs[arch].block_pattern != "attn":
+            einsums = "; the state updates " + ", ".join(
+                f"{name} {summary[span_key(name)]:.3f} ms"
+                for name in state_spans(served_cfgs[arch])) + (
+                f" per step in the profile (step busy "
+                f"{summary['step_busy_ms']:.3f} ms, mmad "
+                f"{summary['step_mmad_ms']:.3f} ms); chunked vs recurrent "
+                f"rel L2 {summary['chunked_recurrent_rel_l2']:.3e}")
         print(f"decode {arch} (batch {BATCH}): {summary['tok_s']:.1f} tok/s "
               f"({summary['step_ms']:.3f} ms per step); mmad "
               f"{arch_launches // (PROMPT + GEN)} launches per step, "

@@ -12,10 +12,12 @@ cross-validates `model_workload`'s prediction against them.
 
 Every ported architecture serves this way (`--arch` gemma-2b, olmo-1b,
 phi4-mini-3.8b, qwen3-14b, deepseek-moe-16b, deepseek-v2-236b, whose MLA
-decodes in the absorbed form): an MoE model's router and
+decodes in the absorbed form, zamba2-1.2b and xlstm-1.3b, which decode on
+their recurrent state): an MoE model's router and
 shared experts are routed GEMMs, and its expert einsums are recorded under
 the tags `model_workload` predicts, so the warm-up covers them and the
-cross-validation holds. Runs on the card unless `--device cpu` is given;
+cross-validation holds; the recurrent stacks' projections are routed
+GEMMs and their scans run outside `mmad`. Runs on the card unless `--device cpu` is given;
 with no card it raises.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\

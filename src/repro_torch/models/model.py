@@ -1,14 +1,20 @@
 """Top-level model assembly.
 
-Port of `repro/models/model.py` for the `block_pattern == "attn"` family
-without frontend or encoder: the dense GQA stacks (gemma-2b, olmo-1b,
-phi4-mini, qwen3-14b), one group of attention blocks, and the MoE stacks
-(deepseek-moe-16b; deepseek-v2-236b, whose attention is MLA), whose leading
-dense layers come before a group of MoE blocks. The reference stacks each
-group's parameters and scans over them; eagerly, a `ModuleList` per group
-and a Python loop do the same work, with the reference's group names
-(`layers`, or `dense_layers` + `moe_layers`; the decode caches `layers`,
-or `dense` + `moe`). Entry points:
+Port of `repro/models/model.py` for the decoders without frontend or
+encoder: the dense GQA stacks (gemma-2b, olmo-1b, phi4-mini, qwen3-14b),
+one group of attention blocks; the MoE stacks (deepseek-moe-16b;
+deepseek-v2-236b, whose attention is MLA), whose leading dense layers come
+before a group of MoE blocks; zamba2, super-layers of `hybrid_attn_every`
+Mamba2 blocks each followed by ONE shared attention block (the same weights
+every time, a KV cache per use), then a Mamba2 tail; and xLSTM,
+super-layers of `slstm_every - 1` mLSTM blocks and one sLSTM block. The
+reference stacks each group's parameters and scans over them; eagerly, a
+`ModuleList` per group and a Python loop do the same work, with the
+reference's group names (`layers`; `dense_layers` + `moe_layers`;
+`mamba_layers` + `mamba_tail` + the unstacked `shared_attn`;
+`mlstm_layers` + `slstm_layers`) and decode-cache keys (`layers`; `dense` +
+`moe`; `mamba` + `mamba_tail` + `shared_attn`; `mlstm` + `slstm`). Entry
+points:
 `init_params` (an `nn.Module` drawn from a seeded `torch.Generator`),
 `forward` (logits, or hidden states for the chunked training loss),
 `decode_init` + `decode_step` (one-token serve step against preallocated
@@ -31,6 +37,7 @@ from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import shard_ctx
+from repro_torch.models import ssm
 from repro_torch.models.common import (ModelConfig, apply_mlp, apply_norm,
                                        dense_init, mlp_params, norm_params,
                                        normal)
@@ -40,14 +47,13 @@ _ROADMAP_ZOO = "ROADMAP.md, queue 1: attention and the model zoo"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The ported families: dense and MoE attention stacks, GQA or MLA."""
+    """The ported families: dense and MoE attention stacks, GQA or MLA, and
+    the zamba2 and xLSTM recurrent stacks."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"encoder-decoder stacks are not ported "
                                   f"yet ({_ROADMAP_ZOO})")
-    if cfg.block_pattern != "attn":
-        raise NotImplementedError(f"block pattern {cfg.block_pattern!r} "
-                                  f"(SSM / xLSTM) is not ported yet "
-                                  f"({_ROADMAP_ZOO})")
+    if cfg.block_pattern not in ("attn", "mamba2_hybrid", "xlstm"):
+        raise ValueError(cfg.block_pattern)
     if cfg.attn not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.attn!r} attention is not ported yet "
                                   f"({_ROADMAP_ZOO})")
@@ -86,10 +92,47 @@ class MoEBlock(nn.Module):
         self.moe = moe_lib.moe_params(generator, cfg, device)
 
 
+class MixerBlock(nn.Module):
+    """A recurrent block: `ln`, then its `mixer` (`ssm.Mamba2`, `ssm.MLSTM`
+    or `ssm.SLSTM`), added to the residual."""
+
+    def __init__(self, generator, cfg: ModelConfig, make_mixer,
+                 device="cuda"):
+        super().__init__()
+        self.ln = norm_params(cfg, device)
+        self.mixer = make_mixer(generator, cfg, device)
+
+
+_MIXERS = {ssm.Mamba2: ssm.mamba2_mixer, ssm.MLSTM: ssm.mlstm_mixer,
+           ssm.SLSTM: ssm.slstm_mixer}
+
+
+def _mixer_blocks(generator, cfg: ModelConfig, make_mixer, n: int,
+                  device) -> nn.ModuleList:
+    return nn.ModuleList(MixerBlock(generator, cfg, make_mixer, device)
+                         for _ in range(n))
+
+
+def _super_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(super-layers, blocks of the stacked group per super-layer, tail):
+    zamba2's `hybrid_attn_every` Mamba2 blocks before each use of the
+    shared block and the remainder after them; xLSTM's `slstm_every - 1`
+    mLSTM blocks before each sLSTM block."""
+    if cfg.block_pattern == "mamba2_hybrid":
+        per = cfg.hybrid_attn_every
+        n_super, rem = divmod(cfg.n_layers, per)
+        return n_super, per, rem
+    per = cfg.slstm_every
+    assert cfg.n_layers % per == 0, "xlstm layers must divide by slstm_every"
+    return cfg.n_layers // per, per - 1, 0
+
+
 class Model(nn.Module):
     """Parameters of a decoder: `embed` (vocab, d), the layer groups
-    (`layers`; or `dense_layers` and `moe_layers`), `ln_f`, and `lm_head`
-    (d, vocab) when embeddings are untied."""
+    (`layers`; `dense_layers` and `moe_layers`; `mamba_layers`,
+    `mamba_tail` and `shared_attn`; or `mlstm_layers` and
+    `slstm_layers`), `ln_f`, and `lm_head` (d, vocab) when embeddings are
+    untied."""
 
     def __init__(self, generator, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -101,6 +144,23 @@ class Model(nn.Module):
         self.ln_f = norm_params(cfg, device)
         self.lm_head = (None if cfg.tie_embeddings else dense_init(
             generator, cfg.d_model, cfg.vocab, cfg.dtype, device))
+        if cfg.block_pattern == "mamba2_hybrid":
+            n_super, per, rem = _super_layers(cfg)
+            self.mamba_layers = _mixer_blocks(generator, cfg, ssm.Mamba2,
+                                              n_super * per, device)
+            if rem:
+                self.mamba_tail = _mixer_blocks(generator, cfg, ssm.Mamba2,
+                                                rem, device)
+            # ONE shared attention block reused after every super-layer
+            self.shared_attn = AttnBlock(generator, cfg, device)
+            return
+        if cfg.block_pattern == "xlstm":
+            n_super, per, _ = _super_layers(cfg)
+            self.mlstm_layers = _mixer_blocks(generator, cfg, ssm.MLSTM,
+                                              n_super * per, device)
+            self.slstm_layers = _mixer_blocks(generator, cfg, ssm.SLSTM,
+                                              n_super, device)
+            return
         if not cfg.n_experts:
             self.layers = nn.ModuleList(AttnBlock(generator, cfg, device)
                                         for _ in range(cfg.n_layers))
@@ -114,13 +174,19 @@ class Model(nn.Module):
             for _ in range(cfg.n_layers - cfg.n_dense_layers))
 
 
-# (parameter group, decode-cache key) in the order the layers run
+# (parameter group, decode-cache key) of the attention stacks, in the
+# order the layers run
 _GROUPS = (("layers", "layers"), ("dense_layers", "dense"),
            ("moe_layers", "moe"))
+# the groups the reference stacks on a leading axis (`shared_attn` is one
+# block)
+_STACKED = ("layers", "dense_layers", "moe_layers", "mamba_layers",
+            "mamba_tail", "mlstm_layers", "slstm_layers")
 
 
 def _groups(params: Model) -> Iterator[Tuple[str, nn.ModuleList]]:
-    """(decode-cache key, blocks) of each layer group the model has."""
+    """(decode-cache key, blocks) of each attention layer group the model
+    has."""
     for name, key in _GROUPS:
         blocks = getattr(params, name, None)
         if blocks is not None:
@@ -150,17 +216,19 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device="cuda") -> Model:
     """The reference's parameter pytree (numpy leaves, each layer group
-    stacked on a leading axis: `layers`, or `dense_layers` + `moe_layers`
-    with their stacked expert leaves) as this package's model on `device`
+    stacked on a leading axis: `layers`; `dense_layers` + `moe_layers`
+    with their stacked expert leaves; `mamba_layers` + `mamba_tail`;
+    `mlstm_layers` + `slstm_layers`) as this package's model on `device`
     (the card unless the caller passes `device="cpu"`; with no card that
     raises). Leaf paths name the parameters: block i of group G takes
-    `G.<path>[i]`. bf16 leaves arrive as `ml_dtypes.bfloat16` and go
-    through fp32, which is exact."""
+    `G.<path>[i]`, and zamba2's one shared block `shared_attn.<path>`. bf16
+    leaves arrive as `ml_dtypes.bfloat16` and go through fp32, which is
+    exact."""
     _check_supported(cfg)
     device = resolve_device(device)
     model = Model(None, cfg, device="meta")
     dtypes = {name: p.dtype for name, p in model.named_parameters()}
-    stacked = {name for name, _ in _GROUPS}
+    stacked = set(_STACKED)
 
     state = {}
     for name, leaf in _flatten(tree):
@@ -227,6 +295,55 @@ def _layer(p, x: torch.Tensor, cfg: ModelConfig,
     return shard_ctx.constrain_tokens(_block(p, x, cfg, positions)[0])
 
 
+def _mixer_block(p: MixerBlock, x: torch.Tensor, cfg: ModelConfig,
+                 state=None):
+    """A recurrent block (the reference's `_mamba_block` / `_mlstm_block` /
+    `_slstm_block`): its mixer's chunked form, or with `state` its
+    recurrent form."""
+    h = apply_norm(p.ln, x, cfg)
+    y, new_state = _MIXERS[type(p.mixer)](p.mixer, h, cfg, state)
+    return x + y, new_state
+
+
+def _mixer_layer(p: MixerBlock, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    return shard_ctx.constrain_tokens(_mixer_block(p, x, cfg)[0])
+
+
+def _super_layer(blocks, last, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One super-layer of the forward: the stacked group's blocks, then
+    zamba2's shared attention block at the full positions, or xLSTM's
+    sLSTM block."""
+    for p in blocks:
+        x = _mixer_block(p, x, cfg)[0]
+    if isinstance(last, AttnBlock):
+        x = _block(last, x, cfg, positions)[0]
+    else:
+        x = _mixer_block(last, x, cfg)[0]
+    return shard_ctx.constrain_tokens(x)
+
+
+def _units(params: Model, cfg: ModelConfig):
+    """(fn, leading args) of each unit the forward runs in order, and remat
+    wraps whole, as the reference scans them: a layer of the attention
+    stacks; a super-layer of the recurrent ones, then each block of the
+    Mamba2 tail."""
+    if cfg.block_pattern == "attn":
+        for _, blocks in _groups(params):
+            for layer in blocks:
+                yield _layer, (layer,)
+        return
+    n_super, per, _ = _super_layers(cfg)
+    hybrid = cfg.block_pattern == "mamba2_hybrid"
+    stacked = params.mamba_layers if hybrid else params.mlstm_layers
+    for i in range(n_super):
+        last = params.shared_attn if hybrid else params.slstm_layers[i]
+        yield _super_layer, (stacked[i * per:(i + 1) * per], last)
+    for layer in getattr(params, "mamba_tail", ()):
+        yield _mixer_layer, (layer,)
+
+
 def lm_head_weight(params: Model, cfg: ModelConfig) -> torch.Tensor:
     """(D, vocab) projection. Tied: the strided view `embed.T` — no copy;
     the `mmad` kernel reads it through its strides."""
@@ -242,8 +359,9 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
     final hidden states (B, S, D) with return_hidden=True.
 
     `remat` is the reference's scan-level `jax.checkpoint`: while autograd
-    records, each layer runs under `remat_call`, so only the layer inputs
-    are kept and the backward recomputes each layer. With no gradient to
+    records, each layer (each super-layer of the recurrent stacks) runs
+    under `remat_call`, so only its inputs are kept and the backward
+    recomputes it. With no gradient to
     record there is nothing to rematerialize."""
     if prefix_embeds is not None or encoder_embeds is not None:
         raise NotImplementedError(f"frontend and encoder inputs are not "
@@ -252,12 +370,11 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     remat = remat and torch.is_grad_enabled()
-    for _, blocks in _groups(params):
-        for layer in blocks:
-            if remat:
-                x = remat_call(_layer, layer, x, cfg, positions)
-            else:
-                x = _layer(layer, x, cfg, positions)
+    for fn, args in _units(params, cfg):
+        if remat:
+            x = remat_call(fn, *args, x, cfg, positions)
+        else:
+            x = fn(*args, x, cfg, positions)
     x = apply_norm(params.ln_f, x, cfg)
     if return_hidden:
         return x
@@ -267,12 +384,63 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
 
 def decode_init(params: Model, cfg: ModelConfig, batch: int,
                 max_len: int) -> Dict[str, Any]:
-    """Preallocated per-layer KV caches for one-token decode steps, one list
-    per layer group (`layers`, or `dense` and `moe`)."""
+    """Preallocated per-layer caches for one-token decode steps, one list
+    per layer group: KV caches (`layers`, or `dense` and `moe`); zamba2's
+    Mamba2 states (`mamba`, `mamba_tail`) and a KV cache per use of the
+    shared block (`shared_attn`, n_super of them); xLSTM's `mlstm` and
+    `slstm` states."""
     _check_supported(cfg)
     device = params.embed.device
-    return {key: [attn.make_kv_cache(cfg, batch, max_len, device)
-                  for _ in blocks] for key, blocks in _groups(params)}
+    if cfg.block_pattern == "attn":
+        return {key: [attn.make_kv_cache(cfg, batch, max_len, device)
+                      for _ in blocks] for key, blocks in _groups(params)}
+    n_super, per, rem = _super_layers(cfg)
+    if cfg.block_pattern == "xlstm":
+        return {"mlstm": [ssm.mlstm_state(cfg, batch, device)
+                          for _ in range(n_super * per)],
+                "slstm": [ssm.slstm_state(cfg, batch, device)
+                          for _ in range(n_super)]}
+    caches = {"mamba": [ssm.mamba2_state(cfg, batch, device)
+                        for _ in range(n_super * per)]}
+    if rem:
+        caches["mamba_tail"] = [ssm.mamba2_state(cfg, batch, device)
+                                for _ in range(rem)]
+    caches["shared_attn"] = [attn.make_kv_cache(cfg, batch, max_len, device)
+                             for _ in range(n_super)]
+    return caches
+
+
+def _decode_recurrent(params: Model, caches: Dict[str, Any],
+                      x: torch.Tensor, cfg: ModelConfig,
+                      positions: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The layers of a zamba2 or xLSTM decode step, each super-layer's
+    blocks on their own states, then the shared attention block on the
+    super-layer's KV cache or the sLSTM block on its state; then the
+    Mamba2 tail. Returns x and the new caches."""
+    n_super, per, _ = _super_layers(cfg)
+    hybrid = cfg.block_pattern == "mamba2_hybrid"
+    key, blocks = (("mamba", params.mamba_layers) if hybrid
+                   else ("mlstm", params.mlstm_layers))
+    last_key = "shared_attn" if hybrid else "slstm"
+    new: Dict[str, List[Any]] = {key: [], last_key: []}
+    for i in range(n_super):
+        for j in range(i * per, (i + 1) * per):
+            x, state = _mixer_block(blocks[j], x, cfg, caches[key][j])
+            new[key].append(state)
+        if hybrid:
+            x, cache = _block(params.shared_attn, x, cfg, positions,
+                              cache=caches[last_key][i])
+        else:
+            x, cache = _mixer_block(params.slstm_layers[i], x, cfg,
+                                    caches[last_key][i])
+        new[last_key].append(cache)
+    if "mamba_tail" in caches:
+        new["mamba_tail"] = []
+        for layer, state in zip(params.mamba_tail, caches["mamba_tail"]):
+            x, state = _mixer_block(layer, x, cfg, state)
+            new["mamba_tail"].append(state)
+    return x, new
 
 
 def decode_step(params: Model, caches: Dict[str, Any], tokens: torch.Tensor,
@@ -288,6 +456,9 @@ def decode_step(params: Model, caches: Dict[str, Any], tokens: torch.Tensor,
     pos = int(position)
     positions = torch.arange(pos, pos + tokens.shape[1], device=x.device)
     new_caches = dict(caches)
+    if cfg.block_pattern != "attn":
+        x, states = _decode_recurrent(params, caches, x, cfg, positions)
+        new_caches.update(states)
     for key, blocks in _groups(params):
         new: List[Dict[str, Any]] = []
         for layer, cache in zip(blocks, caches[key]):

@@ -17,7 +17,6 @@ tokens: it reads all E experts where top-k would need k of them (PERF.md
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import torch
@@ -27,7 +26,7 @@ from torch import nn
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import shard_ctx
 from repro_torch.models.common import (ModelConfig, activation, dense_init,
-                                       mlp_params, normal)
+                                       mlp_params, normal, profile_scope)
 from repro_torch.models.matmul import pmm, record_gemm
 
 
@@ -104,15 +103,6 @@ def _constrain(x: torch.Tensor, *spec) -> torch.Tensor:
     return x
 
 
-def _scope(name: str):
-    """Name the dispatch, expert and combine einsums for the profiler
-    (`moe.einsums`), entered only while one runs: a `record_function`
-    costs host time even with none (as `core.gemm._mode_scope`)."""
-    if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
-
-
 def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Router -> softmax -> top-k -> renormalised weights. xt: (G, TL, D)
@@ -164,7 +154,7 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     experts = p.experts
     record_gemm("moe.expert_gate", cap, experts.gate.shape[-1], d)
     record_gemm("moe.expert_down", cap, d, experts.down.shape[-2])
-    with _scope("moe.einsums"):
+    with profile_scope("moe.einsums"):
         oh_cap = F.one_hot(pos_c, cap).to(x.dtype)                # (G,TL,k,cap)
         sel = onehot.to(x.dtype) * within[..., None].to(x.dtype)  # (G,TL,k,E)
         disp = torch.einsum("gtke,gtkc->gtec", sel, oh_cap)       # (G,TL,E,cap)

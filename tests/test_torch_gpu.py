@@ -842,3 +842,117 @@ def test_mla_absorbed_decode_on_the_card_matches_the_cpu(cuda, tmp_path,
                                    caches["cpu"][key], rtol=1e-4, atol=1e-5)
     assert caches["cuda"]["index"] == 8
     capsys.readouterr()
+
+
+# ---------------------------------------------------------------------------
+# zamba2-1.2b and xlstm-1.3b (the recurrent stacks)
+# ---------------------------------------------------------------------------
+
+# (m, k, n, dtype): the recurrent stacks' decode GEMMs at batch 4, all on
+# the row stream; xlstm's fp32 gates are 32 bytes a row (N = 8)
+SSM_DECODE = [
+    (4, 2048, 8384, "bfloat16"),        # mamba.in
+    (4, 4096, 2048, "bfloat16"),        # mamba.out, mlstm.down
+    (4, 2048, 8192, "bfloat16"),        # mlstm.up, slstm.in, zamba2 mlp
+    (4, 4096, 4096, "bfloat16"),        # mlstm.q, k, v
+    (4, 2048, 8, "float32"),            # mlstm.gates
+]
+
+
+@pytest.mark.parametrize("shape", SSM_DECODE,
+                         ids=[f"{m}x{k}x{n}-{d}" for m, k, n, d in SSM_DECODE])
+def test_kernel_at_the_ssm_decode_shapes(cuda, shape):
+    """Each decode GEMM of zamba2-1.2b and xlstm-1.3b on the row stream,
+    the fp32 gates at N = 8 too, against the plain version at the IEEE
+    tolerance and bitwise repeatable."""
+    m, k, n, dtype_name = shape
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, b = _draw((m, k), dtype, g, cuda), _draw((k, n), dtype, g, cuda)
+    block = (4, 256, 128)
+    assert _plan(a, b, block, cuda)[0] == mmad_mod.ROW_STREAM
+    got = mmad_mod.mmad(a, b, block, torch.float32)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.mmad_ref(a, b, torch.float32), k)
+    assert torch.equal(mmad_mod.mmad(a, b, block, torch.float32), got)
+
+
+def test_fp32_gates_at_the_forward_shape_take_the_simt_tile_kernel(cuda):
+    """xlstm's gates in a forward of 512 tokens, fp32 x (512, 2048) @ fp32
+    w_gates (2048, 8): the SIMT tile kernel, its one 64-wide tile masked
+    past N = 8, held to the IEEE tolerance and bitwise repeatable."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    a = _draw((512, 2048), torch.float32, g, cuda)
+    b = _draw((2048, 8), torch.float32, g, cuda)
+    block = (32, 8, 128)
+    assert _plan(a, b, block, cuda)[0] == mmad_mod.TILE
+    got = mmad_mod.mmad(a, b, block, torch.float32)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.mmad_ref(a, b, torch.float32), 2048)
+    assert torch.equal(mmad_mod.mmad(a, b, block, torch.float32), got)
+
+
+def test_wgmma_at_the_ragged_mamba_in_forward_shape(cuda):
+    """zamba2's fused in-projection in a forward of 512 tokens, bf16 (512,
+    2048) @ (2048, 8384): the tensor-core kernel, N not a multiple of its
+    256-wide tile (the last tile 192 wide, zero-filled by TMA), in fp32 and
+    bf16 out."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    a, b = _wgmma_operands(512, 2048, 8384, "n", torch.bfloat16, g, cuda)
+    block = (128, 128, 128)
+    assert _plan(a, b, block, cuda)[0] == mmad_mod.WGMMA
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = mmad_mod.mmad(a, b, block, out_dtype)
+        torch.cuda.synchronize()
+        _assert_close(got, ref.mmad_ref(a, b, out_dtype), 2048, out_dtype,
+                      tensor_cores=True)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_routed_smoke_ssm_decode_on_the_card_matches_the_cpu(cuda, arch,
+                                                             tmp_path,
+                                                             capsys):
+    """The smoke model of each recurrent stack at fp32 decoding 8 tokens
+    routed on the card (the projections on `mmad`, the recurrent steps on
+    fp32 state in place) against the same weights and calls on CPU tensors
+    (the kernels' plain versions): logits within 1e-4 of the CPU's largest
+    value, one `mmad` launch per routed dispatch."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.deploy.warmup import build_planner
+    from repro_torch.launch import mesh
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import (decode_init, decode_step,
+                                          init_params)
+    cfg = dataclasses.replace(smoke_config(arch), dtype=torch.float32)
+    cpu = torch.device("cpu")
+    params = init_params(torch.Generator().manual_seed(0), cfg, cpu)
+    prompts = torch.randint(0, cfg.vocab, (2, 8),
+                            generator=torch.Generator().manual_seed(1))
+    planner = build_planner(str(tmp_path), (4, 4), 12)
+    logits = {}
+    for dev in (cpu, cuda):
+        model = init_params(None, cfg, "meta")
+        model.load_state_dict({k: v.to(dev) for k, v in
+                               params.state_dict().items()}, assign=True)
+        ctx = shard_ctx.GemmContext(mesh=mesh.make_host_mesh(dev),
+                                    planner=planner)
+        shard_ctx.set_gemm_context(ctx)
+        mmad_mod.reset_launch_count()
+        try:
+            steps = []
+            with torch.inference_mode():
+                caches = decode_init(model, cfg, 2, 8)
+                for i in range(8):
+                    out, caches = decode_step(model, caches,
+                                              prompts[:, i:i + 1].to(dev), i,
+                                              cfg)
+                    steps.append(out.cpu())
+        finally:
+            shard_ctx.set_gemm_context(None)
+        logits[dev.type] = torch.stack(steps)
+        if dev.type == "cuda":
+            assert mmad_mod.launch_count() == ctx.stats.executed_gemm > 0
+    scale = float(logits["cpu"].abs().max())
+    assert float((logits["cuda"] - logits["cpu"]).abs().max()) <= 1e-4 * scale
+    capsys.readouterr()

@@ -7,11 +7,12 @@
   serve parity tolerances of tests/test_torch_serve.py (fp32 rtol = atol =
   1e-4; bf16 rtol 2e-2, atol 5e-2) and equal greedy tokens, the same
   observed (tag, shape) keys and routing decisions, resolve rate 1.0.
-- The registry lists the six ported architectures, each full and smoke
+- The registry lists the eight ported architectures, each full and smoke
   config equal field by field to the reference's (deepseek-v2-236b's MLA
-  is held to the reference in tests/test_torch_mla.py).
-- The families not yet ported (SSM, xLSTM, encoder-decoder, the VLM
-  frontend) raise `NotImplementedError` naming their ROADMAP.md item.
+  is held to the reference in tests/test_torch_mla.py, zamba2-1.2b and
+  xlstm-1.3b in tests/test_torch_ssm.py).
+- The families not yet ported (encoder-decoder, the VLM frontend) raise
+  `NotImplementedError` naming their ROADMAP.md item.
 """
 import dataclasses
 
@@ -32,7 +33,7 @@ from test_torch_serve import (_decisions, _decode_jax,  # noqa: E402
                               _decode_torch)
 
 PORTED = ["deepseek-moe-16b", "deepseek-v2-236b", "gemma-2b", "olmo-1b",
-          "phi4-mini-3.8b", "qwen3-14b"]
+          "phi4-mini-3.8b", "qwen3-14b", "xlstm-1.3b", "zamba2-1.2b"]
 DENSE = ["olmo-1b", "phi4-mini-3.8b", "qwen3-14b"]
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=5e-2)}
@@ -88,8 +89,6 @@ def test_registry_lists_the_ported_architectures():
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("zamba2-1.2b", "mamba2_hybrid"),
-    ("xlstm-1.3b", "xlstm"),
     ("seamless-m4t-medium", "encoder-decoder"),
     ("phi-3-vision-4.2b", "vision_stub"),
 ])
