@@ -85,6 +85,27 @@ Phases (any failure exits non-zero and prints no result line):
              at a time, the logits at every position held in fp32 on the
              same weights and printed in bf16 (`chunked_vs_recurrent`);
              their first-step routed-vs-unrouted check likewise;
+   serve seamless-m4t-medium and serve phi-3-vision-4.2b — the serve
+             phase's checks at full width and depth for the
+             encoder-decoder (12 + 12 layers, vocab 256,206, every step
+             attending to the launcher's stand-in encoder output: its
+             decoder's cross-attention K and V re-projected from the 4 x
+             960 encoder rows on the tensor-core kernel, 24 of a step's
+             133 `mmad` kernels, counted by name in the profile, the rest
+             on the stream kernels) and the VLM (32 layers of MHA 32 x 96,
+             decoding text). Then, on the same weights, seamless's
+             `encoder_vs_decode`: one routed forward of 4 x 960 random
+             frames (the encoder non-causal at M = 3,840) and the prompt,
+             against the routed decode of the prompt on that forward's own
+             encoder output, the logits at every prompt position held in
+             bf16; and phi-3-vision's `prefix_forward`: one routed forward
+             of 4 x 576 random patch embeddings (`frontend.proj` at M =
+             2,304) and the prompt (M = 2,432; lm_head on `embed.T` with a
+             ragged last tile) against the unrouted forward, held in bf16.
+             Each forward's `mmad` calls are held on their own operands,
+             every bf16 call past the stream kernels' rows must take the
+             tensor-core kernel, and each shape is held at the plan's
+             block;
    train deepseek-moe-16b — the train phase's checks at full width and 4
              layers (1 dense + 3 MoE; AdamW over the full 28 needs more
              than 200 GB): routed first, each route call's expert choices
@@ -100,7 +121,9 @@ Phases (any failure exits non-zero and prints no result line):
              `scaled_dot_product_attention`'s and their peak memory;
 8. timing  — per decode shape (gemma-2b, deepseek-moe-16b with its fp32
              router, qwen3-14b, deepseek-v2-236b, zamba2-1.2b, xlstm-1.3b
-             with its fp32 gates) and per train shape
+             with its fp32 gates, seamless-m4t-medium with its cross K/V
+             and its 256,206-column lm_head, phi-3-vision-4.2b), per shape
+             of the two frontend forwards, and per train shape
              (gemma-2b, deepseek-moe-16b with its fp32 router on the SIMT
              tile kernel) the kernel's time (held to the tolerance again)
              beside the plain version's, one `torch.matmul` call's, the
@@ -110,9 +133,11 @@ Phases (any failure exits non-zero and prints no result line):
              their bound (the router's: its fp32 `torch.matmul` products);
              and the expert einsums per decode step (both MoE models) and
              per train step, forward and backward, beside their bounds;
-9. report  — one JSON line per kernel and path, the total time, the
-             nvidia-smi line, and last the `{"ok": true, "device": ...}`
-             line.
+9. report  — per served model its tok/s, `mmad` ms per step against
+             its bound and `torch.matmul`'s, and its held comparisons'
+             errors; one JSON line per kernel and path (the frontend
+             forwards' too), the total time, the nvidia-smi line, and last
+             the `{"ok": true, "device": ...}` line.
 
 Exits 2 with no result when no CUDA device is present. Imports nothing of
 JAX and nothing of the JAX package.
@@ -207,7 +232,7 @@ NAIVE_ABSORBED_REL_L2 = FIRST_STEP_REL_L2
 # and printed in bf16 beside: a random stack amplifies its rounding noise
 # layer by layer. xlstm-1.3b's first decode step with bf16 `x @ w` against
 # fp32-summed GEMMs rounded to bf16 read rel L2 2.9e-2 at 8 of its 48
-# layers, 0.18 at 16 and 0.27 at 24 (`tools/ssm_sensitivity.py` on the
+# layers, 0.18 at 16 and 0.27 at 24 (`tools/bf16_sensitivity.py` on the
 # CPU), and its routed step against the unrouted one 0.71 at all 48 on an
 # H100: no bf16 limit tells a fault from that noise. In fp32 the same gain
 # acts on 2^-24 roundings (xlstm read 5.6e-4 on the first step and 2.4e-2
@@ -217,6 +242,21 @@ NAIVE_ABSORBED_REL_L2 = FIRST_STEP_REL_L2
 # (`OperandCheck`), strided views included.
 CHECK_BATCH, CHECK_SEQ = 2, 256
 CHUNKED_RECURRENT_REL_L2 = FIRST_STEP_REL_L2
+# The frontend models' forward checks, relative L2 of the logits, held in
+# bf16: seamless-m4t-medium's routed forward (the encoder over BATCH x 960
+# frames, the decoder over the prompt) against its routed decode of the
+# prompt on that forward's encoder output, at every prompt position; and
+# phi-3-vision-4.2b's routed forward of BATCH x 576 patch embeddings and
+# the prompt against the unrouted one. Unlike the recurrent stacks, these
+# random stacks barely amplify bf16 rounding: with every GEMM as bf16
+# `x @ w` against fp32 sums rounded to bf16, the full-depth forward's
+# logits read rel L2 1.10e-2 (seamless, 12 + 12 layers) and 2.05e-2
+# (phi-3-vision, 32 layers), gemma-2b's 1.70e-2, on an H100
+# (`tools/bf16_sensitivity.py --forward`); so the routed-vs-unrouted bound
+# above holds them, 4.5x and 2.4x those readings, where a wrong path reads
+# near 1.
+ENCODER_DECODE_REL_L2 = PREFIX_FORWARD_REL_L2 = FIRST_STEP_REL_L2
+FRONTEND_SCALE = 0.02       # random patch / frame embeddings, as serve's
 
 
 def fail(msg: str) -> None:
@@ -553,7 +593,7 @@ def hold_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int) -> float:
 
 
 def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
-                train: bool = False):
+                kind: str = "decode"):
     """Per GEMM shape of one step (`table`: (m, n, k[, dtype]) -> the
     plan's block, the launches per step and the operand dtype): the
     kernel's device time, held to its tolerance again, beside the plain
@@ -565,8 +605,10 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
     b.T and db = a.T @ g on the views `backward_products` passes, run once
     per forward dispatch: the table's `backward_calls`), held to their
     tolerance, beside their plain version, bf16 `torch.matmul` and their
-    bound."""
+    bound. `kind` ("decode", "train" or "forward") names the path in each
+    row; "train" adds the backward."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    train = kind == "train"
     rows = []
     for key, info in sorted(table.items()):
         (m, n, k), block, count = key[:3], info["block"], info["count"]
@@ -592,7 +634,7 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
         t_bytes = ((m * k + k * n) * size + m * n * 4) / H100_BYTES_PER_S * 1e3
         t_ops = flops / (H100_FP32_FLOPS if dtype == torch.float32
                          else H100_BF16_FLOPS) * 1e3
-        row = {"path": f"{cfg.name} {'train' if train else 'decode'}",
+        row = {"path": f"{cfg.name} {kind}",
                "shape": [m, n, k], "dtype": str(dtype).split(".")[-1],
                "block": list(block), "variant": variant,
                "launches_per_step": count,
@@ -702,16 +744,19 @@ def time_fp32_backward(torch, a, w, nxt, g, timed):
 
 
 def busy_share(torch, params, cfg, planner, prompts, dev,
-               unprofiled_step_ms: float, gemms_per_step: int) -> dict:
+               unprofiled_step_ms: float, gemms_per_step: int,
+               tensor_core_per_step: int = 0, encoder_out=None) -> dict:
     """Device busy time and wall time per decode step, both read from one
     window: the main run's batch, prompts and positions (prefill token by
     token through a fresh routed context, then its GEN decode steps under
-    the profiler, the wall clock read inside the profiled window). Only
-    device activity is traced: tracing every host op would slow the host,
-    and with it the window, severalfold. Fails unless each of the step's
-    `gemms_per_step` mmad calls ran as one kernel and none of them as the
-    tile kernel's separate split-K reduce. Returns per step the busy, wall
-    and `mmad` ms."""
+    the profiler, the wall clock read inside the profiled window; an
+    encoder-decoder's steps attend to `encoder_out`). Only device activity
+    is traced: tracing every host op would slow the host, and with it the
+    window, severalfold. Fails unless each of the step's `gemms_per_step`
+    mmad calls ran as one kernel, `tensor_core_per_step` of them the
+    tensor-core kernel (by name; the rest the stream kernels), and none as
+    the tile kernel's separate split-K reduce. Returns per step the busy,
+    wall and `mmad` ms and the tensor-core launches."""
     from repro_torch.launch import serve
     from repro_torch.models import shard_ctx
     from repro_torch.models.model import decode_init
@@ -722,12 +767,14 @@ def busy_share(torch, params, cfg, planner, prompts, dev,
     with torch.inference_mode():
         caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
         for i in range(PROMPT):
-            logits, caches = step(params, caches, prompts[:, i:i + 1], i)
+            logits, caches = step(params, caches, prompts[:, i:i + 1], i,
+                                  encoder_out)
         tok = torch.argmax(logits, -1)[:, None]
         with device_profile(torch, dev) as prof:
             t0 = time.perf_counter()
             for i in range(GEN):
-                logits, caches = step(params, caches, tok, PROMPT + i)
+                logits, caches = step(params, caches, tok, PROMPT + i,
+                                      encoder_out)
                 tok = torch.argmax(logits, -1)[:, None]
             serve._sync(dev)
             wall_ms = (time.perf_counter() - t0) * 1e3 / GEN
@@ -742,30 +789,42 @@ def busy_share(torch, params, cfg, planner, prompts, dev,
     if mmad_calls != gemms_per_step * GEN:
         fail(f"{mmad_calls} mmad kernels ran in {GEN} decode steps of "
              f"{gemms_per_step} routed GEMMs")
+    tensor_core = sum(count for _, count, name in kernels
+                      if TENSOR_CORE_KERNEL in name)
+    if tensor_core != tensor_core_per_step * GEN:
+        fail(f"{tensor_core} tensor-core mmad kernels ran in {GEN} decode "
+             f"steps, not {tensor_core_per_step} a step")
     mmad_ms = sum(us for us, _, name in kernels if "mmad" in name) / 1e3 / GEN
     for us, count, name in kernels[:10]:
         print(f"  device {us / 1e3 / GEN:8.3f} ms/step  {count / GEN:7.1f} "
               f"calls/step  {name[:80]}", flush=True)
     print(f"profiled window of {GEN} {cfg.name} decode steps (batch {BATCH}, "
           f"positions {PROMPT}-{PROMPT + GEN - 1}): device busy {busy_ms:.3f} "
-          f"ms per step ({mmad_ms:.3f} ms in mmad) against {wall_ms:.3f} ms "
+          f"ms per step ({mmad_ms:.3f} ms in mmad: "
+          f"{gemms_per_step - tensor_core_per_step} stream and "
+          f"{tensor_core_per_step} tensor-core kernels a step) against "
+          f"{wall_ms:.3f} ms "
           f"per step wall in the same window: "
           f"busy share {busy_ms / wall_ms:.1%}; the rest is host time between "
           f"launches (the unprofiled main run took {unprofiled_step_ms:.3f} "
           f"ms per step); the profile kept {edges[0]} + {edges[1]} of its 2 x "
           f"{PROFILE_EDGE_KERNELS} edge kernels", flush=True)
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "mmad_ms": mmad_ms}
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "mmad_ms": mmad_ms,
+            "tensor_core_per_step": tensor_core / GEN}
 
 
 class OperandCheck:
     """Holds every `mmad` call made while `watching` to the plain version on
     the same operands (views as the path passes them), at the tolerance of
-    the variant `plan_launch` picks; keeps the calls and the worst error
-    over tolerance. The plain products do not launch `mmad`."""
+    the variant `plan_launch` picks; keeps the calls, the worst error over
+    tolerance, and per (m, n, k, operand dtype) the calls and how many of
+    them took the tensor-core kernel. The plain products do not launch
+    `mmad`."""
 
     def __init__(self, torch, mmad_mod):
         self.torch, self.mmad_mod = torch, mmad_mod
         self.calls, self.worst = 0, 0.0
+        self.shapes = {}
 
     @contextlib.contextmanager
     def watching(self):
@@ -785,6 +844,11 @@ class OperandCheck:
                 torch, out, want, a.shape[1], out_dtype or a.dtype,
                 tensor_cores))
             self.calls += 1
+            rec = self.shapes.setdefault(
+                (a.shape[0], b.shape[1], a.shape[1], str(a.dtype)),
+                {"calls": 0, "tensor_core": 0, "dtype": a.dtype})
+            rec["calls"] += 1
+            rec["tensor_core"] += int(tensor_cores)
             return out
 
         ops.mmad = checked
@@ -804,10 +868,11 @@ def fp32_copy(torch, cfg, params):
     return cfg32, params32
 
 
-def first_steps(torch, params, cfg, planner, prompts, dev, operands=None):
+def first_steps(torch, params, cfg, planner, prompts, dev, operands=None,
+                encoder_out=None):
     """The first decode step unrouted (no context: x @ w), then routed, its
-    `mmad` calls held by `operands` when given: (routed, unrouted)
-    logits."""
+    `mmad` calls held by `operands` when given (an encoder-decoder's both
+    on `encoder_out`): (routed, unrouted) logits."""
     from repro_torch.launch import serve
     from repro_torch.models import shard_ctx
     from repro_torch.models.model import decode_init, decode_step
@@ -816,13 +881,14 @@ def first_steps(torch, params, cfg, planner, prompts, dev, operands=None):
         try:
             shard_ctx.set_gemm_context(None)
             caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
-            plain, _ = decode_step(params, caches, prompts[:, :1], 0, cfg)
+            plain, _ = decode_step(params, caches, prompts[:, :1], 0, cfg,
+                                   encoder_out)
             serve.install_gemm_context(planner, dev)
             caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
             with (operands.watching() if operands
                   else contextlib.nullcontext()):
                 routed, _ = decode_step(params, caches, prompts[:, :1], 0,
-                                        cfg)
+                                        cfg, encoder_out)
         finally:
             shard_ctx.set_gemm_context(None)
     return routed, plain
@@ -834,9 +900,14 @@ def tag_layers(cfg, tag: str) -> int:
     layers, the router and shared experts in the MoE layers; zamba2's
     Mamba2 projections in every layer and the shared block's attention and
     MLP once per super-layer; xLSTM's mLSTM and sLSTM projections in their
-    layers), lm_head once."""
+    layers; an encoder-decoder's decoder layers run `attn.q` and `attn.o`
+    twice at one shape, self- and cross-attention, and `attn.k` and
+    `attn.v` once at each of two, the token's rows and the encoder's),
+    lm_head once."""
     if tag == "lm_head":
         return 1
+    if cfg.is_encoder_decoder and tag in ("attn.q", "attn.o"):
+        return 2 * cfg.n_layers
     if cfg.block_pattern == "mamba2_hybrid":
         return (cfg.n_layers if tag.startswith("mamba.")
                 else cfg.n_layers // cfg.hybrid_attn_every)
@@ -974,26 +1045,47 @@ def step_split(torch, params, cfg, planner, prompts, dev,
 FP32_TAGS = ("moe.router", "mlstm.gates")
 
 
+def plan_block(planner, ctx, shape, elem_bytes: int):
+    """The block geometry `mmad` runs `shape` at under its plan: the inner
+    kernel's, or for a plan without one the block `local_matmul` picks
+    (`block_for`, the one rule for both)."""
+    from repro_torch.core.lower import lower_schedule
+    from repro_torch.kernels.ops import block_for
+
+    ep = lower_schedule(planner.plan_cached(shape).schedule, ctx.mesh,
+                        shape=shape)
+    return block_for(ep.inner_kernel, shape.m, shape.n, shape.k, elem_bytes)
+
+
 def launch_table(torch, cfg, planner, ctx) -> dict:
     """What one decode step, or one forward, of `ctx`'s run launches, per
     shape, at the plan's block geometry: (m, n, k, dtype) -> the block, the
     launches (each routed GEMM once per layer that has it, lm_head once)
-    and the operand dtype (the router's and the mLSTM gates' fp32). The expert einsums are
-    recorded, not dispatched, and attention is not a GEMM here."""
-    from repro_torch.core.lower import lower_schedule
-
+    and the operand dtype (the router's and the mLSTM gates' fp32). The
+    expert einsums are recorded, not dispatched, and attention is not a
+    GEMM here."""
     table = {}
     for tag, shape in ctx.resolved:
         if not hasattr(shape, "m"):             # attention
             continue
-        plan = planner.plan_cached(shape)
-        ep = lower_schedule(plan.schedule, ctx.mesh, shape=shape)
         dtype = torch.float32 if tag in FP32_TAGS else cfg.dtype
         key = (shape.m, shape.n, shape.k, str(dtype))
         rec = table.setdefault(key, {
-            "block": ep.inner_kernel.geometry(), "count": 0, "dtype": dtype})
+            "block": plan_block(planner, ctx, shape, dtype.itemsize),
+            "count": 0, "dtype": dtype})
         rec["count"] += tag_layers(cfg, tag)
     return table
+
+
+def calls_table(planner, ctx, calls) -> dict:
+    """What a run watched by an `OperandCheck` launched, per shape (its
+    `shapes`), laid out as `launch_table`'s, each shape at its plan's
+    block geometry."""
+    shapes = {(s.m, s.n, s.k): s for _, s in ctx.resolved if hasattr(s, "m")}
+    return {key: {"block": plan_block(planner, ctx, shapes[key[:3]],
+                                      rec["dtype"].itemsize),
+                  "count": rec["calls"], "dtype": rec["dtype"]}
+            for key, rec in calls.items()}
 
 
 def serve_model(torch, mmad_mod, cfg, dev, after=None):
@@ -1002,8 +1094,10 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     `serve.generate` on a fresh routed context with the launch count from
     zero, its run report and assertions; then the device profile of the
     same decode steps; then `after(params, planner, prompts)`, when given,
-    on the same weights. Returns the launches, the per-step launch table
-    per shape, and the numbers the report prints."""
+    on the same weights. An encoder-decoder's every step attends to the
+    launcher's stand-in encoder output (`serve.encoder_output`). Returns
+    the launches, the per-step launch table per shape, and the numbers the
+    report prints."""
     from repro_torch.launch import serve
     from repro_torch.models import shard_ctx
     from repro_torch.models.model import init_params
@@ -1029,6 +1123,11 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
                             generator=gen).to(dev)
+    encoder_out = None
+    if cfg.is_encoder_decoder:
+        import numpy as np
+        encoder_out = serve.encoder_output(params, cfg, BATCH,
+                                           np.random.default_rng(SEED), dev)
 
     # first decode step, unrouted (no context: x @ w) vs routed; an MoE
     # model's unrouted step takes the routed step's expert choices, and
@@ -1056,7 +1155,8 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     operands = OperandCheck(torch, mmad_mod)
     if not cfg.n_experts:
         routed, plain = first_steps(torch, params, cfg, planner, prompts, dev,
-                                    operands if recurrent else None)
+                                    operands if recurrent else None,
+                                    encoder_out)
     rel = held = float((routed - plain).norm() / plain.norm())
     max_abs = float((routed - plain).abs().max())
     summary["first_step_rel_l2"] = rel
@@ -1091,7 +1191,7 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     # the main path: a fresh routing context, counts from zero
     ctx = serve.install_gemm_context(planner, dev)
     mmad_mod.reset_launch_count()
-    out = serve.generate(params, cfg, prompts, GEN)
+    out = serve.generate(params, cfg, prompts, GEN, encoder_out=encoder_out)
     launches = mmad_mod.launch_count()
     stats = ctx.stats
     report = serve.build_serve_report(ctx, cfg, BATCH, PROMPT + GEN)
@@ -1115,8 +1215,17 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     if workload["covered"] != 1.0 or workload["extra"] or workload["missing"]:
         fail(f"the observed workload is not model_workload's: {workload}")
     steps = PROMPT + GEN
+    per_step = launch_table(torch, cfg, planner, ctx)
+    if sum(r["count"] for r in per_step.values()) * steps != launches:
+        fail("per-step launch table does not add up to the launches")
+    # past the stream kernels' rows, a bf16 GEMM takes the tensor cores:
+    # an encoder-decoder's cross-attention K and V at the encoder's rows
+    tensor_core = sum(r["count"] for (m, *_), r in per_step.items()
+                      if m > mmad_mod.STREAM_MAX_M
+                      and r["dtype"] in mmad_mod.WGMMA_DTYPES)
     summary.update(busy_share(torch, params, cfg, planner, prompts, dev,
-                              out["t_gen"] / GEN * 1e3, launches // steps))
+                              out["t_gen"] / GEN * 1e3, launches // steps,
+                              tensor_core, encoder_out))
     if state_spans(cfg):
         summary.update(step_split(torch, params, cfg, planner, prompts, dev,
                                   launches // steps))
@@ -1129,12 +1238,11 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
           f"{PROMPT} tok in {out['t_prefill']:.3f}s, decode {GEN} tok in "
           f"{out['t_gen']:.3f}s = {tok_s:.1f} tok/s at batch {BATCH}; "
           f"{launches} mmad launches = {stats.executed_gemm} routed GEMM "
-          f"dispatches, resolve rate {stats.resolve_rate}", flush=True)
+          f"dispatches ({tensor_core} a step on the tensor-core kernel), "
+          f"resolve rate {stats.resolve_rate}", flush=True)
     print("sample generations:", out["tokens"][:2, :8].tolist(), flush=True)
+    del encoder_out
 
-    per_step = launch_table(torch, cfg, planner, ctx)
-    if sum(r["count"] for r in per_step.values()) * steps != launches:
-        fail("per-step launch table does not add up to the launches")
     if dev.type == "cuda":
         summary["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         print(f"{cfg.name} serve phase: peak device memory "
@@ -1220,15 +1328,13 @@ def naive_vs_absorbed(torch, mmad_mod, cfg, dev, params, planner, prompts):
             "naive_shapes": len(table), "naive_err_over_tolerance": worst}
 
 
-def both_forms(torch, mmad_mod, cfg, dev, params, planner, tokens,
-               operands=None):
+def both_forms(torch, mmad_mod, cfg, dev, params, planner, tokens):
     """The routed decode fed `tokens` one at a time, then one routed batched
-    `forward` of them (its `mmad` calls held on their operands by
-    `operands`, when given): (chunked logits, recurrent logits, the
-    forward's launches, its routing context, seconds of each)."""
+    `forward` of them (`routed_forward`: each `mmad` call held on its
+    operands): (chunked logits, recurrent logits, the forward's launches,
+    its per-shape table and operand check, seconds of each)."""
     from repro_torch.launch import serve
-    from repro_torch.models import shard_ctx
-    from repro_torch.models.model import decode_init, decode_step, forward
+    from repro_torch.models.model import decode_init, decode_step
 
     b, s = tokens.shape
     serve.install_gemm_context(planner, dev)
@@ -1244,27 +1350,12 @@ def both_forms(torch, mmad_mod, cfg, dev, params, planner, tokens,
     serve._sync(dev)
     recurrent_s = time.perf_counter() - t0
     del caches, steps
-    ctx = serve.install_gemm_context(planner, dev)
-    mmad_mod.reset_launch_count()
-    t0 = time.perf_counter()
-    with torch.inference_mode(), (operands.watching() if operands
-                                  else contextlib.nullcontext()):
-        chunked = forward(params, tokens, cfg, remat=False)
-    serve._sync(dev)
-    chunked_s = time.perf_counter() - t0
-    launches = mmad_mod.launch_count()
-    shard_ctx.set_gemm_context(None)
-    if launches != ctx.stats.executed_gemm:
-        fail(f"the chunked forward launched mmad {launches} times for "
-             f"{ctx.stats.executed_gemm} routed GEMM dispatches")
-    if ctx.stats.resolve_rate != 1.0 or ctx.stats.silent_degrades:
-        fail(f"the chunked forward resolved {ctx.stats.resolve_rate} of its "
-             f"GEMMs, {ctx.stats.silent_degrades} silent degrades")
-    if not bool(torch.isfinite(chunked).all() and
-                torch.isfinite(recurrent).all()):
-        fail(f"non-finite logits in the {cfg.dtype} chunked-vs-recurrent "
-             f"check")
-    return chunked, recurrent, launches, ctx, chunked_s, recurrent_s
+    if not bool(torch.isfinite(recurrent).all()):
+        fail(f"non-finite logits in the {cfg.dtype} recurrent decode")
+    chunked, launches, table, operands, chunked_s = routed_forward(
+        torch, mmad_mod, cfg, dev, params, planner, tokens)
+    return chunked, recurrent, launches, table, operands, chunked_s, \
+        recurrent_s
 
 
 def chunked_vs_recurrent(torch, mmad_mod, cfg, dev, params, planner):
@@ -1285,17 +1376,8 @@ def chunked_vs_recurrent(torch, mmad_mod, cfg, dev, params, planner):
     gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
     tokens = torch.randint(0, cfg.vocab, (CHECK_BATCH, CHECK_SEQ),
                            generator=gen).to(dev)
-    operands = OperandCheck(torch, mmad_mod)
-    chunked, recurrent, launches, ctx, chunked_s, recurrent_s = both_forms(
-        torch, mmad_mod, cfg, dev, params, planner, tokens, operands)
-    table = launch_table(torch, cfg, planner, ctx)
-    if sum(r["count"] for r in table.values()) != launches:
-        fail(f"the chunked forward's launch table {table} does not add up "
-             f"to its {launches} launches")
-    if not (operands.calls == launches and operands.worst <= 1.0):
-        fail(f"the chunked forward's {operands.calls} mmad calls differ "
-             f"from the plain version on their operands: "
-             f"{operands.worst:.2f}x the tolerance")
+    chunked, recurrent, launches, table, operands, chunked_s, recurrent_s = \
+        both_forms(torch, mmad_mod, cfg, dev, params, planner, tokens)
     worst = hold_shapes(torch, mmad_mod, ref, cfg, table, dev, SEED + 3)
     print(f"the chunked forward's {len(table)} GEMM shapes "
           f"{sorted(k[:3] for k in table)} held to the plain version at the "
@@ -1306,8 +1388,8 @@ def chunked_vs_recurrent(torch, mmad_mod, cfg, dev, params, planner):
     agree = float((chunked.argmax(-1) == recurrent.argmax(-1)).float().mean())
     del chunked, recurrent
     cfg32, params32 = fp32_copy(torch, cfg, params)
-    chunked, recurrent, _, _, _, _ = both_forms(
-        torch, mmad_mod, cfg32, dev, params32, planner, tokens)
+    chunked, recurrent, *_ = both_forms(torch, mmad_mod, cfg32, dev,
+                                        params32, planner, tokens)
     del params32
     serve._sync(dev)
     rel32 = float((chunked - recurrent).norm() / recurrent.norm())
@@ -1331,6 +1413,175 @@ def chunked_vs_recurrent(torch, mmad_mod, cfg, dev, params, planner):
             "chunked_launches": launches, "chunked_shapes": len(table),
             "chunked_err_over_tolerance": worst,
             "chunked_operands_err_over_tolerance": operands.worst}
+
+
+def routed_forward(torch, mmad_mod, cfg, dev, params, planner, tokens,
+                   **inputs):
+    """One routed batched `forward` of `tokens` with the frontend `inputs`
+    on a fresh routing context, the launch count from zero, each `mmad`
+    call held to the plain version on its own operands (`OperandCheck`):
+    fails unless every routed GEMM dispatch launched once, resolved, and
+    agreed, and, on the card, unless every bf16 call past the stream
+    kernels' rows took the tensor-core kernel. Returns the logits, the
+    launches, the per-shape table (`calls_table`), the check and the
+    seconds it took."""
+    from repro_torch.launch import serve
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import forward
+
+    ctx = serve.install_gemm_context(planner, dev)
+    operands = OperandCheck(torch, mmad_mod)
+    mmad_mod.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode(), operands.watching():
+            logits = forward(params, tokens, cfg, remat=False, **inputs)
+        serve._sync(dev)
+    finally:
+        shard_ctx.set_gemm_context(None)
+    seconds = time.perf_counter() - t0
+    launches = mmad_mod.launch_count()
+    stats = ctx.stats
+    if launches != stats.executed_gemm or operands.calls != launches:
+        fail(f"the {cfg.name} forward launched mmad {launches} times for "
+             f"{stats.executed_gemm} routed GEMM dispatches "
+             f"({operands.calls} calls watched)")
+    if stats.resolve_rate != 1.0 or stats.silent_degrades:
+        fail(f"the {cfg.name} forward resolved {stats.resolve_rate} of its "
+             f"GEMMs, {stats.silent_degrades} silent degrades")
+    if not operands.worst <= 1.0:
+        fail(f"the {cfg.name} forward's mmad calls differ from the plain "
+             f"version on their operands: {operands.worst:.2f}x the "
+             f"tolerance")
+    off = [key for key, rec in operands.shapes.items()
+           if dev.type == "cuda" and key[0] > mmad_mod.STREAM_MAX_M
+           and rec["dtype"] in mmad_mod.WGMMA_DTYPES
+           and rec["tensor_core"] != rec["calls"]]
+    if off:
+        fail(f"the {cfg.name} forward's shapes {off} left the tensor-core "
+             f"kernel")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"non-finite logits in the {cfg.name} forward")
+    return (logits, launches, calls_table(planner, ctx, operands.shapes),
+            operands, seconds)
+
+
+def encoder_vs_decode(torch, mmad_mod, cfg, dev, params, planner, prompts):
+    """An encoder-decoder's two paths on the same weights: one routed
+    batched `forward` of BATCH x n_prefix random frames (FRONTEND_SCALE)
+    and the prompt (the encoder non-causal over the frames, its GEMMs at
+    BATCH x n_prefix rows on the tensor-core kernel, as are the decoder's
+    cross-attention K and V; the decoder over the prompt, lm_head at
+    BATCH x PROMPT rows over the ragged vocabulary), each `mmad` call held
+    on its operands and each shape at the plan's block; against the routed
+    decode of the prompt token by token, attending to the encoder output
+    of the same frames (`model._encode`, under the same routing). The logits at every prompt
+    position are held to ENCODER_DECODE_REL_L2 in bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model, shard_ctx
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    frames = (torch.randn((BATCH, cfg.n_prefix, cfg.d_model), generator=g,
+                          device=dev) * FRONTEND_SCALE).to(cfg.dtype)
+    fwd, launches, table, operands, fwd_s = routed_forward(
+        torch, mmad_mod, cfg, dev, params, planner, prompts,
+        encoder_embeds=frames)
+    worst = hold_shapes(torch, mmad_mod, ref, cfg, table, dev, SEED + 3)
+    tensor_core = sum(rec["tensor_core"] for rec in operands.shapes.values())
+    print(f"{cfg.name} forward's {len(table)} GEMM shapes "
+          f"{sorted(k[:3] for k in table)} held to the plain version at the "
+          f"plan's blocks: worst err/tol {worst:.3f}; its {operands.calls} "
+          f"calls ({tensor_core} on the tensor-core kernel) on their own "
+          f"operands: worst err/tol {operands.worst:.3f}", flush=True)
+    serve.install_gemm_context(planner, dev)
+    try:
+        with torch.inference_mode():
+            encoder_out = model._encode(params, frames, cfg)
+            serve._sync(dev)
+            t0 = time.perf_counter()
+            caches = model.decode_init(params, cfg, BATCH, PROMPT)
+            steps = []
+            for i in range(PROMPT):
+                logits, caches = model.decode_step(
+                    params, caches, prompts[:, i:i + 1], i, cfg,
+                    encoder_out=encoder_out)
+                steps.append(logits)
+            decode = torch.stack(steps, 1)
+            serve._sync(dev)
+            decode_s = time.perf_counter() - t0
+    finally:
+        shard_ctx.set_gemm_context(None)
+    del caches, steps, encoder_out
+    rel = float((fwd - decode).norm() / decode.norm())
+    agree = float((fwd.argmax(-1) == decode.argmax(-1)).float().mean())
+    print(f"{cfg.name} routed forward ({BATCH} x {cfg.n_prefix} frames + "
+          f"{BATCH} x {PROMPT} tokens, {launches} mmad launches, "
+          f"{fwd_s:.2f}s) against the routed decode of the prompt on its "
+          f"encoder output ({decode_s:.2f}s), logits at every prompt "
+          f"position in bf16: rel L2 {rel:.3e} (tolerance "
+          f"{ENCODER_DECODE_REL_L2}), max abs "
+          f"{float((fwd - decode).abs().max()):.3e}, greedy tokens equal at "
+          f"{agree:.1%}", flush=True)
+    if not (math.isfinite(rel) and rel <= ENCODER_DECODE_REL_L2):
+        fail(f"{cfg.name}'s forward and decode differ: rel L2 {rel}")
+    return {"encoder_decode_rel_l2": rel, "encoder_token_agreement": agree,
+            "encoder_launches": launches,
+            "encoder_tensor_core_launches": tensor_core,
+            "encoder_shapes": len(table), "encoder_err_over_tolerance": worst,
+            "encoder_operands_err_over_tolerance": operands.worst,
+            "forward_table": table}
+
+
+def prefix_forward(torch, mmad_mod, cfg, dev, params, planner, prompts):
+    """A VLM's forward with its stub frontend's input: BATCH x n_prefix
+    random patch embeddings (FRONTEND_SCALE) through `frontend.proj` and
+    prepended to the prompt, one routed batched `forward` (its GEMMs at
+    BATCH x (n_prefix + PROMPT) rows on the tensor-core kernel, lm_head on
+    `embed.T` with a ragged last tile), each `mmad` call held on its
+    operands and each shape at the plan's block, against the unrouted
+    forward (`x @ w`) on the same weights: the logits at every position
+    held to PREFIX_FORWARD_REL_L2 in bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import forward
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    patches = (torch.randn((BATCH, cfg.n_prefix, cfg.d_model), generator=g,
+                           device=dev) * FRONTEND_SCALE).to(cfg.dtype)
+    routed, launches, table, operands, fwd_s = routed_forward(
+        torch, mmad_mod, cfg, dev, params, planner, prompts,
+        prefix_embeds=patches)
+    if tuple(routed.shape) != (BATCH, cfg.n_prefix + PROMPT, cfg.vocab):
+        fail(f"prefix forward logits of shape {tuple(routed.shape)}")
+    worst = hold_shapes(torch, mmad_mod, ref, cfg, table, dev, SEED + 3)
+    tensor_core = sum(rec["tensor_core"] for rec in operands.shapes.values())
+    shard_ctx.set_gemm_context(None)
+    with torch.inference_mode():
+        plain = forward(params, prompts, cfg, remat=False,
+                        prefix_embeds=patches)
+    rel = float((routed - plain).norm() / plain.norm())
+    agree = float((routed.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"{cfg.name} routed forward of {BATCH} x {cfg.n_prefix} patch "
+          f"embeddings + {BATCH} x {PROMPT} tokens ({launches} mmad "
+          f"launches, {tensor_core} on the tensor-core kernel, {fwd_s:.2f}s; "
+          f"{len(table)} GEMM shapes {sorted(k[:3] for k in table)} held to "
+          f"the plain version at the plan's blocks, worst err/tol "
+          f"{worst:.3f}; each call on its own operands, worst err/tol "
+          f"{operands.worst:.3f}) against the unrouted forward, logits at "
+          f"every position in bf16: rel L2 {rel:.3e} (tolerance "
+          f"{PREFIX_FORWARD_REL_L2}), max abs "
+          f"{float((routed - plain).abs().max()):.3e}, greedy tokens equal "
+          f"at {agree:.1%}", flush=True)
+    if not (math.isfinite(rel) and rel <= PREFIX_FORWARD_REL_L2):
+        fail(f"{cfg.name}'s routed prefix forward differs from the "
+             f"unrouted one: rel L2 {rel}")
+    return {"prefix_rel_l2": rel, "prefix_token_agreement": agree,
+            "prefix_launches": launches,
+            "prefix_tensor_core_launches": tensor_core,
+            "prefix_shapes": len(table), "prefix_err_over_tolerance": worst,
+            "prefix_operands_err_over_tolerance": operands.worst,
+            "forward_table": table}
 
 
 def train_steps(torch, s, batch, dev, n: int):
@@ -1741,10 +1992,11 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None):
              f"not the forward's {sorted(tally)}")
     per_step = launches // TRAIN_STEPS
     bwd_per_step = 2 * bwd_calls // TRAIN_STEPS
-    blocks = {(sh.m, sh.n, sh.k): ep.inner_kernel.geometry()
-              for (_, sh), ep in ctx.resolved.items()
-              if hasattr(sh, "m") and ep.inner_kernel is not None}
-    table = {key: {"block": blocks[key], "count": n // TRAIN_STEPS,
+    shapes = {(sh.m, sh.n, sh.k): sh for _, sh in ctx.resolved
+              if hasattr(sh, "m")}
+    table = {key: {"block": plan_block(s.planner, ctx, shapes[key],
+                                       dtypes[key].itemsize),
+                   "count": n // TRAIN_STEPS,
                    "dtype": dtypes[key],
                    "backward_calls": bwd_tally.get(key, 0) // TRAIN_STEPS,
                    "fp32_backward_calls": fp32_bwd.get(key, 0) // TRAIN_STEPS}
@@ -2111,6 +2363,19 @@ def main() -> int:
             chunked_vs_recurrent(torch, mmad_mod, c, dev, params, planner))
         release(torch)
 
+    # the frontend models, each with its forward check on the same weights
+    forward_tables = {}
+    for arch, check in (("seamless-m4t-medium", encoder_vs_decode),
+                        ("phi-3-vision-4.2b", prefix_forward)):
+        phase(f"serve {arch}")
+        front_cfg = served_cfgs[arch] = get_config(arch)
+        served[arch] = serve_model(
+            torch, mmad_mod, front_cfg, dev,
+            after=lambda params, planner, prompts, c=front_cfg, f=check:
+            f(torch, mmad_mod, c, dev, params, planner, prompts))
+        forward_tables[arch] = served[arch][2].pop("forward_table")
+        release(torch)
+
     arch = "deepseek-moe-16b"
     phase(f"train {arch} ({MOE_TRAIN_LAYERS} layers)")
     moe_cfg = dataclasses.replace(get_config(arch), n_layers=MOE_TRAIN_LAYERS)
@@ -2128,12 +2393,16 @@ def main() -> int:
     phase("kernel timing")
     rows = time_shapes(torch, mmad_mod, ref, cfg, per_step, dev, SEED + 1)
     train_rows = time_shapes(torch, mmad_mod, ref, cfg, train_table, dev,
-                             SEED + 2, train=True)
+                             SEED + 2, kind="train")
     path_rows = {arch: time_shapes(torch, mmad_mod, ref, served_cfgs[arch],
                                    table, dev, SEED + 4 + i)
                  for i, (arch, (_, table, _)) in enumerate(served.items())}
+    forward_rows = {arch: time_shapes(torch, mmad_mod, ref,
+                                      served_cfgs[arch], table, dev,
+                                      SEED + 10 + i, kind="forward")
+                    for i, (arch, table) in enumerate(forward_tables.items())}
     moe_rows = time_shapes(torch, mmad_mod, ref, moe_cfg, moe_table, dev,
-                           SEED + 8, train=True)
+                           SEED + 8, kind="train")
     experts_rows = {arch: time_expert_einsums(torch, served_cfgs[arch], dev,
                                               SEED + 6)
                     for arch in ("deepseek-moe-16b", "deepseek-v2-236b")}
@@ -2183,6 +2452,19 @@ def main() -> int:
                    f"{experts_row['ms']:.3f} ms timed against a bound of "
                    f"{experts_row['bound_ms']:.3f} ms"
                    if experts_row else "")
+        if arch in forward_rows:
+            fwd = path_entry("mmad", arch, 0, forward_rows[arch])
+            held = (f"the routed forward against the decode, rel L2 "
+                    f"{summary['encoder_decode_rel_l2']:.3e}"
+                    if "encoder_decode_rel_l2" in summary else
+                    f"the routed prefix forward against the unrouted one, "
+                    f"rel L2 {summary['prefix_rel_l2']:.3e}")
+            einsums = (f"; first step routed vs unrouted rel L2 "
+                       f"{summary['first_step_rel_l2']:.3e}, {held}; the "
+                       f"forward's mmad {fwd['ms']:.3f} ms from the timed "
+                       f"shapes against a bound of {fwd['bound_ms']:.3f} ms "
+                       f"(share {fwd['bound_ms'] / fwd['ms']:.1%}) and "
+                       f"torch.matmul's {fwd['library_ms']:.3f} ms")
         if served_cfgs[arch].block_pattern != "attn":
             einsums = "; the state updates " + ", ".join(
                 f"{name} {summary[span_key(name)]:.3f} ms"
@@ -2198,7 +2480,8 @@ def main() -> int:
               f"of {entry['bound_ms']:.3f} ms (share "
               f"{entry['bound_ms'] / entry['ms']:.1%}) and torch.matmul's "
               f"{entry['library_ms']:.3f} ms ({summary['mmad_ms']:.3f} ms "
-              f"in the profile){einsums}; device busy share "
+              f"in the profile, {summary['tensor_core_per_step']:.0f} "
+              f"tensor-core launches a step){einsums}; device busy share "
               f"{summary['busy_ms'] / summary['wall_ms']:.1%}; plan warm-up "
               f"{summary['warmup_s']:.2f}s; peak {summary['peak_gb']:.2f} GB",
               flush=True)
@@ -2271,7 +2554,13 @@ def main() -> int:
                      + (f", {served_cfgs[arch].n_layers} layers"
                         if served_cfgs[arch] != get_config(arch) else ""),
                      served[arch][0], rows_)
-          for arch, rows_ in path_rows.items()] + [moe_entry]}), flush=True)
+          for arch, rows_ in path_rows.items()] + [
+        path_entry(f"mmad/{arch}-forward",
+                   f"{arch} forward with its frontend inputs, batch {BATCH}",
+                   served[arch][2].get("encoder_launches",
+                                       served[arch][2].get("prefix_launches")),
+                   rows_)
+        for arch, rows_ in forward_rows.items()] + [moe_entry]}), flush=True)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - T_START:.1f}s", flush=True)
     print(smi, flush=True)

@@ -55,14 +55,14 @@ MODES = ("auto", "summa", "cannon", "splitk", "allgather")
 
 def _tile_dot(a: torch.Tensor, b: torch.Tensor,
               kernel: Optional[InnerKernel]) -> torch.Tensor:
-    """The per-device contraction every mode body accumulates with, fp32 out.
-
+    """The per-device contraction every mode body accumulates with, fp32 out:
+    `kernels.ops.local_matmul`, the `mmad` kernel on the card, at the
+    plan-resolved `InnerKernel`'s block geometry and compute dtype. With
     `kernel=None` (a plan without an inner kernel, or one demoted for its
-    working set) is a plain fp32 product; with a plan-resolved `InnerKernel`
-    the contraction runs `kernels.ops.local_matmul` at the planner's block
-    geometry and compute dtype — the `mmad` kernel on the card."""
-    if kernel is None:
-        return torch.matmul(a.float(), b.float())
+    working set) the reference lets XLA pick the local GEMM; here `mmad`
+    still runs it, at a block picked from the shape (the CUDA kernel masks
+    the ragged edges that kept the planner from a Pallas block), and CPU
+    tensors take the same fp32 product as the reference's `jnp.dot`."""
     from repro_torch.kernels.ops import local_matmul
     return local_matmul(a, b, kernel)
 

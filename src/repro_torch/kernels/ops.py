@@ -116,12 +116,24 @@ def _cast_operand(x: torch.Tensor, kernel: InnerKernel) -> torch.Tensor:
     return x.to(want)
 
 
+def block_for(kernel: Optional[InnerKernel], m: int, n: int, k: int,
+              elem_bytes: int) -> Tuple[int, int, int]:
+    """The block `local_matmul` runs an (m, n, k) product at: the inner
+    kernel's geometry, or with no inner kernel the one `pick_block_shape`
+    picks for the operands' element size."""
+    if kernel is None:
+        return pick_block_shape(m, n, k, elem_bytes)
+    return kernel.geometry()
+
+
 def _local_matmul_impl(a: torch.Tensor, b: torch.Tensor,
-                       kernel: InnerKernel) -> torch.Tensor:
-    a = _cast_operand(a, kernel)
-    b = _cast_operand(b, kernel)
-    return tile_matmul(a, b, block_shape=kernel.geometry(),
-                       out_dtype=torch.float32)
+                       kernel: Optional[InnerKernel]) -> torch.Tensor:
+    if kernel is not None:
+        a = _cast_operand(a, kernel)
+        b = _cast_operand(b, kernel)
+    bs = block_for(kernel, a.shape[0], b.shape[1], a.shape[1],
+                   a.element_size())
+    return tile_matmul(a, b, block_shape=bs, out_dtype=torch.float32)
 
 
 def tensor_core_backward(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -163,11 +175,13 @@ class _LocalMatmul(torch.autograd.Function):
 
 
 def local_matmul(a: torch.Tensor, b: torch.Tensor,
-                 kernel: InnerKernel) -> torch.Tensor:
+                 kernel: Optional[InnerKernel]) -> torch.Tensor:
     """Per-device C = A @ B under a planner-resolved inner kernel, fp32 out.
 
     CUDA tensors run the `mmad` kernel, given the kernel's block geometry
-    (which its decode-path variants do not read; see `kernels/mmad.py`); CPU
+    (which its decode-path variants do not read; see `kernels/mmad.py`), or
+    with no inner kernel the block `block_for` picks, in the operands' own
+    dtypes; CPU
     tensors run the plain fp32 product (the reference's CPU expression).
     Reverse-differentiable (`backward_products` on the card for bf16 and
     fp16 operands, fp32 matmuls otherwise), so routed training works

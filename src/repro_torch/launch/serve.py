@@ -13,7 +13,11 @@ cross-validates `model_workload`'s prediction against them.
 Every ported architecture serves this way (`--arch` gemma-2b, olmo-1b,
 phi4-mini-3.8b, qwen3-14b, deepseek-moe-16b, deepseek-v2-236b, whose MLA
 decodes in the absorbed form, zamba2-1.2b and xlstm-1.3b, which decode on
-their recurrent state): an MoE model's router and
+their recurrent state, seamless-m4t-medium, an encoder-decoder, and
+phi-3-vision-4.2b, which decodes text only as the reference's launcher
+does): an encoder-decoder's decoder attends to `encoder_output`, random
+frames through `frontend_proj` as the reference's launcher makes it, at
+every prefill and decode step; an MoE model's router and
 shared experts are routed GEMMs, and its expert einsums are recorded under
 the tags `model_workload` predicts, so the warm-up covers them and the
 cross-validation holds; the recurrent stacks' projections are routed
@@ -127,11 +131,26 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.inference_mode()
+def encoder_output(params, cfg, batch: int, rng: np.random.Generator,
+                   device) -> torch.Tensor:
+    """An encoder-decoder's stand-in encoder output, as the reference's
+    launcher makes it: random frames (batch, n_prefix, d_model) x 0.02 from
+    `rng`, in `cfg.dtype`, times `frontend_proj` — a plain matmul there,
+    not a routed GEMM, so a plain `torch.matmul` here."""
+    frames = torch.as_tensor(
+        rng.standard_normal((batch, cfg.n_prefix, cfg.d_model)) * 0.02,
+        dtype=cfg.dtype, device=device)
+    return torch.matmul(frames, params.frontend_proj)
+
+
+@torch.inference_mode()
 def generate(params, cfg, prompts: torch.Tensor, gen: int,
              temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> dict:
+             generator: Optional[torch.Generator] = None,
+             encoder_out: Optional[torch.Tensor] = None) -> dict:
     """Prefill `prompts` (B, P) token by token through the cache, then
-    decode `gen` tokens. Clocks are read after a device synchronize.
+    decode `gen` tokens; an encoder-decoder's every step attends to
+    `encoder_out`. Clocks are read after a device synchronize.
 
     Returns the generated tokens (B, gen), the last logits, and the
     prefill / decode wall seconds."""
@@ -145,7 +164,8 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int,
     logits = None
     for i in range(prompt_len):
         with maybe_span("serve.prefill_token", position=i):
-            logits, caches = serve(params, caches, prompts[:, i:i + 1], i)
+            logits, caches = serve(params, caches, prompts[:, i:i + 1], i,
+                                   encoder_out)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -156,7 +176,8 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int,
     for i in range(gen):
         generated.append(tok[:, 0])
         with maybe_span("serve.decode_token", position=i):
-            logits, caches = serve(params, caches, tok, prompt_len + i)
+            logits, caches = serve(params, caches, tok, prompt_len + i,
+                                   encoder_out)
         if temperature > 0:
             probs = torch.softmax(logits / temperature, dim=-1)
             tok = torch.multinomial(probs, 1, generator=generator)
@@ -232,9 +253,12 @@ def main(argv=None):
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
         dtype=torch.long, device=device)
+    encoder_out = (encoder_output(params, cfg, args.batch, rng, device)
+                   if cfg.is_encoder_decoder else None)
     sampler = torch.Generator(device=device).manual_seed(args.seed + 1)
     out = generate(params, cfg, prompts, args.gen,
-                   temperature=args.temperature, generator=sampler)
+                   temperature=args.temperature, generator=sampler,
+                   encoder_out=encoder_out)
     t_prefill, t_gen = out["t_prefill"], out["t_gen"]
 
     gen = out["tokens"].cpu().numpy()

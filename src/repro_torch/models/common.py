@@ -14,7 +14,6 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.launch.mesh import resolve_device
@@ -178,14 +177,36 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """The reference's `jax.nn.silu`: x * sigmoid(x), the sigmoid as
+    1 / (1 + exp(-x)), each op rounded to x's dtype as XLA lowers it (in
+    bf16 `F.silu`, which rounds once, differs in ~40 % of the outputs by an
+    ulp)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The reference's `jax.nn.gelu(x, approximate=True)` op by op, each op
+    rounded to x's dtype: x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))
+    with x^3 as (x * x) * x and both constants rounded to x's dtype first,
+    as jax casts them (in bf16 `F.gelu(approximate="tanh")`, which rounds
+    once, differs in ~45 % of the outputs)."""
+    def const(v):
+        return torch.tensor(v, dtype=torch.float32).to(x.dtype)
+
+    inner = x + const(0.044715) * (x * x * x)
+    return x * (0.5 * (1.0 + torch.tanh(const(math.sqrt(2 / math.pi))
+                                        * inner)))
+
+
 def activation(cfg: ModelConfig, gate: torch.Tensor,
                up: torch.Tensor) -> torch.Tensor:
     if cfg.act == "swiglu":
-        return F.silu(gate) * up
+        return silu(gate) * up
     if cfg.act == "geglu":
-        return F.gelu(gate, approximate="tanh") * up
+        return gelu_tanh(gate) * up
     if cfg.act == "gelu":
-        return F.gelu(gate + up, approximate="tanh")
+        return gelu_tanh(gate + up)
     raise ValueError(cfg.act)
 
 

@@ -1,19 +1,25 @@
 """Top-level model assembly.
 
-Port of `repro/models/model.py` for the decoders without frontend or
-encoder: the dense GQA stacks (gemma-2b, olmo-1b, phi4-mini, qwen3-14b),
-one group of attention blocks; the MoE stacks (deepseek-moe-16b;
-deepseek-v2-236b, whose attention is MLA), whose leading dense layers come
-before a group of MoE blocks; zamba2, super-layers of `hybrid_attn_every`
-Mamba2 blocks each followed by ONE shared attention block (the same weights
-every time, a KV cache per use), then a Mamba2 tail; and xLSTM,
-super-layers of `slstm_every - 1` mLSTM blocks and one sLSTM block. The
-reference stacks each group's parameters and scans over them; eagerly, a
-`ModuleList` per group and a Python loop do the same work, with the
-reference's group names (`layers`; `dense_layers` + `moe_layers`;
-`mamba_layers` + `mamba_tail` + the unstacked `shared_attn`;
-`mlstm_layers` + `slstm_layers`) and decode-cache keys (`layers`; `dense` +
-`moe`; `mamba` + `mamba_tail` + `shared_attn`; `mlstm` + `slstm`). Entry
+Port of `repro/models/model.py`, every family of it: the dense GQA stacks
+(gemma-2b, olmo-1b, phi4-mini, qwen3-14b, phi-3-vision), one group of
+attention blocks; the MoE stacks (deepseek-moe-16b; deepseek-v2-236b,
+whose attention is MLA), whose leading dense layers come before a group of
+MoE blocks; zamba2, super-layers of `hybrid_attn_every` Mamba2 blocks each
+followed by ONE shared attention block (the same weights every time, a KV
+cache per use), then a Mamba2 tail; xLSTM, super-layers of
+`slstm_every - 1` mLSTM blocks and one sLSTM block; and the
+encoder-decoder (seamless), an `encoder` group run non-causal over the
+projected frames, then `ln_enc`, and a `decoder` group whose blocks add
+cross-attention (`ln_x`, `xattn`) to the encoder output. The stub
+frontends (`vision_stub`, `audio_stub`) project precomputed patch or frame
+embeddings through `frontend_proj` (d x d, routed as `frontend.proj`); a
+VLM prepends them to the token sequence. The reference stacks each
+group's parameters and scans over them; eagerly, a `ModuleList` per group
+and a Python loop do the same work, with the reference's group names
+(`layers`; `dense_layers` + `moe_layers`; `mamba_layers` + `mamba_tail` +
+the unstacked `shared_attn`; `mlstm_layers` + `slstm_layers`; `encoder` +
+`decoder`) and decode-cache keys (`layers`; `dense` + `moe`; `mamba` +
+`mamba_tail` + `shared_attn`; `mlstm` + `slstm`; `decoder`). Entry
 points:
 `init_params` (an `nn.Module` drawn from a seeded `torch.Generator`),
 `forward` (logits, or hidden states for the chunked training loss),
@@ -22,7 +28,6 @@ caches), `lm_head_weight`, `params_from_numpy`, which carries the
 reference's parameter pytree into this package's model, and
 `make_trainable`. Parameters are built frozen (`requires_grad=False`, as
 serving wants them); the trainer turns them trainable with one call.
-Other families raise `NotImplementedError` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -43,23 +48,12 @@ from repro_torch.models.common import (ModelConfig, apply_mlp, apply_norm,
                                        normal)
 from repro_torch.models.matmul import pmm
 
-_ROADMAP_ZOO = "ROADMAP.md, queue 1: attention and the model zoo"
-
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The ported families: dense and MoE attention stacks, GQA or MLA, and
-    the zamba2 and xLSTM recurrent stacks."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder stacks are not ported "
-                                  f"yet ({_ROADMAP_ZOO})")
+    """The block patterns of the reference: attention stacks (dense, MoE,
+    encoder-decoder), zamba2's hybrid and xLSTM."""
     if cfg.block_pattern not in ("attn", "mamba2_hybrid", "xlstm"):
         raise ValueError(cfg.block_pattern)
-    if cfg.attn not in ("gqa", "mla"):
-        raise NotImplementedError(f"{cfg.attn!r} attention is not ported yet "
-                                  f"({_ROADMAP_ZOO})")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"the {cfg.frontend!r} frontend is not "
-                                  f"ported yet ({_ROADMAP_ZOO})")
 
 
 # ---------------------------------------------------------------------------
@@ -73,10 +67,18 @@ def _attn_params(generator, cfg: ModelConfig, device):
 
 
 class AttnBlock(nn.Module):
-    def __init__(self, generator, cfg: ModelConfig, device="cuda"):
+    """`ln1` and `attn`; with `cross` (an encoder-decoder's decoder block)
+    `ln_x` and `xattn`, cross-attention to the encoder output; `ln2` and
+    `mlp`."""
+
+    def __init__(self, generator, cfg: ModelConfig, device="cuda",
+                 cross: bool = False):
         super().__init__()
         self.ln1 = norm_params(cfg, device)
         self.attn = _attn_params(generator, cfg, device)
+        if cross:
+            self.ln_x = norm_params(cfg, device)
+            self.xattn = attn.gqa_params(generator, cfg, device)
         self.ln2 = norm_params(cfg, device)
         self.mlp = mlp_params(generator, cfg, device=device)
 
@@ -128,11 +130,12 @@ def _super_layers(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 class Model(nn.Module):
-    """Parameters of a decoder: `embed` (vocab, d), the layer groups
+    """Parameters of a model: `embed` (vocab, d), the layer groups
     (`layers`; `dense_layers` and `moe_layers`; `mamba_layers`,
-    `mamba_tail` and `shared_attn`; or `mlstm_layers` and
-    `slstm_layers`), `ln_f`, and `lm_head` (d, vocab) when embeddings are
-    untied."""
+    `mamba_tail` and `shared_attn`; `mlstm_layers` and `slstm_layers`; or
+    `encoder`, `decoder` and `ln_enc`), `ln_f`, `lm_head` (d, vocab) when
+    embeddings are untied, and `frontend_proj` (d, d) with a stub
+    frontend."""
 
     def __init__(self, generator, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -144,6 +147,20 @@ class Model(nn.Module):
         self.ln_f = norm_params(cfg, device)
         self.lm_head = (None if cfg.tie_embeddings else dense_init(
             generator, cfg.d_model, cfg.vocab, cfg.dtype, device))
+        if cfg.frontend in ("vision_stub", "audio_stub"):
+            # a learned projection of the precomputed patch / frame
+            # embeddings the stub frontend supplies
+            self.frontend_proj = dense_init(generator, cfg.d_model,
+                                            cfg.d_model, cfg.dtype, device)
+        if cfg.is_encoder_decoder:
+            self.encoder = nn.ModuleList(
+                AttnBlock(generator, cfg, device)
+                for _ in range(cfg.n_encoder_layers))
+            self.decoder = nn.ModuleList(
+                AttnBlock(generator, cfg, device, cross=True)
+                for _ in range(cfg.n_layers))
+            self.ln_enc = norm_params(cfg, device)
+            return
         if cfg.block_pattern == "mamba2_hybrid":
             n_super, per, rem = _super_layers(cfg)
             self.mamba_layers = _mixer_blocks(generator, cfg, ssm.Mamba2,
@@ -177,16 +194,18 @@ class Model(nn.Module):
 # (parameter group, decode-cache key) of the attention stacks, in the
 # order the layers run
 _GROUPS = (("layers", "layers"), ("dense_layers", "dense"),
-           ("moe_layers", "moe"))
+           ("moe_layers", "moe"), ("decoder", "decoder"))
 # the groups the reference stacks on a leading axis (`shared_attn` is one
 # block)
 _STACKED = ("layers", "dense_layers", "moe_layers", "mamba_layers",
-            "mamba_tail", "mlstm_layers", "slstm_layers")
+            "mamba_tail", "mlstm_layers", "slstm_layers", "encoder",
+            "decoder")
 
 
 def _groups(params: Model) -> Iterator[Tuple[str, nn.ModuleList]]:
     """(decode-cache key, blocks) of each attention layer group the model
-    has."""
+    has that decodes against a KV cache (an encoder-decoder's `decoder`,
+    not its `encoder`)."""
     for name, key in _GROUPS:
         blocks = getattr(params, name, None)
         if blocks is not None:
@@ -218,10 +237,12 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     """The reference's parameter pytree (numpy leaves, each layer group
     stacked on a leading axis: `layers`; `dense_layers` + `moe_layers`
     with their stacked expert leaves; `mamba_layers` + `mamba_tail`;
-    `mlstm_layers` + `slstm_layers`) as this package's model on `device`
+    `mlstm_layers` + `slstm_layers`; `encoder` + `decoder`, the decoder's
+    blocks with `ln_x` and `xattn`) as this package's model on `device`
     (the card unless the caller passes `device="cpu"`; with no card that
     raises). Leaf paths name the parameters: block i of group G takes
-    `G.<path>[i]`, and zamba2's one shared block `shared_attn.<path>`. bf16
+    `G.<path>[i]`, zamba2's one shared block `shared_attn.<path>`, and the
+    unstacked leaves (`frontend_proj`, `ln_enc`) their path. bf16
     leaves arrive as `ml_dtypes.bfloat16` and go through fp32, which is
     exact."""
     _check_supported(cfg)
@@ -261,10 +282,11 @@ def make_trainable(params: Model) -> Model:
 # ---------------------------------------------------------------------------
 
 def _block(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-           cache=None, causal: bool = True):
-    """An attention block (GQA, or MLA, which is always causal), then its
-    MLP, or for a `MoEBlock` its MoE layer (the reference's `_attn_block` /
-    `_moe_block`)."""
+           cache=None, causal: bool = True, enc_out=None):
+    """An attention block (GQA, or MLA, which is always causal); with
+    `enc_out`, cross-attention to it (not causal, no RoPE, no cache); then
+    its MLP, or for a `MoEBlock` its MoE layer (the reference's
+    `_attn_block` / `_moe_block`)."""
     h = apply_norm(p.ln1, x, cfg)
     if cfg.attn == "mla":
         a, new_cache = attn.mla_attention(p.attn, h, cfg, positions, cache)
@@ -272,6 +294,11 @@ def _block(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
         a, new_cache = attn.gqa_attention(p.attn, h, cfg, positions, cache,
                                           causal=causal)
     x = x + a
+    if enc_out is not None:
+        h = apply_norm(p.ln_x, x, cfg)
+        a, _ = attn.gqa_attention(p.xattn, h, cfg, positions, None,
+                                  causal=False, kv_input=enc_out)
+        x = x + a
     h = apply_norm(p.ln2, x, cfg)
     if isinstance(p, MoEBlock):
         return x + moe_lib.apply_moe(p.moe, h, cfg), new_cache
@@ -293,6 +320,18 @@ def remat_call(fn, *args):
 def _layer(p, x: torch.Tensor, cfg: ModelConfig,
            positions: torch.Tensor) -> torch.Tensor:
     return shard_ctx.constrain_tokens(_block(p, x, cfg, positions)[0])
+
+
+def _encoder_layer(p: AttnBlock, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor) -> torch.Tensor:
+    return shard_ctx.constrain_tokens(
+        _block(p, x, cfg, positions, causal=False)[0])
+
+
+def _decoder_layer(p: AttnBlock, enc: torch.Tensor, x: torch.Tensor,
+                   cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    return shard_ctx.constrain_tokens(
+        _block(p, x, cfg, positions, enc_out=enc)[0])
 
 
 def _mixer_block(p: MixerBlock, x: torch.Tensor, cfg: ModelConfig,
@@ -324,11 +363,16 @@ def _super_layer(blocks, last, x: torch.Tensor, cfg: ModelConfig,
     return shard_ctx.constrain_tokens(x)
 
 
-def _units(params: Model, cfg: ModelConfig):
+def _units(params: Model, cfg: ModelConfig, enc=None):
     """(fn, leading args) of each unit the forward runs in order, and remat
     wraps whole, as the reference scans them: a layer of the attention
-    stacks; a super-layer of the recurrent ones, then each block of the
+    stacks (an encoder-decoder's decoder layers with the encoder output
+    `enc`); a super-layer of the recurrent ones, then each block of the
     Mamba2 tail."""
+    if cfg.is_encoder_decoder:
+        for layer in params.decoder:
+            yield _decoder_layer, (layer, enc)
+        return
     if cfg.block_pattern == "attn":
         for _, blocks in _groups(params):
             for layer in blocks:
@@ -352,29 +396,62 @@ def lm_head_weight(params: Model, cfg: ModelConfig) -> torch.Tensor:
     return params.lm_head
 
 
+def _run(units, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+         remat: bool) -> torch.Tensor:
+    """Each (fn, leading args) of `units` on x in order, each under
+    `remat_call` when `remat`."""
+    for fn, args in units:
+        if remat:
+            x = remat_call(fn, *args, x, cfg, positions)
+        else:
+            x = fn(*args, x, cfg, positions)
+    return x
+
+
+def _encode(params: Model, encoder_embeds: torch.Tensor, cfg: ModelConfig,
+            remat: bool = False) -> torch.Tensor:
+    """An encoder-decoder's encoder output: the frame embeddings (B, F, D)
+    through `frontend_proj` (routed as `frontend.proj`), the `encoder`
+    layers non-causal at positions 0..F-1, then `ln_enc`."""
+    enc = pmm(encoder_embeds.to(cfg.dtype), params.frontend_proj,
+              tag="frontend.proj")
+    positions = torch.arange(enc.shape[1], device=enc.device)
+    enc = _run(((_encoder_layer, (layer,)) for layer in params.encoder),
+               enc, cfg, positions, remat)
+    return apply_norm(params.ln_enc, enc, cfg)
+
+
 def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
             prefix_embeds=None, encoder_embeds=None, remat: bool = True,
             return_hidden: bool = False) -> torch.Tensor:
     """Training/prefill forward -> logits (B, S, vocab) in fp32, or the
     final hidden states (B, S, D) with return_hidden=True.
 
+    `prefix_embeds` (B, P, D): a stub frontend's patch embeddings, through
+    `frontend_proj` and prepended to the sequence (S counts them; positions
+    run over prefix plus tokens). `encoder_embeds` (B, F, D): an
+    encoder-decoder's frame embeddings, which it needs (`_encode`).
+
     `remat` is the reference's scan-level `jax.checkpoint`: while autograd
-    records, each layer (each super-layer of the recurrent stacks) runs
-    under `remat_call`, so only its inputs are kept and the backward
-    recomputes it. With no gradient to
-    record there is nothing to rematerialize."""
-    if prefix_embeds is not None or encoder_embeds is not None:
-        raise NotImplementedError(f"frontend and encoder inputs are not "
-                                  f"ported yet ({_ROADMAP_ZOO})")
+    records, each layer (each super-layer of the recurrent stacks; each
+    encoder and decoder layer) runs under `remat_call`, so only its inputs
+    are kept and the backward recomputes it. With no gradient to record
+    there is nothing to rematerialize."""
     x = shard_ctx.constrain_tokens(params.embed[tokens].to(cfg.dtype))
+    if prefix_embeds is not None:
+        pe = pmm(prefix_embeds.to(cfg.dtype), params.frontend_proj,
+                 tag="frontend.proj")
+        x = torch.cat([pe, x], dim=1)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     remat = remat and torch.is_grad_enabled()
-    for fn, args in _units(params, cfg):
-        if remat:
-            x = remat_call(fn, *args, x, cfg, positions)
-        else:
-            x = fn(*args, x, cfg, positions)
+    enc = None
+    if cfg.is_encoder_decoder:
+        if encoder_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its forward "
+                             f"needs encoder_embeds")
+        enc = _encode(params, encoder_embeds, cfg, remat)
+    x = _run(_units(params, cfg, enc), x, cfg, positions, remat)
     x = apply_norm(params.ln_f, x, cfg)
     if return_hidden:
         return x
@@ -385,7 +462,8 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
 def decode_init(params: Model, cfg: ModelConfig, batch: int,
                 max_len: int) -> Dict[str, Any]:
     """Preallocated per-layer caches for one-token decode steps, one list
-    per layer group: KV caches (`layers`, or `dense` and `moe`); zamba2's
+    per layer group: KV caches (`layers`; `dense` and `moe`; an
+    encoder-decoder's `decoder`, self-attention only); zamba2's
     Mamba2 states (`mamba`, `mamba_tail`) and a KV cache per use of the
     shared block (`shared_attn`, n_super of them); xLSTM's `mlstm` and
     `slstm` states."""
@@ -448,10 +526,16 @@ def decode_step(params: Model, caches: Dict[str, Any], tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: tokens (B, 1) -> logits (B, vocab) fp32, updated
     caches. `position` is the host-side int write index (a 0-d tensor is
-    read once)."""
-    if encoder_out is not None:
-        raise NotImplementedError(f"encoder-decoder decode is not ported yet "
-                                  f"({_ROADMAP_ZOO})")
+    read once). An encoder-decoder needs `encoder_out` (B, F, D), the
+    encoder's output, which each decoder layer's cross-attention projects
+    to K and V again every step (the reference keeps no cross-attention
+    cache); other families take none."""
+    enc = None
+    if cfg.is_encoder_decoder:
+        if encoder_out is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its decode "
+                             f"step needs encoder_out")
+        enc = encoder_out
     x = shard_ctx.constrain_tokens(params.embed[tokens].to(cfg.dtype))
     pos = int(position)
     positions = torch.arange(pos, pos + tokens.shape[1], device=x.device)
@@ -462,7 +546,8 @@ def decode_step(params: Model, caches: Dict[str, Any], tokens: torch.Tensor,
     for key, blocks in _groups(params):
         new: List[Dict[str, Any]] = []
         for layer, cache in zip(blocks, caches[key]):
-            x, new_cache = _block(layer, x, cfg, positions, cache=cache)
+            x, new_cache = _block(layer, x, cfg, positions, cache=cache,
+                                  enc_out=enc)
             new.append(new_cache)
         new_caches[key] = new
     x = apply_norm(params.ln_f, x, cfg)

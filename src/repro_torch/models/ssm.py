@@ -34,7 +34,7 @@ from torch import nn
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import accounting
 from repro_torch.models.common import (ModelConfig, dense_init, normal,
-                                       profile_scope)
+                                       profile_scope, silu)
 from repro_torch.models.matmul import pmm
 
 CHUNK = 128
@@ -43,14 +43,6 @@ NEG_STAB = -1e30              # mLSTM / sLSTM initial stabiliser
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """The reference's `jax.nn.silu`: x * sigmoid(x), the sigmoid as
-    1 / (1 + exp(-x)), each op rounded to x's dtype as XLA lowers it (in
-    bf16 `F.silu`, which rounds once, differs in ~40 % of the outputs by an
-    ulp, and the mixers apply it two or three times a layer)."""
-    return x * (1 / (1 + torch.exp(-x)))
 
 
 # ---------------------------------------------------------------------------

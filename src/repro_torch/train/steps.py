@@ -64,8 +64,19 @@ def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor,
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy of `batch` (`tokens`, `targets`, and a
+    VLM's `prefix_embeds` or an encoder-decoder's `encoder_embeds`). A
+    VLM's hidden states at the prefix positions are dropped before the
+    loss: the targets cover the tokens only."""
+    kwargs = {}
+    if cfg.frontend == "vision_stub":
+        kwargs["prefix_embeds"] = batch["prefix_embeds"]
+    if cfg.is_encoder_decoder:
+        kwargs["encoder_embeds"] = batch["encoder_embeds"]
     hidden = forward(params, batch["tokens"], cfg, remat=remat,
-                     return_hidden=True)
+                     return_hidden=True, **kwargs)
+    if cfg.frontend == "vision_stub":
+        hidden = hidden[:, -batch["tokens"].shape[1]:]
     return chunked_xent(hidden, lm_head_weight(params, cfg),
                         batch["targets"], cfg.vocab)
 

@@ -956,3 +956,102 @@ def test_routed_smoke_ssm_decode_on_the_card_matches_the_cpu(cuda, arch,
     scale = float(logits["cpu"].abs().max())
     assert float((logits["cuda"] - logits["cpu"]).abs().max()) <= 1e-4 * scale
     capsys.readouterr()
+
+
+# ---------------------------------------------------------------------------
+# seamless-m4t-medium and phi-3-vision-4.2b (the frontend models)
+# ---------------------------------------------------------------------------
+
+# (m, k, n, B major, variant): the frontend models' new GEMM shapes.
+# seamless decodes its cross-attention K and V at the encoder's 4 x 960
+# rows; its tied lm_head's N = 256,206 is not a multiple of 8, so `embed.T`
+# streams by columns at decode and leaves a 206-wide last tile in a
+# forward; phi-3-vision's prefix forward runs 4 x (576 + 32) rows, its
+# lm_head's last tile 64 wide, and `frontend.proj` at 4 x 576.
+FRONTEND_SHAPES = [
+    (3840, 1024, 1024, "n", mmad_mod.WGMMA),        # cross K / V
+    (4, 1024, 256206, "k", mmad_mod.COL_STREAM),    # seamless lm_head
+    (128, 1024, 256206, "k", mmad_mod.WGMMA),       # its prefill lm_head
+    (2432, 3072, 32064, "k", mmad_mod.WGMMA),       # phi-3-vision lm_head
+    (2304, 3072, 3072, "n", mmad_mod.WGMMA),        # frontend.proj
+]
+
+
+@pytest.mark.parametrize("shape", FRONTEND_SHAPES,
+                         ids=[f"{m}x{k}x{n}" for m, k, n, _, _ in
+                              FRONTEND_SHAPES])
+def test_kernel_at_the_frontend_model_shapes(cuda, shape):
+    """Each new shape on the variant its operands take (a (K, N) weight,
+    or the tied lm_head's `embed.T` view), against the plain version, fp32
+    and bf16 out, and bitwise repeatable."""
+    m, k, n, b_major, variant = shape
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = _draw((m, k), torch.bfloat16, g, cuda)
+    b = (_draw((k, n), torch.bfloat16, g, cuda) if b_major == "n"
+         else _draw((n, k), torch.bfloat16, g, cuda).T)
+    block = (min(m, 128), 128, 128)
+    assert _plan(a, b, block, cuda)[0] == variant
+    tensor_cores = variant == mmad_mod.WGMMA
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = mmad_mod.mmad(a, b, block, out_dtype)
+        torch.cuda.synchronize()
+        _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype,
+                      tensor_cores)
+        assert torch.equal(mmad_mod.mmad(a, b, block, out_dtype), got)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "phi-3-vision-4.2b"])
+def test_routed_smoke_frontend_models_on_the_card_match_the_cpu(cuda, arch,
+                                                                tmp_path,
+                                                                capsys):
+    """The smoke model at fp32, routed on the card against the same
+    weights and calls on CPU tensors (the kernels' plain versions): the
+    forward with its frontend input (seamless's frames, phi-3-vision's
+    patch embeddings) and 8 decode steps (seamless's attending to an
+    encoder output), logits within 1e-4 of the CPU's largest value, one
+    `mmad` launch per routed dispatch."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.deploy.warmup import build_planner
+    from repro_torch.launch import mesh
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import (decode_init, decode_step, forward,
+                                          init_params)
+    cfg = dataclasses.replace(smoke_config(arch), dtype=torch.float32)
+    cpu = torch.device("cpu")
+    params = init_params(torch.Generator().manual_seed(0), cfg, cpu)
+    g = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (2, 8), generator=g)
+    extra = torch.randn((2, cfg.n_prefix, cfg.d_model), generator=g)
+    key = "encoder_embeds" if cfg.is_encoder_decoder else "prefix_embeds"
+    planner = build_planner(str(tmp_path), (4, 4), 12)
+    out = {}
+    for dev in (cpu, cuda):
+        model = init_params(None, cfg, "meta")
+        model.load_state_dict({k: v.to(dev) for k, v in
+                               params.state_dict().items()}, assign=True)
+        ctx = shard_ctx.GemmContext(mesh=mesh.make_host_mesh(dev),
+                                    planner=planner)
+        shard_ctx.set_gemm_context(ctx)
+        mmad_mod.reset_launch_count()
+        try:
+            with torch.inference_mode():
+                logits = [forward(model, prompts.to(dev), cfg,
+                                  **{key: extra.to(dev)}).cpu()]
+                enc = (extra.to(dev) @ model.frontend_proj
+                       if cfg.is_encoder_decoder else None)
+                caches = decode_init(model, cfg, 2, 8)
+                for i in range(8):
+                    step, caches = decode_step(model, caches,
+                                               prompts[:, i:i + 1].to(dev),
+                                               i, cfg, encoder_out=enc)
+                    logits.append(step.cpu())
+        finally:
+            shard_ctx.set_gemm_context(None)
+        out[dev.type] = logits
+        if dev.type == "cuda":
+            assert mmad_mod.launch_count() == ctx.stats.executed_gemm > 0
+    for got, want in zip(out["cuda"], out["cpu"]):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+    capsys.readouterr()

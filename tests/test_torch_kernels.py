@@ -301,6 +301,19 @@ def test_pick_block_shape_matches_reference(m, n, k, eb):
     assert tops.pick_block_shape(m, n, k, eb) == jops.pick_block_shape(m, n, k, eb)
 
 
+@pytest.mark.parametrize("kernel", [None, InnerKernel(8, 128, 32),
+                                    InnerKernel(128, 256, 64, dtype="float32")],
+                         ids=["no-kernel", "8x128x32", "128x256x64-fp32"])
+def test_block_for_is_the_kernels_geometry_or_the_picked_block(kernel):
+    """The one rule for the block `local_matmul` runs at: a plan's inner
+    kernel's geometry, else `pick_block_shape` for the operands' size."""
+    for m, n, k, eb in [(4, 256206, 1024, 2), (3840, 1024, 1024, 2),
+                        (7, 1000, 5000, 4)]:
+        want = (kernel.geometry() if kernel is not None
+                else jops.pick_block_shape(m, n, k, eb))
+        assert tops.block_for(kernel, m, n, k, eb) == want
+
+
 CAST_CASES = [(have, want) for have in sorted(DTYPES)
               for want in sorted(DTYPES) + [""]]
 

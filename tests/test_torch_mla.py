@@ -17,7 +17,14 @@ bf16, 2^-8 relative, at other points in the two frameworks).
 - `params_from_numpy` carries the MLA tree under the reference's names.
 - The routed smoke model decodes as the reference does (logits, greedy
   tokens exactly, the observed (tag, shape) keys with the `mla.*` ones,
-  each key's plan decision, resolve rate 1.0) and its forward agrees.
+  each key's plan decision, resolve rate 1.0) and its forward agrees. Its
+  MoE layers run the port's own `route`, and its expert choices are held
+  to the reference's, recorded as its decode routes them: at fp32 they
+  must be equal. At bf16 the router's inputs are bf16 activations rounded
+  at other points, which can move a near-tied gate across its neighbour:
+  at most one token-layer of the run may choose otherwise, its gate
+  margin must be within 1 bf16 ulp (printed; 0.025 on these weights), and
+  that row alone takes the reference's choice.
 - `serve.main` serves the smoke model on the CPU with a run report whose
   workload cross-validation holds.
 - The port's two forms compute one function: at fp32 the naive forward's
@@ -50,6 +57,8 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import shard_ctx as tctx  # noqa: E402
 from test_torch_serve import (ROOT, _decisions, _decode_jax,  # noqa: E402
                               _decode_torch)
+
+_real_route = tmoe.route
 
 ARCH = "deepseek-v2-236b"
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
@@ -212,8 +221,56 @@ def test_params_from_numpy_carries_the_mla_tree():
     assert all(not p.requires_grad for p in params.values())
 
 
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """a - b (fp32, a >= b > 0) in units of a's bf16 ulp: 8 significant
+    bits, so an ulp is 2^(floor(log2 a) - 7)."""
+    return float((a - b) / torch.exp2(torch.floor(torch.log2(a)) - 7))
+
+
+def _route_held(monkeypatch, choices, fp32, flips):
+    """Run the port's own `route` on every MoE call and hold its expert
+    choices (descending, as `jax.lax.top_k` orders them) to the
+    reference's (`choices`, call by call). At fp32 they must be equal and
+    nothing is replaced. At bf16 a token-layer that chose otherwise takes
+    the reference's row, with the port's own gates (those its `route`
+    computed) renormalised over it; `flips` gets, for each such row, the
+    gate margin at the first place the two orders part: the port's gate of
+    its own pick less its gate of the reference's, in bf16 ulps."""
+    queue = list(choices)
+    logits = []
+    real_pmm = tmoe.pmm
+
+    def pmm(x, w, tag=""):
+        out = real_pmm(x, w, tag=tag)
+        if tag == "moe.router":
+            logits.append(out)
+        return out
+
+    def route(p, xt, c):
+        topv, topi = _real_route(p, xt, c)
+        gates = torch.softmax(logits.pop(), dim=-1)
+        want = torch.from_numpy(queue.pop(0)).long()
+        assert want.shape == topi.shape
+        if fp32:
+            np.testing.assert_array_equal(topi.numpy(), want.numpy())
+            return topv, topi
+        topv, topi = topv.clone(), topi.clone()
+        for row in (topi != want).any(-1).nonzero().tolist():
+            row = tuple(row)
+            own, ref, g = topi[row], want[row], gates[row]
+            j = int((own != ref).nonzero()[0])
+            flips.append(_bf16_ulps(g[own[j]], g[ref[j]]))
+            v = g[ref]
+            topv[row], topi[row] = v / torch.clamp(v.sum(), min=1e-9), ref
+        return topv, topi
+    monkeypatch.setattr(tmoe, "pmm", pmm)
+    monkeypatch.setattr(tmoe, "route", route)
+    return queue
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_routed_smoke_model_matches_reference(dtype, tmp_path, capsys):
+def test_routed_smoke_model_matches_reference(dtype, tmp_path, capsys,
+                                              monkeypatch):
     """Routed decode (the absorbed form) and the unrouted forward (the naive
     form) of the whole smoke model: 1 dense + 2 MoE layers of MLA."""
     jcfg, tcfg = _cfgs(dtype)
@@ -221,10 +278,31 @@ def test_routed_smoke_model_matches_reference(dtype, tmp_path, capsys):
     tparams = tmodel.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                        tcfg, device="cpu")
     prompts = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 4))
+    seen = []
+    real_top_k = jax.lax.top_k
+
+    def top_k(gates, k):
+        out = real_top_k(gates, k)
+        jax.debug.callback(lambda i: seen.append(np.array(i)), out[1],
+                           ordered=True)
+        return out
+    monkeypatch.setattr(jax.lax, "top_k", top_k)
     jl, jt, jstats, jprov = _decode_jax(jcfg, jparams, prompts, 4,
                                         str(tmp_path / "j"))
+    monkeypatch.setattr(jax.lax, "top_k", real_top_k)
+    moe_layers = tcfg.n_layers - tcfg.n_dense_layers
+    assert len(seen) == (prompts.shape[1] + 4) * moe_layers
+    flips = []
+    left = _route_held(monkeypatch, seen, dtype == "float32", flips)
     tl, tt, tstats, tprov = _decode_torch(tcfg, tparams, prompts, 4,
                                           str(tmp_path / "t"))
+    monkeypatch.undo()
+    rows = sum(c.size // c.shape[-1] for c in seen)
+    with capsys.disabled():
+        print(f"\n{dtype}: {len(flips)} of {rows} token-layers chose "
+              f"otherwise, gate margins {flips} bf16 ulps")
+    assert not left and len(flips) <= 1
+    assert all(0 <= m <= 1 for m in flips), flips
     assert tl.shape == jl.shape == (8, 2, tcfg.vocab)
     np.testing.assert_allclose(tl, jl, **TOL[dtype])
     np.testing.assert_array_equal(tt, jt)

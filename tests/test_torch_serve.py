@@ -130,7 +130,11 @@ def test_reference_warmed_cache_serves_the_port(tmp_path, capsys):
 # routed decode with carried weights
 # ---------------------------------------------------------------------------
 
-def _decode_jax(cfg, params, prompts, gen, cache_dir):
+def _decode_jax(cfg, params, prompts, gen, cache_dir, encoder_out=None):
+    """The reference's routed decode of `prompts` then `gen` greedy tokens
+    (an encoder-decoder's every step attending to `encoder_out`)."""
+    enc = {} if encoder_out is None else {
+        "encoder_out": jnp.asarray(encoder_out, cfg.dtype)}
     planner = jserve.warm_plan_cache(cfg, prompts.shape[0], prompts.shape[1],
                                      prompts.shape[1] + gen, cache_dir,
                                      (4, 4), 12)
@@ -146,20 +150,24 @@ def _decode_jax(cfg, params, prompts, gen, cache_dir):
             for i in range(prompts.shape[1]):
                 logits, caches = serve(params, caches,
                                        jnp.asarray(prompts[:, i:i + 1]),
-                                       jnp.asarray(i))
+                                       jnp.asarray(i), **enc)
                 logits_seq.append(np.asarray(logits))
             for i in range(gen):
                 tok = np.asarray(jnp.argmax(logits, -1))[:, None]
                 toks.append(tok[:, 0])
                 logits, caches = serve(params, caches, jnp.asarray(tok),
-                                       jnp.asarray(prompts.shape[1] + i))
+                                       jnp.asarray(prompts.shape[1] + i),
+                                       **enc)
                 logits_seq.append(np.asarray(logits))
     finally:
         jset_tracer(None)
     return np.stack(logits_seq), np.stack(toks, 1), ctx.stats, jprovenance(tracer)
 
 
-def _decode_torch(cfg, params, prompts, gen, cache_dir):
+def _decode_torch(cfg, params, prompts, gen, cache_dir, encoder_out=None):
+    """The port's routed decode, as `_decode_jax`."""
+    enc = None if encoder_out is None else torch.from_numpy(
+        np.asarray(encoder_out, np.float32)).to(cfg.dtype)
     planner = tserve.warm_plan_cache(cfg, prompts.shape[0], prompts.shape[1],
                                      prompts.shape[1] + gen, cache_dir,
                                      (4, 4), 12)
@@ -174,17 +182,51 @@ def _decode_torch(cfg, params, prompts, gen, cache_dir):
             logits_seq, toks = [], []
             tp = torch.from_numpy(prompts).long()
             for i in range(prompts.shape[1]):
-                logits, caches = serve(params, caches, tp[:, i:i + 1], i)
+                logits, caches = serve(params, caches, tp[:, i:i + 1], i,
+                                       enc)
                 logits_seq.append(logits.numpy())
             for i in range(gen):
                 tok = torch.argmax(logits, -1)[:, None]
                 toks.append(tok[:, 0].numpy())
                 logits, caches = serve(params, caches, tok,
-                                       prompts.shape[1] + i)
+                                       prompts.shape[1] + i, enc)
                 logits_seq.append(logits.numpy())
     finally:
         tset_tracer(None)
     return np.stack(logits_seq), np.stack(toks, 1), ctx.stats, tprovenance(tracer)
+
+
+def _forward_jax(cfg, params, tokens, cache_dir, routed=True, **extras):
+    """The reference's forward logits of `tokens` (`extras`: numpy
+    `prefix_embeds` / `encoder_embeds`), routed through a planner warmed
+    for the prefill workload, or unrouted: (logits, stats or None)."""
+    extras = {k: jnp.asarray(v, cfg.dtype) for k, v in extras.items()}
+    fwd = jax.jit(lambda p, t, e: jmodel.forward(p, t, cfg, remat=False,
+                                                 **e))
+    if not routed:
+        return np.asarray(fwd(params, jnp.asarray(tokens), extras)), None
+    planner = jserve.warm_plan_cache(cfg, tokens.shape[0], tokens.shape[1],
+                                     tokens.shape[1], cache_dir, (4, 4), 12)
+    ctx = jctx.GemmContext(mesh=_jax_mesh(), planner=planner)
+    with jctx.gemm_context(ctx):
+        out = np.asarray(fwd(params, jnp.asarray(tokens), extras))
+    return out, ctx.stats
+
+
+def _forward_torch(cfg, params, tokens, cache_dir, routed=True, **extras):
+    """The port's forward, as `_forward_jax`."""
+    extras = {k: torch.from_numpy(np.asarray(v, np.float32)).to(cfg.dtype)
+              for k, v in extras.items()}
+    toks = torch.from_numpy(tokens).long()
+    if not routed:
+        with torch.inference_mode():
+            return tmodel.forward(params, toks, cfg, **extras).numpy(), None
+    planner = tserve.warm_plan_cache(cfg, tokens.shape[0], tokens.shape[1],
+                                     tokens.shape[1], cache_dir, (4, 4), 12)
+    ctx = tctx.GemmContext(mesh=tmesh.make_host_mesh("cpu"), planner=planner)
+    with tctx.gemm_context(ctx), torch.inference_mode():
+        out = tmodel.forward(params, toks, cfg, **extras).numpy()
+    return out, ctx.stats
 
 
 def _decisions(prov):

@@ -7,12 +7,17 @@
   serve parity tolerances of tests/test_torch_serve.py (fp32 rtol = atol =
   1e-4; bf16 rtol 2e-2, atol 5e-2) and equal greedy tokens, the same
   observed (tag, shape) keys and routing decisions, resolve rate 1.0.
-- The registry lists the eight ported architectures, each full and smoke
-  config equal field by field to the reference's (deepseek-v2-236b's MLA
-  is held to the reference in tests/test_torch_mla.py, zamba2-1.2b and
-  xlstm-1.3b in tests/test_torch_ssm.py).
-- The families not yet ported (encoder-decoder, the VLM frontend) raise
-  `NotImplementedError` naming their ROADMAP.md item.
+- The registry lists exactly the reference's ten architectures, each full
+  and smoke config equal field by field to the reference's, and the model
+  builds every one of them (deepseek-v2-236b's MLA is held to the
+  reference in tests/test_torch_mla.py, zamba2-1.2b and xlstm-1.3b in
+  tests/test_torch_ssm.py, seamless-m4t-medium in
+  tests/test_torch_encdec.py, phi-3-vision-4.2b in
+  tests/test_torch_vlm.py).
+- `apply_mlp` at bf16 for swiglu, geglu and gelu: every product's inputs
+  and the gate and up products bitwise equal to the reference's (the
+  activations as its bf16 op chains round them), the output within one
+  bf16 ulp (the down product's fp32 sums are taken in another order).
 """
 import dataclasses
 
@@ -28,12 +33,12 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
-from repro_torch.models.common import ModelConfig  # noqa: E402
 from test_torch_serve import (_decisions, _decode_jax,  # noqa: E402
                               _decode_torch)
 
 PORTED = ["deepseek-moe-16b", "deepseek-v2-236b", "gemma-2b", "olmo-1b",
-          "phi4-mini-3.8b", "qwen3-14b", "xlstm-1.3b", "zamba2-1.2b"]
+          "phi-3-vision-4.2b", "phi4-mini-3.8b", "qwen3-14b",
+          "seamless-m4t-medium", "xlstm-1.3b", "zamba2-1.2b"]
 DENSE = ["olmo-1b", "phi4-mini-3.8b", "qwen3-14b"]
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=5e-2)}
@@ -88,15 +93,61 @@ def test_registry_lists_the_ported_architectures():
             assert tcfg.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch,family", [
-    ("seamless-m4t-medium", "encoder-decoder"),
-    ("phi-3-vision-4.2b", "vision_stub"),
-])
-def test_unported_families_raise_naming_their_roadmap_item(arch, family):
-    with pytest.raises(KeyError):
-        tconfigs.get_config(arch)
-    cfg = ModelConfig(**{**_fields(jconfigs.smoke_config(arch)),
-                         "dtype": torch.bfloat16})
-    with pytest.raises(NotImplementedError,
-                       match=f"{family}.*ROADMAP.md, queue 1"):
-        tmodel.init_params(None, cfg, device="meta")
+def test_registry_lists_exactly_the_reference_architectures():
+    """Every architecture the reference registers is ported: the same
+    list, and a model of each builds (on the meta device) with the
+    reference's parameter count."""
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    for arch in tconfigs.list_archs():
+        tcfg, jcfg = tconfigs.smoke_config(arch), jconfigs.smoke_config(arch)
+        tmodel.init_params(None, tcfg, device="meta")
+        assert tcfg.param_count() == jcfg.param_count()
+
+
+def _recorded(module, monkeypatch):
+    """Record each `pmm` call's (tag, x, x @ w) in `module`'s namespace."""
+    calls = []
+
+    def pmm(x, w, tag=""):
+        out = x @ w
+        calls.append((tag, x, out))
+        return out
+    monkeypatch.setattr(module, "pmm", pmm)
+    return calls
+
+
+@pytest.mark.parametrize("act,arch", [("swiglu", "phi4-mini-3.8b"),
+                                      ("geglu", "gemma-2b"),
+                                      ("gelu", "seamless-m4t-medium")])
+def test_apply_mlp_bf16_matches_reference_bitwise(act, arch, monkeypatch):
+    """`common.activation` rounds as the reference's bf16 op chains
+    (`jax.nn.silu`, `jax.nn.gelu(approximate=True)`): the down product's
+    input, the activation, equals the reference's bit for bit, as do the
+    gate and up products; the output differs only where the down
+    product's fp32 sum, taken in another order, rounds to the next bf16
+    value."""
+    from repro.models import common as jcommon
+    from repro_torch.models import common as tcommon
+    jcfg, tcfg = jconfigs.smoke_config(arch), tconfigs.smoke_config(arch)
+    assert jcfg.act == tcfg.act == act
+    jp = jcommon.mlp_params(jax.random.PRNGKey(0), jcfg)
+    tp = tcommon.mlp_params(None, tcfg, device="meta")
+    tp.load_state_dict({k: torch.from_numpy(np.asarray(v, np.float32))
+                        .bfloat16() for k, v in jp.items()}, assign=True)
+    x = np.random.default_rng(0).standard_normal((2, 16, jcfg.d_model))
+    jcalls = _recorded(jcommon, monkeypatch)
+    tcalls = _recorded(tcommon, monkeypatch)
+    want = jcommon.apply_mlp(jp, jnp.asarray(x, jnp.bfloat16), jcfg)
+    got = tcommon.apply_mlp(tp, torch.from_numpy(x).bfloat16(), tcfg)
+    assert [c[0] for c in tcalls] == [c[0] for c in jcalls] == [
+        "mlp.gate", "mlp.up", "mlp.down"]
+    for (tag, tx, tout), (_, jx, jout) in zip(tcalls, jcalls):
+        assert tx.dtype == tout.dtype == torch.bfloat16
+        np.testing.assert_array_equal(tx.float().numpy(),
+                                      np.asarray(jx, np.float32), tag)
+        if tag != "mlp.down":
+            np.testing.assert_array_equal(tout.float().numpy(),
+                                          np.asarray(jout, np.float32), tag)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=2.0 ** -7, atol=0)
