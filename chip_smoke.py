@@ -114,6 +114,29 @@ Phases (any failure exits non-zero and prints no result line):
              router runs forward on the SIMT tile kernel and backward as
              fp32 `torch.matmul`, which the launch census and the profile
              count apart;
+   train zamba2-1.2b, xlstm-1.3b, seamless-m4t-medium, phi-3-vision-4.2b
+             — the train phase's checks at full width: the recurrent
+             stacks through the launcher (zamba2 at full depth, its 38
+             Mamba2 layers and 6 applications of its shared block,
+             `mamba.in`'s N = 8,384 in the backward; xlstm at
+             XLSTM_TRAIN_LAYERS of 48, 14 mLSTM and 2 sLSTM layers, its
+             fp32 gates counted as the router is), the frontend models
+             through the launcher's `make_train_step` on a
+             batch this script builds (`frontend_batch`: the launcher's
+             tokens and TRAIN_BATCH x n_prefix random frames or patches),
+             seamless at full depth (12 + 12 layers; lm_head's N =
+             256,206), phi-3-vision at PHI3_TRAIN_LAYERS of 32 (1,600 rows
+             a sequence: `chunked_sdpa` forward and backward). xlstm's
+             trajectory is held on fp32 copies of its weights and its
+             first bf16 step's `mmad` calls on their own operands
+             (FP32_HELD_TRAIN), its step-0 gradients in fp32 leaf by leaf
+             on their own operands (`block_operand_check`); the recurrent
+             stacks' scans sum in fp32, and their profiles count the scans'
+             fp32 library GEMMs, each scan replayed alone
+             (`scan_library_gemms`). Each prints its step ms, tokens/s,
+             model FLOPs (`launch/flops.py`) as a share of the bf16 peak,
+             peak GB and busy share; xlstm the wall ms of its sLSTM
+             recurrence timed in one step (`slstm_split`);
 7. chunked_sdpa — `chunked_sdpa` against `_sdpa` at b = 1, seq 4096
              (and a ragged 4000), bf16, causal, gemma-2b's heads (8 / 1 /
              256) and qwen3-14b's (40 / 8 / 128): forward and the grads of
@@ -125,9 +148,11 @@ Phases (any failure exits non-zero and prints no result line):
              and its 256,206-column lm_head, phi-3-vision-4.2b), per shape
              of the two frontend forwards, and per train shape
              (gemma-2b, deepseek-moe-16b with its fp32 router on the SIMT
-             tile kernel) the kernel's time (held to the tolerance again)
-             beside the plain version's, one `torch.matmul` call's, the
-             bound and the roofline share (bound / kernel time); per bf16
+             tile kernel, the four other families, xlstm's fp32 gates on
+             the SIMT tile kernel) the kernel's time (held to the
+             tolerance again) beside the plain version's, one
+             `torch.matmul` call's, the bound and the roofline share
+             (bound / kernel time); per bf16
              train shape also its TFLOPS and its backward's two `mmad`
              products beside their plain version, bf16 `torch.matmul` and
              their bound (the router's: its fp32 `torch.matmul` products);
@@ -135,9 +160,12 @@ Phases (any failure exits non-zero and prints no result line):
              per train step, forward and backward, beside their bounds;
 9. report  — per served model its tok/s, `mmad` ms per step against
              its bound and `torch.matmul`'s, and its held comparisons'
-             errors; one JSON line per kernel and path (the frontend
-             forwards' too), the total time, the nvidia-smi line, and last
-             the `{"ok": true, "device": ...}` line.
+             errors; per trained model its step ms, tokens/s, model FLOP
+             share, peak and `mmad` forward and backward ms against their
+             bounds and `torch.matmul`'s; one JSON line per kernel and
+             path (the frontend forwards' and the train paths' too), the
+             total time, the nvidia-smi line, and last the `{"ok": true,
+             "device": ...}` line.
 
 Exits 2 with no result when no CUDA device is present. Imports nothing of
 JAX and nothing of the JAX package.
@@ -214,6 +242,45 @@ MOE_FLIP_SHARE = 0.2
 # ~1e-5 per token-layer (see above), so this allows ten times that.
 MOE_TRAIN_LAYERS = 4
 TRAIN_SAME_INPUT_FLIP_SHARE = 1e-4
+# The other families' train phases (TRAIN_PHASES), at the train phase's
+# batch, seq and steps: zamba2-1.2b and xlstm-1.3b through the launcher,
+# seamless-m4t-medium and phi-3-vision-4.2b through the launcher's
+# `make_train_step` on a batch this script builds with their frontend
+# inputs (`frontend_batch`). Depth: phi-3-vision trains all of its 32
+# layers, since their peak read 55.14 GB on an H100 (72 GB was the
+# limit); xlstm trains XLSTM_TRAIN_LAYERS of its 48 (2 of its 6
+# super-layers of 7 mLSTM + 1 sLSTM), since its sLSTM's 1,024-step loop
+# bounds the step on the host: 21 s a step at full depth, 4.8–6.1 s at
+# 16 layers, on an H100. Learning rates, from three steps on the fixed batch
+# on an H100: phi-3-vision at 1e-4 went 10.89 -> 12.73 -> 13.04 -> 10.90
+# (routed and unrouted alike), at 3e-5 10.89 -> 8.07 -> 8.03 -> 7.90;
+# xlstm at 1e-4 (full depth, routed) went 11.329 -> 11.332, and at 16
+# layers (unrouted) fell 1 % at 3e-4 and went 11.31 -> 10.23 at 1e-3
+# (`tools/train_lr_probe.py`).
+PHI3_TRAIN_LAYERS = 32
+PHI3_TRAIN_LR = 3e-5
+XLSTM_TRAIN_LAYERS = 16
+XLSTM_TRAIN_LR = 1e-3
+# A random xlstm amplifies its GEMMs' roundings through its depth: in
+# fp32 at 16 layers, step 0, against each product summed in fp64, cuBLAS's
+# `x @ w` moved its layers' gradients by 9.3e-2 to 0.41 (relative L2) and
+# another fp32 order (K summed in two halves) moved its grad norm by
+# 2.4e-2, while the routed run (`mmad`'s SIMT tile kernel) moved them by
+# 8.8e-2 to 0.13 and 2.7e-2; at 8 layers all of these were ~2e-2 and below
+# (`tools/train_grad_leaves.py` on an H100). So its step-0 grad norm can
+# hold no two correct fp32 runs to each other, and its bf16 run (bf16
+# `x @ w` against fp32 sums rounded moved its step-2 grad norm by 0.32 at
+# 48 layers, `tools/bf16_sensitivity.py --train`) even less. Its
+# trajectory is held on fp32 copies of the weights (`fp32_trajectory`),
+# where a mean loss averages the noise away: the step-0 loss at STEP0_REL,
+# each run's loss ending below its start, the grad norms and later steps
+# printed. Its step-0 gradients are held leaf by leaf on their own
+# operands at STEP0_REL (`block_operand_check`: each block's backward
+# taken again unrouted on the routed run's input and cotangent, read
+# 3.6e-6 at worst on an H100), and each bf16 `mmad` call of its first
+# routed step, forward, recompute and backward, to the plain version on
+# its own operands (`OperandCheck`).
+FP32_HELD_TRAIN = ("xlstm-1.3b",)
 # deepseek-v2-236b serves at full width, SERVE_V2_LAYERS deep (1 dense + 5
 # MoE layers, 21.2 B parameters, 42.5 GB of bf16; the full 60 layers are
 # ~472 GB). MLA's naive form against its absorbed form, relative L2 of the
@@ -672,10 +739,14 @@ def time_backward(torch, mmad_mod, ref, a, w, nxt, block, g, timed):
     bf16 gradient; its error against the plain version at `w`, then the
     device time of both products (weights rotating through `nxt`) beside
     the plain version's, bf16 `torch.matmul`'s and their bound."""
+    from repro_torch.kernels.ops import padded_rows
+
     m, k = a.shape
     n = w.shape[1]
-    grad = torch.randn((m, n), generator=g, device=a.device).to(
-        torch.bfloat16)
+    # laid out as `backward_products` lays g out (rows padded to whole 16
+    # bytes where N needs it)
+    grad = padded_rows(torch.randn((m, n), generator=g, device=a.device),
+                       torch.bfloat16)
     err = ratio = 0.0
     for x, y in ((grad, w.T), (a.T, grad)):
         variant = mmad_mod.plan_launch(
@@ -1584,19 +1655,20 @@ def prefix_forward(torch, mmad_mod, cfg, dev, params, planner, prompts):
             "forward_table": table}
 
 
-def train_steps(torch, s, batch, dev, n: int):
-    """`n` steps of the trainer's step function on one fixed batch from a
-    fresh state (the launcher's seeded weights, zero moments). Returns the
-    state, and per step the loss and grad norm it reports (both taken
-    before its update) and its wall ms."""
+def train_steps(torch, s, batch, dev, n: int, state=None, step_fn=None):
+    """`n` steps of the trainer's step function (or `step_fn`) on one fixed
+    batch from a fresh state (the launcher's seeded weights, zero moments;
+    or `state`). Returns the state, and per step the loss and grad norm it
+    reports (both taken before its update) and its wall ms."""
     from repro_torch.launch import serve
 
-    state = s.init_state()
+    state = s.init_state() if state is None else state
+    step_fn = step_fn or s.step_fn
     losses, norms, step_ms = [], [], []
     for _ in range(n):
         serve._sync(dev)
         t0 = time.perf_counter()
-        state, m = s.step_fn(state, batch)
+        state, m = step_fn(state, batch)
         serve._sync(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
@@ -1635,6 +1707,31 @@ def check_trajectory(losses, norms, ref_losses, ref_norms) -> None:
         fail(f"loss did not fall: {losses[0]} -> {losses[-1]}")
 
 
+def check_fp32_trajectory(losses, norms, ref_losses, ref_norms) -> None:
+    """A chaotic stack's trajectory on fp32 copies (FP32_HELD_TRAIN), the
+    routed run's against the unrouted one's: finite, the step-0 loss within
+    STEP0_REL, each run's loss ending below its start. The grad norms and
+    the later losses are printed: the step-0 gradients are held leaf by
+    leaf on their own operands (`block_operand_check`)."""
+    def rel(got, want):
+        return [abs(x - y) / abs(y) for x, y in zip(got, want)]
+
+    rel_loss, rel_norm = rel(losses, ref_losses), rel(norms, ref_norms)
+    print(f"train trajectory on the fixed batch on the weights in fp32, "
+          f"routed vs unrouted: losses {losses} vs {ref_losses} (rel "
+          f"{[f'{x:.2e}' for x in rel_loss]}; tolerance {STEP0_REL} at step "
+          f"0, later steps not held); grad norms {norms} vs {ref_norms} (rel "
+          f"{[f'{x:.2e}' for x in rel_norm]}; not held: see "
+          f"FP32_HELD_TRAIN)", flush=True)
+    if not all(math.isfinite(x) for x in losses + norms + ref_losses
+               + ref_norms):
+        fail("non-finite loss or grad norm in fp32")
+    if not rel_loss[0] <= STEP0_REL:
+        fail("routed step 0 differs from unrouted in fp32")
+    if not (losses[-1] < losses[0] and ref_losses[-1] < ref_losses[0]):
+        fail(f"an fp32 run's loss did not fall: {losses}, {ref_losses}")
+
+
 TENSOR_CORE_KERNEL = "mmad_wgmma_kernel"
 SIMT_TILE_KERNEL = "mmad_tile_kernel"
 SPLITK_REDUCE_KERNEL = "mmad_splitk_reduce"
@@ -1647,9 +1744,20 @@ LIBRARY_GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 FP32_GEMM = ("sgemm", "simt", "f32f32_f32f32", "nvjet_s")
 
 
+def library_gemms(kernels):
+    """The library GEMM kernels among `device_kernels`' rows, and those of
+    them that read fp32 operands on the CUDA cores."""
+    library = [(us, count, name) for us, count, name in kernels
+               if "mmad" not in name
+               and any(w in name.lower() for w in LIBRARY_GEMM)]
+    fp32 = [(us, count, name) for us, count, name in library
+            if any(w in name.lower() for w in FP32_GEMM)]
+    return library, fp32
+
+
 def train_profile(torch, mmad_mod, s, state, batch, dev,
                   launches_per_step: int, simt_per_step: int = 0,
-                  fp32_backward_per_step: int = 0):
+                  fp32_backward_per_step: int = 0, scan_fp32=None):
     """One more step under a device-only profile: busy and wall time from
     one window; every mmad kernel must be the tensor-core kernel, as many
     as the step's launches (one per routed dispatch and two per backward
@@ -1661,8 +1769,12 @@ def train_profile(torch, mmad_mod, s, state, batch, dev,
     router's backward, two `torch.matmul` products per fp32 backward call,
     and the MoE combine weights' einsum, once per route call (one per
     router launch: forward and remat recompute) and once in each MoE
-    layer's backward (one per fp32 backward call). A dense step has none;
-    a bf16 product that fell to fp32 would add one."""
+    layer's backward (one per fp32 backward call). A dense step has none.
+    A recurrent stack (`scan_fp32` given) has its fp32 gates' two backward
+    products per fp32 backward call and the `scan_fp32` of its scans'
+    einsums, which sum in fp32 by design (`scan_library_gemms`). A model
+    product that ran as an fp32 library GEMM instead of `mmad` would add
+    one."""
     with device_profile(torch, dev) as prof:
         t0 = time.perf_counter()
         state, _ = s.step_fn(state, batch)
@@ -1689,17 +1801,17 @@ def train_profile(torch, mmad_mod, s, state, batch, dev,
         fail(f"{tiles} tensor-core, {simt} SIMT tile and {reduces} reduce "
              f"kernels ran in a step of {launches_per_step} mmad launches, "
              f"{simt_per_step} of them fp32")
-    library = [(us, count, name) for us, count, name in kernels
-               if "mmad" not in name
-               and any(w in name.lower() for w in LIBRARY_GEMM)]
-    fp32 = [(us, count, name) for us, count, name in library
-            if any(w in name.lower() for w in FP32_GEMM)]
-    want_fp32 = simt_per_step + 3 * fp32_backward_per_step
+    library, fp32 = library_gemms(kernels)
+    if scan_fp32 is None:
+        want_fp32 = simt_per_step + 3 * fp32_backward_per_step
+        of = f"{simt_per_step} route calls"
+    else:
+        want_fp32 = 2 * fp32_backward_per_step + scan_fp32
+        of = f"the scans' {scan_fp32}"
     if sum(count for _, count, _ in fp32) != want_fp32:
         fail(f"the train step ran {sum(count for _, count, _ in fp32)} fp32 "
              f"CUDA-core GEMM kernels, not the {want_fp32} of its "
-             f"{fp32_backward_per_step} fp32 backward calls and "
-             f"{simt_per_step} route calls: "
+             f"{fp32_backward_per_step} fp32 backward calls and {of}: "
              f"{[(count, name[:100]) for _, count, name in fp32]}")
     for us, count, name in library:
         print(f"  library GEMM {us / 1e3:9.3f} ms/step  {count:6d} "
@@ -1854,36 +1966,356 @@ def choice_flips(a, b) -> int:
     return int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
 
 
-def train_model(torch, mmad_mod, dev, arch_args, cfg=None):
+def launcher_batch(torch, s):
+    """The launcher's first `SyntheticLM` batch on the device."""
+    return s.batch_arrays(s.data.batch(0))
+
+
+def frontend_batch(torch, s):
+    """The launcher's first batch plus the frontend's input, built here (the
+    launcher feeds none, as the reference's does not): an encoder-decoder's
+    `encoder_embeds` of TRAIN_BATCH x n_prefix random frames, a VLM's
+    `prefix_embeds` of as many random patches, x FRONTEND_SCALE, from a
+    seed."""
+    cfg = s.cfg
+    batch = launcher_batch(torch, s)
+    key = "encoder_embeds" if cfg.is_encoder_decoder else "prefix_embeds"
+    gen = torch.Generator(device=s.device).manual_seed(SEED + 11)
+    batch[key] = (torch.randn((TRAIN_BATCH, cfg.n_prefix, cfg.d_model),
+                              generator=gen, device=s.device)
+                  * FRONTEND_SCALE).to(cfg.dtype)
+    return batch
+
+
+def fp32_trajectory(torch, s, batch, dev):
+    """The held trajectory of a stack that amplifies bf16 rounding (see
+    FP32_HELD_TRAIN): the seed-0 weights cast up to fp32, TRAIN_STEPS
+    AdamW steps routed (every GEMM on `mmad`'s SIMT tile kernel forward,
+    fp32 `torch.matmul` backward) and then unrouted (fp32 `x @ w`,
+    PyTorch's backward) from the same fp32 weights; each run's losses
+    (before each step, after the last) and grad norms, and the routed run's
+    resolve rate and silent degrades."""
+    from repro_torch.launch import serve
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import init_params, make_trainable
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    cfg32 = dataclasses.replace(s.cfg, dtype=torch.float32)
+    step32 = steps.make_train_step(cfg32, s.opt)
+
+    def step_fn(state, b):
+        p, o, c, m = step32(*state, b)
+        return (p, o, c), m
+
+    runs = []
+    for routed in (True, False):
+        # the launcher's seed-0 weights (`TrainSetup.init_state`), cast up
+        gen = torch.Generator(device=s.device).manual_seed(0)
+        params = make_trainable(fp32_copy(
+            torch, s.cfg, init_params(gen, s.cfg, s.device))[1])
+        ctx = serve.install_gemm_context(s.planner, dev) if routed else None
+        try:
+            state, losses, norms, _ = train_steps(
+                torch, s, batch, dev, TRAIN_STEPS,
+                state=(params, adamw.init(params), None), step_fn=step_fn)
+            with torch.no_grad():
+                losses.append(float(steps.loss_fn(state[0], batch, cfg32)))
+        finally:
+            shard_ctx.set_gemm_context(None)
+        runs.append((losses, norms, ctx))
+        del state, params
+        release(torch)
+    (losses, norms, ctx), (ref_losses, ref_norms, _) = runs
+    if ctx.stats.resolve_rate != 1.0 or ctx.stats.silent_degrades:
+        fail(f"the fp32 routed run resolved {ctx.stats.resolve_rate} of its "
+             f"GEMMs, {ctx.stats.silent_degrades} silent degrades")
+    return losses, norms, ref_losses, ref_norms
+
+
+def block_operand_check(torch, s, batch, dev) -> dict:
+    """The step-0 gradients of a stack in FP32_HELD_TRAIN, on the seed-0
+    weights cast up to fp32, held leaf by leaf on their own operands.
+    One routed `loss_and_grads` records each recurrent block's input and
+    output and the cotangents that reach them; then each block's
+    backward is taken again unrouted (`x @ w`, PyTorch's backward) on that
+    input and output cotangent, and so is the loss head's (the final norm
+    and the tied `embed.T` projection, on the last block's output; `embed`
+    adds its gather's gradient, the first block's input cotangent
+    scattered to the tokens). Every leaf's routed gradient and every
+    block's input cotangent must agree with its unrouted one within
+    STEP0_REL (relative L2), and the head's loss with the routed loss: a
+    block's backward then differs by its own products' summation order
+    alone, where the whole stack's differs by what its depth makes of
+    them (see FP32_HELD_TRAIN)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.model import (init_params, lm_head_weight,
+                                          make_trainable)
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    gen = torch.Generator(device=s.device).manual_seed(0)
+    cfg32, params = fp32_copy(torch, s.cfg,
+                              init_params(gen, s.cfg, s.device))
+    make_trainable(params)
+    names = {id(w): k for k, w in adamw.named(params).items()}
+    real = model_mod._mixer_block
+    blocks = {}
+
+    def recording(p, x, cfg, state=None):
+        y, new_state = real(p, x, cfg, state)
+        # the first call of each block: the forward (its remat recompute
+        # runs inside the backward, on the same input)
+        if torch.is_grad_enabled() and id(p) not in blocks:
+            rec = blocks[id(p)] = {"p": p, "x": x.detach(), "y": y.detach()}
+            x.register_hook(lambda g: rec.__setitem__("dx", g.detach()))
+            y.register_hook(lambda g: rec.__setitem__("dy", g.detach()))
+        return y, new_state
+
+    model_mod._mixer_block = recording
+    ctx = serve.install_gemm_context(s.planner, dev)
+    try:
+        loss, grads = steps.loss_and_grads(params, batch, cfg32)
+    finally:
+        model_mod._mixer_block = real
+        shard_ctx.set_gemm_context(None)
+    if ctx.stats.resolve_rate != 1.0 or ctx.stats.silent_degrades:
+        fail(f"the fp32 routed step resolved {ctx.stats.resolve_rate} of its "
+             f"GEMMs, {ctx.stats.silent_degrades} silent degrades")
+    order = list(blocks.values())
+    if len(order) != cfg32.n_layers or not all(
+            "dx" in r and "dy" in r for r in order):
+        fail(f"recorded {len(order)} blocks' operands and cotangents for "
+             f"{cfg32.n_layers} layers")
+
+    worst = {"rel": 0.0, "leaf": None}
+
+    def hold(name, got, want):
+        rel = float((got - want).norm() / want.norm())
+        if not rel <= worst["rel"]:
+            worst.update(rel=rel, leaf=name)
+
+    held = set()
+    for i, rec in enumerate(order):
+        x = rec["x"].requires_grad_(True)
+        ws = list(rec["p"].parameters())
+        y = real(rec["p"], x, cfg32)[0]
+        dx, *dws = torch.autograd.grad(y, [x, *ws], rec["dy"])
+        hold(f"block {i} input", rec["dx"], dx)
+        for w, dw in zip(ws, dws):
+            hold(names[id(w)], grads[names[id(w)]], dw)
+            held.add(names[id(w)])
+        del y, dx, dws
+    # the head, on the last block's output
+    rest = [k for k in grads if k not in held]
+    leaves = adamw.named(params)
+    x_last = order[-1]["y"].requires_grad_(True)
+    head_loss = steps.chunked_xent(
+        apply_norm(params.ln_f, x_last, cfg32), lm_head_weight(params, cfg32),
+        batch["targets"], cfg32.vocab)
+    dx, *dws = torch.autograd.grad(head_loss, [x_last] + [leaves[k]
+                                                          for k in rest],
+                                   allow_unused=True)
+    hold("head input", order[-1]["dy"], dx)
+    tokens = batch["tokens"].reshape(-1)
+    for k, dw in zip(rest, dws):
+        if k == "embed":
+            gather = order[0]["dx"].reshape(tokens.numel(), -1)
+            dw = (torch.zeros_like(leaves[k]) if dw is None
+                  else dw.clone()).index_add_(0, tokens, gather)
+        if dw is None:
+            fail(f"{k} takes gradient outside the blocks and the head")
+        hold(k, grads[k], dw)
+    head_loss = float(head_loss.detach())
+    loss_rel = abs(head_loss - float(loss)) / abs(head_loss)
+    print(f"{cfg32.name}'s step-0 gradients in fp32, routed, held leaf by "
+          f"leaf on their own operands ({len(order)} blocks' backward and "
+          f"the head's, each taken again unrouted on the routed run's input "
+          f"and output cotangent): worst rel L2 {worst['rel']:.3e} "
+          f"({worst['leaf']}) over {len(grads)} leaves and {len(order) + 1} "
+          f"input cotangents; the head's loss rel {loss_rel:.2e}; tolerance "
+          f"{STEP0_REL}", flush=True)
+    if not (worst["rel"] <= STEP0_REL and loss_rel <= STEP0_REL):
+        fail(f"the routed fp32 step-0 gradients differ from the unrouted "
+             f"ones on their own operands: {worst['rel']:.3e} at "
+             f"{worst['leaf']}")
+    del order, blocks, grads, params
+    return {"block_grad_rel": worst["rel"], "block_grad_leaf": worst["leaf"]}
+
+
+# the function in which each `state_spans` span of a recurrent stack runs
+# its GEMMs: the scans, which sum their einsums in fp32 by design (as the
+# reference's `preferred_element_type=float32`)
+SCAN_FNS = {"mamba.state": "_ssd_chunked", "mlstm.state": "_mlstm_chunked",
+            "slstm.state": "_slstm_scan"}
+
+
+@contextlib.contextmanager
+def scan_arguments(torch, cfg, store: dict):
+    """While open, the first call of each of the stack's scans (SCAN_FNS)
+    with autograd recording keeps its arguments in `store`, by name."""
+    from repro_torch.models import ssm
+    reals = {SCAN_FNS[span]: getattr(ssm, SCAN_FNS[span])
+             for span in state_spans(cfg) if span in SCAN_FNS}
+
+    def keeping(name, real):
+        def kept(*args):
+            if name not in store and torch.is_grad_enabled():
+                store[name] = args
+            return real(*args)
+        return kept
+
+    for name, real in reals.items():
+        setattr(ssm, name, keeping(name, real))
+    try:
+        yield store
+    finally:
+        for name, real in reals.items():
+            setattr(ssm, name, real)
+
+
+def scan_library_gemms(torch, dev, cfg, store: dict) -> int:
+    """The fp32 library GEMM kernels a recurrent stack's train step runs in
+    its scans: each scan replayed alone under a device profile, on the
+    arguments its first layer took in the step (`scan_arguments`: the same
+    shapes, strides and dtypes, so the same kernels), forward with autograd
+    recording and then backward from its output; a remat step runs each
+    layer's forward twice (the pass and the recompute) and its backward
+    once."""
+    from repro_torch.models import ssm
+    total, parts = 0, []
+    for span, layers in state_spans(cfg).items():
+        name = SCAN_FNS[span]
+        args = [a.detach().requires_grad_(a.requires_grad)
+                if isinstance(a, torch.Tensor) else a for a in store[name]]
+        counts = []
+        for run in ("forward", "backward"):
+            with device_profile(torch, dev) as prof:
+                if run == "forward":
+                    y = getattr(ssm, name)(*args)
+                    y = y[0] if isinstance(y, tuple) else y
+                else:
+                    torch.autograd.backward(y, torch.ones_like(y))
+            edge_kernels_kept(torch, prof)
+            counts.append(sum(c for _, c, _ in library_gemms(
+                device_kernels(torch, prof))[1]))
+        per_layer = 2 * counts[0] + counts[1]
+        total += layers * per_layer
+        parts.append(f"{span} ({name}) {counts[0]} forward x 2 + "
+                     f"{counts[1]} backward = {per_layer} a layer x {layers}")
+        del y, args
+    print(f"the scans' fp32 library GEMMs, each replayed alone on its first "
+          f"layer's arguments: {'; '.join(parts)}; {total} a step",
+          flush=True)
+    return total
+
+
+def slstm_split(torch, s, state, batch, dev):
+    """One more train step with the sLSTM recurrence (`_slstm_scan`, the
+    work of the `slstm.state` spans) timed in it: the wall ms of each of
+    its calls (each layer's forward and remat recompute) and of each
+    layer's backward through it, from the cotangent reaching its output to
+    its input's gradient, the device synchronised at each edge (the loop's
+    kernels are small: the host bounds it). Returns the state and the
+    step's split."""
+    from repro_torch.launch import serve
+    from repro_torch.models import ssm
+
+    real = ssm._slstm_scan
+    forward, backward, opened = [], [], {}
+
+    def timed(pre_all, r, *rest):
+        serve._sync(dev)
+        t0 = time.perf_counter()
+        y, last = real(pre_all, r, *rest)
+        serve._sync(dev)
+        forward.append((time.perf_counter() - t0) * 1e3)
+        key = len(forward)
+
+        def opening(_):
+            serve._sync(dev)
+            opened[key] = time.perf_counter()
+
+        def closing(_):
+            serve._sync(dev)
+            backward.append((time.perf_counter() - opened.pop(key)) * 1e3)
+
+        if y.requires_grad and pre_all.requires_grad:
+            # hooks on the recompute's tensors never fire: the backward
+            # runs the pass's graph
+            y.register_hook(opening)
+            pre_all.register_hook(closing)
+        return y, last
+
+    ssm._slstm_scan = timed
+    try:
+        serve._sync(dev)
+        t0 = time.perf_counter()
+        state, _ = s.step_fn(state, batch)
+        serve._sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ssm._slstm_scan = real
+    n_s = s.cfg.n_layers // s.cfg.slstm_every
+    if len(forward) != 2 * n_s or len(backward) != n_s or opened:
+        fail(f"timed {len(forward)} sLSTM recurrence calls and "
+             f"{len(backward)} backward passes for {n_s} layers")
+    slstm_ms = sum(forward) + sum(backward)
+    print(f"the sLSTM recurrence (slstm.state) timed in one train step: "
+          f"forward {[round(t, 1) for t in forward]} ms (each layer's pass "
+          f"and remat recompute), backward {[round(t, 1) for t in backward]} "
+          f"ms: {slstm_ms:.1f} ms of the {step_ms:.1f} ms step "
+          f"({slstm_ms / step_ms:.1%}), the rest {step_ms - slstm_ms:.1f} ms",
+          flush=True)
+    return state, {"slstm_step_ms": slstm_ms, "slstm_split_step_ms": step_ms,
+                   "slstm_forward_ms": forward,
+                   "slstm_backward_ms": backward}
+
+
+def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
+                make_batch=launcher_batch, lr: float = TRAIN_LR):
     """A train phase's main path: a full-width model (as `arch_args` name
     it; `cfg`, when given, its depth cut), three routed steps on one fixed
-    batch with per-layer remat, each step's expert choices recorded, then
-    held to three unrouted steps that take those choices pinned. An MoE
-    model's fp32 router runs forward on `mmad`'s SIMT tile kernel and
-    backward as fp32 `torch.matmul`.
+    batch (`make_batch(torch, setup)`: the launcher's, or one the phase
+    builds with a frontend's inputs) at `lr` with per-layer remat, each
+    step's expert choices recorded, then held to three unrouted steps that
+    take those choices pinned. An MoE model's fp32 router and xLSTM's fp32
+    gates run forward on `mmad`'s SIMT tile kernel and backward as fp32
+    `torch.matmul`. A stack in FP32_HELD_TRAIN is held instead on fp32
+    copies of its weights (`fp32_trajectory`), and every `mmad` call of
+    its first bf16 routed step on its own operands (`OperandCheck`).
     Returns the per-step launch count, the backward's per-step launches,
     the per-shape launch table and the numbers the report prints."""
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import flops, serve, train
     from repro_torch.models import shard_ctx
     from repro_torch.obs import build_run_report, render_run_report, set_tracer
     from repro_torch.train import steps
 
-    # the launcher's own setup: plan cache warmed for the train workload,
-    # routing context and tracer installed, step function built
+    # the launcher's own setup: plan cache warmed for the train workload
+    # (an encoder's and a frontend's shapes included), routing context and
+    # tracer installed, step function built
     t0 = time.perf_counter()
     plan_dir = ROOT / "build" / "chip_smoke" / "train_plans"
     shutil.rmtree(plan_dir, ignore_errors=True)
     s = train.setup(train.parse_args(
-        arch_args + ["--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
+        arch_args + ["--steps", str(TRAIN_STEPS), "--lr", str(lr),
                      "--plan-cache", str(plan_dir)]), cfg=cfg)
     cfg = s.cfg
     moe = bool(cfg.n_experts)
-    batch = s.batch_arrays(s.data.batch(0))
+    held32 = s.args.arch in FP32_HELD_TRAIN
+    recurrent = cfg.block_pattern in ("mamba2_hybrid", "xlstm")
+    batch = make_batch(torch, s)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     print(f"train {cfg.name}: {cfg.n_layers} layers, batch {s.args.batch} x "
-          f"seq {s.args.seq}, lr {TRAIN_LR}, set up (plans warmed) in "
+          f"seq {s.args.seq}"
+          + "".join(f", {k} {tuple(v.shape)}" for k, v in batch.items()
+                    if k not in ("tokens", "targets"))
+          + f", lr {lr}, set up (plans warmed) in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
 
     # the main path: a fresh routing context and state, counts from zero;
@@ -1932,14 +2364,26 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None):
         return on_mmad
 
     choices = ChoiceLog(torch)      # a dense model records none
+    # a stack held in fp32 has its first routed step's mmad calls, forward
+    # and backward, held on their own operands (the plain products launch
+    # nothing); that step's time is left out of the mean
+    operands = OperandCheck(torch, mmad_mod)
+    first = {"step": True}
+
+    def step_fn(state, b):
+        watch = held32 and first.pop("step", False)
+        with operands.watching() if watch else contextlib.nullcontext():
+            return s.step_fn(state, b)
+
     ops.mmad, ops.backward_products = tallied, tallied_products
     ops._LocalMatmul.backward = staticmethod(counted_backward)
     ops.tensor_core_backward = counted_choice
+    scans = {}
     mmad_mod.reset_launch_count()
     try:
-        with choices.recording():
-            state, losses, norms, step_ms = train_steps(torch, s, batch, dev,
-                                                        TRAIN_STEPS)
+        with choices.recording(), scan_arguments(torch, cfg, scans):
+            state, losses, norms, step_ms = train_steps(
+                torch, s, batch, dev, TRAIN_STEPS, step_fn=step_fn)
     finally:
         ops.mmad, ops.backward_products = real, real_products
         ops._LocalMatmul.backward = staticmethod(real_backward)
@@ -1965,31 +2409,53 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None):
         fail(f"{stats.silent_degrades} silent degrades in training")
     # every routed dispatch launches once (forward and remat recompute);
     # each forward dispatch's backward call launches its two products,
-    # unless its operands are fp32 (the MoE router): that backward is two
-    # fp32 torch.matmul products and launches nothing
+    # unless its operands are fp32 (the MoE router, xLSTM's gates): that
+    # backward is two fp32 torch.matmul products and launches nothing. A
+    # frontend's projection runs outside the per-layer remat, once a step
     bwd_calls = sum(bwd_tally.values())
     fp32_calls = sum(fp32_bwd.values())
+    unrematted = TRAIN_STEPS if cfg.frontend != "none" else 0
     if executed == 0 or sum(tally.values()) != executed:
         fail(f"{sum(tally.values())} forward mmad calls for {executed} "
              f"routed GEMM dispatches in training")
-    if (2 * (bwd_calls + fp32_calls) != executed
+    if (2 * (bwd_calls + fp32_calls) != executed + unrematted
             or inside["calls"] != 2 * bwd_calls):
         fail(f"{bwd_calls} backward calls made {inside['calls']} mmad calls "
              f"and {fp32_calls} took fp32 torch.matmul, for {executed} "
-             f"routed GEMM dispatches")
+             f"routed GEMM dispatches ({unrematted} outside the remat)")
     if inside["local_matmul_backward"] != bwd_calls + fp32_calls:
         fail(f"{inside['local_matmul_backward']} local_matmul backward calls "
              f"for {bwd_calls} on mmad and {fp32_calls} in fp32")
     fp32_keys = {k for k, dt in dtypes.items() if dt == torch.float32}
-    if fp32_bwd.keys() != fp32_keys or (fp32_keys and not moe):
+    fp32_tagged = {(sh.m, sh.n, sh.k) for tag, sh in ctx.resolved
+                   if tag in FP32_TAGS}
+    if not fp32_bwd.keys() == fp32_keys == fp32_tagged:
         fail(f"fp32 backward shapes {sorted(fp32_bwd)} are not the fp32 "
-             f"forward's {sorted(fp32_keys)}")
+             f"forward's {sorted(fp32_keys)}, the shapes of "
+             f"{FP32_TAGS} {sorted(fp32_tagged)}")
     if launches != executed + 2 * bwd_calls or launches % TRAIN_STEPS:
         fail(f"mmad launched {launches} times for {executed} routed GEMM "
              f"dispatches and {bwd_calls} backward calls in training")
     if bwd_tally.keys() | fp32_bwd.keys() != tally.keys():
         fail(f"backward shapes {sorted(bwd_tally)} + {sorted(fp32_bwd)} are "
              f"not the forward's {sorted(tally)}")
+    if held32:
+        off = [key for key, rec in operands.shapes.items()
+               if dev.type == "cuda" and key[0] > mmad_mod.STREAM_MAX_M
+               and rec["dtype"] in mmad_mod.WGMMA_DTYPES
+               and rec["tensor_core"] != rec["calls"]]
+        print(f"the first routed bf16 step's {operands.calls} mmad calls "
+              f"(forward, recompute and backward products) held to the "
+              f"plain version on their own operands: worst err/tol "
+              f"{operands.worst:.3f}", flush=True)
+        if operands.calls != launches // TRAIN_STEPS or off:
+            fail(f"{operands.calls} mmad calls watched in a step of "
+                 f"{launches // TRAIN_STEPS} launches; shapes off the "
+                 f"tensor-core kernel: {off}")
+        if not operands.worst <= 1.0:
+            fail(f"the {cfg.name} train step's mmad calls differ from the "
+                 f"plain version on their operands: {operands.worst:.2f}x "
+                 f"the tolerance")
     per_step = launches // TRAIN_STEPS
     bwd_per_step = 2 * bwd_calls // TRAIN_STEPS
     shapes = {(sh.m, sh.n, sh.k): sh for _, sh in ctx.resolved
@@ -2010,13 +2476,23 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None):
           f"torch.matmul and launched none; total {launches} = "
           f"{executed} + 2 x {bwd_calls}", flush=True)
 
+    scan_fp32 = {}
+    if recurrent:
+        scan_fp32["scan_fp32"] = scan_library_gemms(torch, dev, cfg, scans)
+        scans.clear()
+        release(torch)      # the replays' profiler events, before the profile
     prof = train_profile(torch, mmad_mod, s, state, batch, dev, per_step,
-                         simt_per_step, fp32_calls // TRAIN_STEPS)
+                         simt_per_step, fp32_calls // TRAIN_STEPS,
+                         **scan_fp32)
+    summary = {}
+    if cfg.block_pattern == "xlstm":
+        release(torch)      # the profile's events, before the timed step
+        state, split = slstm_split(torch, s, state, batch, dev)
+        summary.update(split)
     shard_ctx.set_gemm_context(None)
     set_tracer(None)
     del state, params
     release(torch)
-    summary = {}
     if moe:
         flips = choices.same_input_flips()
         summary.update(token_layers=choices.token_layers,
@@ -2030,20 +2506,38 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None):
             fail(f"the mmad router and x @ w chose different experts on the "
                  f"same input for {flips} token-layers")
     choices.inputs.clear()
-    # the yardstick: the same steps unrouted (x @ w, PyTorch's backward),
-    # the routed run's expert choices pinned
-    with choices.pinned():
-        state, ref_losses, ref_norms, _ = train_steps(torch, s, batch, dev,
-                                                      TRAIN_STEPS)
-        with torch.no_grad():
-            ref_losses.append(float(steps.loss_fn(state[0], batch, cfg)))
-    del state
-    release(torch)
-    check_trajectory(losses, norms, ref_losses, ref_norms)
+    if held32:
+        # the bf16 routed run must still be finite and fall; the held
+        # trajectory is the fp32 copies'
+        if not all(math.isfinite(x) for x in losses + norms):
+            fail("non-finite loss or grad norm")
+        if not losses[-1] < losses[0]:
+            fail(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+        print(f"the bf16 routed run: losses {losses}, grad norms {norms} "
+              f"(finite, falling; not held to an unrouted bf16 run: see "
+              f"FP32_HELD_TRAIN)", flush=True)
+        check_fp32_trajectory(*fp32_trajectory(torch, s, batch, dev))
+        summary.update(block_operand_check(torch, s, batch, dev))
+        release(torch)
+    else:
+        # the yardstick: the same steps unrouted (x @ w, PyTorch's
+        # backward), the routed run's expert choices pinned
+        with choices.pinned():
+            state, ref_losses, ref_norms, _ = train_steps(torch, s, batch,
+                                                          dev, TRAIN_STEPS)
+            with torch.no_grad():
+                ref_losses.append(float(steps.loss_fn(state[0], batch, cfg)))
+        del state
+        release(torch)
+        check_trajectory(losses, norms, ref_losses, ref_norms)
     mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
     tokens = s.args.batch * s.args.seq
+    model = flops.model_flops(cfg, s.args.batch, s.args.seq, "train")
     summary.update(step_ms=step_ms, mean_step_ms=mean_ms,
-                   tokens_per_s=tokens / mean_ms * 1e3, **prof)
+                   tokens_per_s=tokens / mean_ms * 1e3,
+                   model_tflop=model["total"] / 1e12,
+                   model_flops_share=(model["total"] / (mean_ms / 1e3)
+                                      / H100_BF16_FLOPS), **prof)
     if dev.type == "cuda":
         summary["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -2051,7 +2545,14 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None):
     print(f"train {cfg.name} on {card}: "
           f"{mean_ms:.3f} ms per step (steps 1-{TRAIN_STEPS - 1}) = "
           f"{summary['tokens_per_s']:.1f} training tokens/s at batch "
-          f"{s.args.batch} x seq {s.args.seq}; {per_step} mmad launches per "
+          f"{s.args.batch} x seq {s.args.seq}; model FLOPs "
+          f"{summary['model_tflop']:.3f} TFLOP a step (launch/flops.py: "
+          f"matmul {model['matmul'] / 1e12:.3f}, attention or scan "
+          f"{model['attention'] / 1e12:.3f}, sLSTM "
+          f"{model['slstm_correction'] / 1e12:.3f}), "
+          f"{model['total'] / (mean_ms / 1e3) / 1e12:.1f} TFLOPS = "
+          f"{summary['model_flops_share']:.1%} of the bf16 peak; "
+          f"{per_step} mmad launches per "
           f"step = {per_step - bwd_per_step} routed GEMM dispatches (forward "
           f"+ remat recompute) + {bwd_per_step} backward products, resolve "
           f"rate {stats.resolve_rate}; peak {summary.get('peak_gb', 0):.2f} "
@@ -2248,12 +2749,14 @@ def train_args(arch: str):
             "--seq", str(TRAIN_SEQ)]
 
 
-def train_path_entry(name: str, path: str, launches: int, rows) -> dict:
+def train_path_entry(name: str, path: str, launches: int, rows,
+                     simt_key: str = "simt_router") -> dict:
     """One `kernels` entry for `mmad` on a train path: the run's launches
     and, per step, the timed shapes' forward sums (each shape times its
     launches) plus their backward's (each shape's two products times its
     backward calls; an fp32 shape has none on `mmad`), with the fp32
-    router's row on the SIMT tile kernel apart."""
+    row on the SIMT tile kernel (the MoE router, xLSTM's gates) apart,
+    under `simt_key`."""
     def fwd(key):
         return sum(r[key] * r["launches_per_step"] for r in rows)
 
@@ -2279,7 +2782,7 @@ def train_path_entry(name: str, path: str, launches: int, rows) -> dict:
         "backward_library_ms": bwd("backward_library_ms"),
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                      else "operations"),
-        "simt_router": ({k: simt[0][k] for k in (
+        simt_key: ({k: simt[0][k] for k in (
             "shape", "variant", "launches_per_step", "kernel_ms", "bound_ms",
             "plain_ms", "library_ms", "fp32_backward_matmul_ms",
             "fp32_backward_bound_ms", "fp32_backward_calls_per_step")}
@@ -2287,6 +2790,47 @@ def train_path_entry(name: str, path: str, launches: int, rows) -> dict:
     for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
         entry[key] = entry[f"forward_{key}"] + entry[f"backward_{key}"]
     return entry
+
+
+# the other families' train phases, after the MoE one: (arch, layers, or
+# None for full depth, and the batch)
+TRAIN_PHASES = [
+    ("zamba2-1.2b", None, launcher_batch, TRAIN_LR),
+    ("xlstm-1.3b", XLSTM_TRAIN_LAYERS, launcher_batch, XLSTM_TRAIN_LR),
+    ("seamless-m4t-medium", None, frontend_batch, TRAIN_LR),
+    ("phi-3-vision-4.2b", PHI3_TRAIN_LAYERS, frontend_batch, PHI3_TRAIN_LR)]
+
+
+def print_train_path(label: str, launches: int, summary: dict, entry: dict,
+                     extra: str = "") -> None:
+    """One report line for a train path: the step's ms, tokens/s, model
+    FLOP rate, peak, `mmad` forward and backward against their bounds and
+    `torch.matmul`, the device busy share."""
+    print(f"train {label} (batch {TRAIN_BATCH} x seq {TRAIN_SEQ}): "
+          f"{summary['mean_step_ms']:.3f} ms per step = "
+          f"{summary['tokens_per_s']:.1f} training tokens/s, model FLOPs "
+          f"{summary['model_tflop']:.3f} TFLOP a step = "
+          f"{summary['model_flops_share']:.1%} of the bf16 peak, peak "
+          f"{summary['peak_gb']:.2f} GB; mmad {launches} launches per step, "
+          f"forward {entry['forward_ms']:.3f} ms (bound "
+          f"{entry['forward_bound_ms']:.3f}, torch.matmul "
+          f"{entry['forward_library_ms']:.3f}), backward "
+          f"{entry['backward_ms']:.3f} ms (bound "
+          f"{entry['backward_bound_ms']:.3f}, bf16 torch.matmul "
+          f"{entry['backward_library_ms']:.3f}){extra}; device busy share "
+          f"{summary['busy_ms'] / summary['wall_ms']:.1%}", flush=True)
+
+
+def simt_text(row: dict, what: str) -> str:
+    """The report's words on a train path's fp32 row (SIMT tile kernel
+    forward, fp32 `torch.matmul` backward)."""
+    return (f"; the fp32 {what} {row['shape']} on the SIMT tile kernel "
+            f"{row['kernel_ms']:.4f} ms a launch x "
+            f"{row['launches_per_step']} (bound {row['bound_ms']:.4f}, fp32 "
+            f"torch.matmul {row['library_ms']:.4f}), its backward on fp32 "
+            f"torch.matmul {row['fp32_backward_matmul_ms']:.4f} ms a call x "
+            f"{row['fp32_backward_calls_per_step']} (bound "
+            f"{row['fp32_backward_bound_ms']:.4f})")
 
 
 def main() -> int:
@@ -2383,6 +2927,20 @@ def main() -> int:
         torch, mmad_mod, dev, train_args(arch), cfg=moe_cfg)
     release(torch)
 
+    # the other families: arch -> (config, launches per step, backward
+    # launches per step, launch table, summary)
+    trained = {}
+    for arch, layers, make_batch, lr in TRAIN_PHASES:
+        full = get_config(arch)
+        train_cfg = (full if layers is None
+                     else dataclasses.replace(full, n_layers=layers))
+        phase(f"train {arch}" + (f" ({layers} layers)" if layers else ""))
+        trained[arch] = (train_cfg, *train_model(
+            torch, mmad_mod, dev, train_args(arch),
+            cfg=None if layers is None else train_cfg,
+            make_batch=make_batch, lr=lr))
+        release(torch)
+
     phase("chunked_sdpa vs plain")
     attn_rows = attention_vs_plain(torch, dev)
     release(torch)
@@ -2403,6 +2961,10 @@ def main() -> int:
                     for i, (arch, table) in enumerate(forward_tables.items())}
     moe_rows = time_shapes(torch, mmad_mod, ref, moe_cfg, moe_table, dev,
                            SEED + 8, kind="train")
+    trained_rows = {arch: time_shapes(torch, mmad_mod, ref, train_cfg, table,
+                                      dev, SEED + 20 + i, kind="train")
+                    for i, (arch, (train_cfg, _, _, table, _))
+                    in enumerate(trained.items())}
     experts_rows = {arch: time_expert_einsums(torch, served_cfgs[arch], dev,
                                               SEED + 6)
                     for arch in ("deepseek-moe-16b", "deepseek-v2-236b")}
@@ -2490,32 +3052,31 @@ def main() -> int:
                                  f"layers, batch {TRAIN_BATCH} x seq "
                                  f"{TRAIN_SEQ}", moe_launches * TRAIN_STEPS,
                                  moe_rows)
-    router = moe_entry["simt_router"]
-    print(f"train deepseek-moe-16b ({MOE_TRAIN_LAYERS} layers, batch "
-          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}): "
-          f"{moe_summary['mean_step_ms']:.3f} ms per step = "
-          f"{moe_summary['tokens_per_s']:.1f} training tokens/s, peak "
-          f"{moe_summary['peak_gb']:.2f} GB; mmad {moe_launches} launches "
-          f"per step, forward {moe_entry['forward_ms']:.3f} ms (bound "
-          f"{moe_entry['forward_bound_ms']:.3f}, torch.matmul "
-          f"{moe_entry['forward_library_ms']:.3f}), backward "
-          f"{moe_entry['backward_ms']:.3f} ms (bound "
-          f"{moe_entry['backward_bound_ms']:.3f}, bf16 torch.matmul "
-          f"{moe_entry['backward_library_ms']:.3f}); the fp32 router "
-          f"{router['shape']} on the SIMT tile kernel "
-          f"{router['kernel_ms']:.4f} ms a launch x "
-          f"{router['launches_per_step']} (bound "
-          f"{router['bound_ms']:.4f}, fp32 torch.matmul "
-          f"{router['library_ms']:.4f}), its backward on fp32 torch.matmul "
-          f"{router['fp32_backward_matmul_ms']:.4f} ms a call x "
-          f"{router['fp32_backward_calls_per_step']} (bound "
-          f"{router['fp32_backward_bound_ms']:.4f}); the expert einsums "
-          f"forward {moe_experts['ms']:.3f} ms (bound "
-          f"{moe_experts['bound_ms']:.3f}), backward "
-          f"{moe_experts['backward_ms']:.3f} ms (bound "
-          f"{moe_experts['backward_bound_ms']:.3f}); device busy share "
-          f"{moe_summary['busy_ms'] / moe_summary['wall_ms']:.1%}",
-          flush=True)
+    print_train_path(f"deepseek-moe-16b ({MOE_TRAIN_LAYERS} layers)",
+                     moe_launches, moe_summary, moe_entry,
+                     simt_text(moe_entry["simt_router"], "router")
+                     + f"; the expert einsums forward {moe_experts['ms']:.3f} "
+                     f"ms (bound {moe_experts['bound_ms']:.3f}), backward "
+                     f"{moe_experts['backward_ms']:.3f} ms (bound "
+                     f"{moe_experts['backward_bound_ms']:.3f})")
+    trained_entries = []
+    for arch, (train_cfg, per_step_, _, _, summary) in trained.items():
+        cut = train_cfg != get_config(arch)
+        depth = f", {train_cfg.n_layers} layers" if cut else ""
+        entry = train_path_entry(
+            f"mmad/{arch}-train", f"{arch} train{depth}, batch {TRAIN_BATCH} "
+            f"x seq {TRAIN_SEQ}", per_step_ * TRAIN_STEPS, trained_rows[arch],
+            simt_key="simt_gates")
+        trained_entries.append(entry)
+        extra = (simt_text(entry["simt_gates"], "gates")
+                 if entry["simt_gates"] else "")
+        if "slstm_step_ms" in summary:
+            extra += (f"; the sLSTM recurrence {summary['slstm_step_ms']:.1f}"
+                      f" ms of a {summary['slstm_split_step_ms']:.1f} ms "
+                      f"step")
+        print_train_path(arch + (f" ({train_cfg.n_layers} layers)"
+                                 if cut else ""),
+                         per_step_, summary, entry, extra)
     print(json.dumps({"chunked_sdpa": attn_rows, "moe_expert_einsums":
                       list(experts_rows.values()) + [moe_experts]}),
           flush=True)
@@ -2560,7 +3121,8 @@ def main() -> int:
                    served[arch][2].get("encoder_launches",
                                        served[arch][2].get("prefix_launches")),
                    rows_)
-        for arch, rows_ in forward_rows.items()] + [moe_entry]}), flush=True)
+        for arch, rows_ in forward_rows.items()] + [moe_entry]
+        + trained_entries}), flush=True)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - T_START:.1f}s", flush=True)
     print(smi, flush=True)

@@ -144,14 +144,31 @@ def tensor_core_backward(a: torch.Tensor, b: torch.Tensor) -> bool:
             and a.dtype in (torch.bfloat16, torch.float16))
 
 
+def padded_rows(g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`g` rounded to `dtype` (2-D), its rows laid out in whole 16 bytes:
+    a view of g's shape into a buffer whose rows are padded, when g's
+    width would not give a row stride a TMA tensor map can take (seamless's
+    lm_head, N = 256,206). The rounding copies g anyway, so the padded
+    copy costs no more."""
+    m, n = g.shape
+    per = 16 // dtype.itemsize
+    if n % per == 0:
+        return g.to(dtype)
+    out = torch.empty((m, -(-n // per) * per), dtype=dtype,
+                      device=g.device)[:, :n]
+    out.copy_(g)
+    return out
+
+
 def backward_products(g: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """da = g @ b.T and db = a.T @ g on `mmad`, g rounded to the operand
     dtype, fp32 sums, each rounded once to its operand's dtype. The
     operands stay views: b.T is K-contiguous (lm_head's is `embed`,
     N-contiguous) and a.T M-contiguous, which the tensor-core variant reads
-    in place."""
-    g = g.to(a.dtype)
+    in place; g's rows are padded to whole 16 bytes where its width needs
+    it, so the tensor-core variant reads it too."""
+    g = padded_rows(g, a.dtype)
     da = mmad(g, b.T, out_dtype=torch.float32).to(a.dtype)
     db = mmad(a.T, g, out_dtype=torch.float32).to(b.dtype)
     return da, db

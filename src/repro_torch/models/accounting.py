@@ -5,7 +5,7 @@ reads: `chunk(default)`, the chunk length of `chunked_sdpa` and of the
 chunked SSD and mLSTM forms in `models/ssm.py`, and `CHUNK_OVERRIDE`,
 which replaces it while accounting. The accounting mode
 itself (`accounting_mode`, layer unrolling and the unrolled scans) waits
-for `launch/{flops,dryrun}` (ROADMAP.md, queue 1: launchers and serving);
+for `launch/dryrun` (ROADMAP.md, queue 1: the dry-run launchers);
 eager PyTorch runs every loop as Python, so nothing here needs unrolling.
 """
 from __future__ import annotations

@@ -20,8 +20,16 @@ Decode state in place: a recurrent step updates Mamba2's `h` and mLSTM's
 with the same two roundings in the same order), so a step allocates no
 state-sized memory for its largest tensors; the caller's state dict shares
 them. The small ones (the conv window, `m`, and sLSTM's four) are new
-tensors each step. The state updates run inside profiler spans
-(`mamba.state`, `mlstm.state`, `slstm.state`) while a profiler runs.
+tensors each step. Where autograd records the recurrent forms (a
+differentiated decode), they update out of place, with the same roundings.
+The state updates run inside profiler spans (`mamba.state`, `mlstm.state`,
+`slstm.state`) while a profiler runs.
+
+Gradients: every `exp` whose argument can grow takes it masked first (the
+SSD's within-chunk decay, the mLSTM's log-weights), so no masked-out
+overflow reaches a backward as 0 x inf. The reference masks the SSD's
+decay after its `exp`, and its gradients are NaN at a chunk of 128
+(ROADMAP.md, queue 3's port-side decisions).
 """
 from __future__ import annotations
 
@@ -94,6 +102,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return silu(out), xp[:, -(k - 1):]
 
 
+def _recorded(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an update of these tensors (then the
+    recurrent forms update their state out of place)."""
+    return any(t.requires_grad for t in tensors)
+
+
 def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor,
                  h0: Optional[torch.Tensor] = None
@@ -122,7 +136,11 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         # dt_i x_i
         att = torch.einsum("bjn,bin->bji", cz, bz)                # (B,L,L)
         decay = cum[:, :, None, :] - cum[:, None, :, :]           # (B,L,L,H)
-        w = torch.where(mask[None, :, :, None], torch.exp(decay), 0.0)
+        # masked before the exponential: above the diagonal `decay` is a
+        # sum of positive log-decays that overflows exp over a long chunk,
+        # and the backward of where(mask, exp(decay), 0) would then take
+        # 0 x inf = NaN; exp(-inf) is exactly the 0 the forward wants
+        w = torch.exp(torch.where(mask[None, :, :, None], decay, -torch.inf))
         w = w * att[..., None]
         y_intra = torch.einsum("bjih,bih,bihp->bjhp", w, dtz, xz)
         # its summary: S_z = sum_i exp(cum_last - cum_i) dt_i (B_i x x_i)
@@ -142,15 +160,20 @@ def _ssd_recurrent(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor, h: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The exact scan, one step per token: h = exp(dt a) h + dt (B x x), y =
-    C . h. `h` (B,H,N,P) fp32 is updated in place. Returns (y (B,S,H,P)
-    fp32, h)."""
+    C . h. `h` (B,H,N,P) fp32 is updated in place, unless autograd records
+    the step (each step's h is then saved for the backward, so each is a
+    new tensor, with the same two roundings). Returns (y (B,S,H,P) fp32,
+    h)."""
     ys = []
     for t in range(xh.shape[1]):
         dtt = dt[:, t]
         g = torch.exp(dtt * a)                                     # (B,H)
         upd = torch.einsum("bh,bn,bhp->bhnp", dtt, b[:, t].float(),
                            xh[:, t].float())
-        h.mul_(g[..., None, None]).add_(upd)
+        if _recorded(h, g, upd):
+            h = h * g[..., None, None] + upd
+        else:
+            h.mul_(g[..., None, None]).add_(upd)
         ys.append(torch.einsum("bn,bhnp->bhp", c[:, t].float(), h))
     return torch.stack(ys, dim=1), h
 
@@ -284,7 +307,8 @@ def _mlstm_chunked(q, k, v, i_pre, logf):
 
 def _mlstm_recurrent(q, k, v, i_pre, logf, cm, nv, mm):
     """One step per token. `cm` (B,H,hd,hd) and `nv` (B,H,hd) are updated in
-    place. Returns (y (B,S,H,hd) fp32, (cm, nv, m))."""
+    place, unless autograd records the step (as `_ssd_recurrent`). Returns
+    (y (B,S,H,hd) fp32, (cm, nv, m))."""
     ys = []
     for t in range(q.shape[1]):
         qt, kt, vt = q[:, t].float(), k[:, t].float(), v[:, t].float()
@@ -293,8 +317,12 @@ def _mlstm_recurrent(q, k, v, i_pre, logf, cm, nv, mm):
         fi = torch.exp(lft + mm - mnew)
         ii = torch.exp(it - mnew)
         outer = torch.einsum("bhd,bhe->bhde", kt, vt)
-        cm.mul_(fi[..., None, None]).add_(outer.mul_(ii[..., None, None]))
-        nv.mul_(fi[..., None]).add_(ii[..., None] * kt)
+        if _recorded(cm, nv, fi, ii, outer):
+            cm = cm * fi[..., None, None] + outer * ii[..., None, None]
+            nv = nv * fi[..., None] + ii[..., None] * kt
+        else:
+            cm.mul_(fi[..., None, None]).add_(outer.mul_(ii[..., None, None]))
+            nv.mul_(fi[..., None]).add_(ii[..., None] * kt)
         num = torch.einsum("bhd,bhde->bhe", qt, cm)
         den = torch.maximum(torch.einsum("bhd,bhd->bh", qt, nv).abs(),
                             torch.exp(-mnew))
@@ -371,6 +399,29 @@ def slstm_params(generator, cfg: ModelConfig, device="cuda") -> SLSTM:
     return SLSTM(generator, cfg, device)
 
 
+def _slstm_scan(pre_all: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
+                n: torch.Tensor, m: torch.Tensor, hid: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The sLSTM recurrence, one step per token. pre_all: (B,S,H,4 hd)
+    fp32 pre-activations of [i, f, z, o]; r (H,hd,4 hd); c, n, m, hid
+    (B,H,hd) fp32, the state before the first step. Returns (y (B,S,H,hd)
+    fp32, (c, n, m, hid) after the last)."""
+    hd = hid.shape[-1]
+    ys = []
+    for t in range(pre_all.shape[1]):
+        rec = torch.einsum("bhd,hde->bhe", hid, r)
+        it, ft, zt, ot = torch.split(pre_all[:, t] + rec, hd, dim=-1)
+        mnew = torch.maximum(ft + m, it)
+        i = torch.exp(it - mnew)
+        f = torch.exp(ft + m - mnew)
+        c = f * c + i * torch.tanh(zt)
+        n = f * n + i
+        hid = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
+        m = mnew
+        ys.append(hid)
+    return torch.stack(ys, dim=1), (c, n, m, hid)
+
+
 def slstm_mixer(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -383,24 +434,14 @@ def slstm_mixer(p: SLSTM, x: torch.Tensor, cfg: ModelConfig,
         if state is None:
             zero = torch.zeros((bsz, h, hd), dtype=torch.float32,
                                device=x.device)
-            c, n, hid = zero, zero, zero
             m = torch.full((bsz, h, hd), NEG_STAB, dtype=torch.float32,
                            device=x.device)
+            y, (c, n, m, hid) = _slstm_scan(pre_all, p.r, zero, zero, m, zero)
         else:
-            c, n, m, hid = state["c"], state["n"], state["m"], state["h"]
-        ys = []
-        for t in range(s):
-            rec = torch.einsum("bhd,hde->bhe", hid, p.r)
-            it, ft, zt, ot = torch.split(pre_all[:, t] + rec, hd, dim=-1)
-            mnew = torch.maximum(ft + m, it)
-            i = torch.exp(it - mnew)
-            f = torch.exp(ft + m - mnew)
-            c = f * c + i * torch.tanh(zt)
-            n = f * n + i
-            hid = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
-            m = mnew
-            ys.append(hid)
-        y = torch.stack(ys, dim=1).reshape(bsz, s, d).to(x.dtype)
+            y, (c, n, m, hid) = _slstm_scan(pre_all, p.r, state["c"],
+                                            state["n"], state["m"],
+                                            state["h"])
+        y = y.reshape(bsz, s, d).to(x.dtype)
     new_state = None if state is None else {"c": c, "n": n, "m": m, "h": hid}
     return pmm(y, p.w_out, tag="slstm.out"), new_state
 

@@ -1055,3 +1055,98 @@ def test_routed_smoke_frontend_models_on_the_card_match_the_cpu(cuda, arch,
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-4 * scale
     capsys.readouterr()
+
+
+# ---------------------------------------------------------------------------
+# training the other families: the new backward shapes, the recurrent
+# stacks' train step
+# ---------------------------------------------------------------------------
+
+# (m, k, n, B major): backward shapes the other families' train steps add.
+# zamba2's fused in-projection (N = 8,384: da's K is not a multiple of the
+# kernel's K step, so TMA zero-fills the ragged K tail); seamless's tied
+# lm_head per loss chunk (N = 256,206: g's bf16 rows are not whole 16
+# bytes, so `backward_products` pads them); phi-3-vision's (N = 32,064).
+NEW_TRAIN_BACKWARD = [
+    (2048, 2048, 8384, "n"),
+    (1024, 1024, 256206, "k"),
+    (1024, 3072, 32064, "k"),
+]
+
+
+@pytest.mark.parametrize("shape", NEW_TRAIN_BACKWARD,
+                         ids=["mamba_in", "seamless_lm_head",
+                              "phi3_lm_head"])
+def test_backward_products_at_the_other_families_train_shapes(cuda, shape,
+                                                              monkeypatch):
+    """Both backward products on the tensor-core kernel, one launch each,
+    against the fp32 plain version under `tensor_core_atol` plus one bf16
+    ulp."""
+    m, k, n, b_major = shape
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, b = _wgmma_operands(m, k, n, b_major, torch.bfloat16, g, cuda)
+    grad = _draw((m, n), torch.bfloat16, g, cuda)
+    routes = []
+    real = ops.mmad
+
+    def recorder(x, y, *args, **kw):
+        routes.append(_plan(x, y, (128, 128, 128), cuda)[0])
+        return real(x, y, *args, **kw)
+
+    monkeypatch.setattr(ops, "mmad", recorder)
+    before = mmad_mod.launch_count()
+    da, db = ops.backward_products(grad.float(), a, b)
+    torch.cuda.synchronize()
+    assert routes == [mmad_mod.WGMMA, mmad_mod.WGMMA]
+    assert mmad_mod.launch_count() == before + 2
+    _assert_close(da, ref.mmad_ref(grad, b.T, torch.float32), n,
+                  torch.bfloat16, tensor_cores=True)
+    del da
+    _assert_close(db, ref.mmad_ref(a.T, grad, torch.float32), m,
+                  torch.bfloat16, tensor_cores=True)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_smoke_ssm_train_step_on_the_card_has_finite_grads(cuda, arch,
+                                                           tmp_path, capsys):
+    """One routed bf16 train step of the recurrent smoke model at seq 256
+    (two SSD / mLSTM chunks) on the card, against the same step on CPU
+    tensors: every gradient finite on both, the loss and grad norm within
+    2e-2 relative (the bf16 tolerance of the smoke train step above), one
+    `mmad` launch per routed dispatch plus two per bf16 backward call."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import serve, train
+    from repro_torch.models import shard_ctx
+    from repro_torch.models.model import init_params, make_trainable
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import loss_and_grads
+    cfg = smoke_config(arch)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                  global_batch=2)).batch(0)
+    planner = train.warm_train_plans(cfg, 2, 256, str(tmp_path), (4, 4), 12)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = make_trainable(init_params(
+            torch.Generator().manual_seed(0), cfg, "cpu")).to(dev)
+        batch = {k: torch.from_numpy(v).to(dev, torch.long)
+                 for k, v in data.items()}
+        ctx = serve.install_gemm_context(planner, dev)
+        mmad_mod.reset_launch_count()
+        try:
+            loss, grads = loss_and_grads(params, batch, cfg)
+        finally:
+            shard_ctx.set_gemm_context(None)
+        assert ctx.stats.resolve_rate == 1.0
+        bad = [k for k, v in grads.items() if not torch.isfinite(v).all()]
+        assert not bad, bad
+        if dev.type == "cuda":
+            n_fp32 = 0
+            if arch == "xlstm-1.3b":       # the gates: forward + recompute
+                n_fp32 = 2 * (cfg.n_layers - cfg.n_layers // cfg.slstm_every)
+            executed = ctx.stats.executed_gemm
+            assert mmad_mod.launch_count() == executed + (executed - n_fp32)
+        out[dev.type] = (float(loss), float(adamw.global_norm(grads)))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert abs(got - want) <= 2e-2 * abs(want)
+    capsys.readouterr()

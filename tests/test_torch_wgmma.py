@@ -368,3 +368,35 @@ def test_every_backward_product_qualifies_for_the_tensor_cores(
     assert set(majors) == {("k", "k"), ("k", "n"), ("m", "n")}
     assert majors[("k", "n")] == {True}
     assert set(majors) <= set(mmad_mod.WGMMA_MAJORS)
+
+
+@pytest.mark.parametrize("n", [13, 206, 256])
+def test_backward_products_pad_gradient_rows_to_whole_16_bytes(n,
+                                                               monkeypatch):
+    """A tied lm_head whose vocab is not a multiple of 8 (seamless's, N =
+    256,206) gives a gradient g (M, N) whose bf16 rows are not whole 16
+    bytes: no TMA tensor map takes it, and both backward products would
+    leave the tensor cores. `backward_products` rounds g into rows padded
+    to whole 16 bytes (a view of g's shape), so both qualify, with the
+    values of the unpadded products, bitwise."""
+    from repro_torch.kernels import ops, ref
+    g32 = torch.randn((6, n), generator=torch.Generator().manual_seed(0))
+    a = torch.randn((6, 64)).bfloat16()
+    embed = torch.randn((n, 64)).bfloat16()
+    seen = []
+    real = ops.mmad
+
+    def recorder(x, y, *args, **kw):
+        seen.append((mmad_mod.wgmma_a_major(x), mmad_mod.wgmma_b_major(x, y),
+                     x.shape, y.shape))
+        return real(x, y, *args, **kw)
+
+    monkeypatch.setattr(ops, "mmad", recorder)
+    da, db = ops.backward_products(g32, a, embed.T)
+    g = g32.bfloat16()
+    assert torch.equal(da, ref.mmad_ref(g, embed, torch.float32).bfloat16())
+    assert torch.equal(db, ref.mmad_ref(a.T, g, torch.float32).bfloat16())
+    assert [(s[2], s[3]) for s in seen] == [((6, n), (n, 64)),
+                                            ((64, 6), (6, n))]
+    assert [s[:2] for s in seen] == [("k", "n"), ("m", "n")]
+    assert (n % 8 == 0) == mmad_mod.tma_describable(g, 1)

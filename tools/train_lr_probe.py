@@ -2,10 +2,13 @@
 rate, on the card (needs one CUDA device).
 
     python3 tools/train_lr_probe.py --lrs 1e-3 3e-4 1e-4 [--routed]
+        [--arch gemma-2b] [--layers N]
 
 Each learning rate starts from the same seeded weights (full-width
-gemma-2b) and takes three AdamW steps at batch 2 x seq 1024 on
-`SyntheticLM`'s batch 0 through `repro_torch.launch.train`'s own setup,
+`--arch`, gemma-2b by default, `--layers` deep if given) and takes three
+AdamW steps at batch 2 x seq 1024 on `SyntheticLM`'s batch 0 (with a
+frontend model's random frames or patches, as `chip_smoke.frontend_batch`
+builds them) through `repro_torch.launch.train`'s own setup,
 with the launcher's schedule (warm-up over max(5, steps // 20) steps),
 through `chip_smoke.py`'s own `train_steps`. Unrouted (the default) every
 matmul is `x @ w` (cuBLAS) with PyTorch's own backward; `--routed` warms
@@ -16,6 +19,7 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +32,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--lrs", type=float, nargs="+", required=True)
     ap.add_argument("--routed", action="store_true")
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth cut (default: the full config)")
     args = ap.parse_args()
 
     import torch
@@ -37,6 +44,7 @@ def main() -> int:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke
+    from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import shard_ctx
     from repro_torch.obs import set_tracer
@@ -46,20 +54,25 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     for lr in args.lrs:
-        argv = ["--arch", "gemma-2b", "--device", "cuda", "--batch",
+        argv = ["--arch", args.arch, "--device", "cuda", "--batch",
                 str(BATCH), "--seq", str(SEQ), "--steps", str(STEPS),
                 "--lr", str(lr), "--plan-cache",
                 str(ROOT / "build" / "lr_probe_plans")]
         argv += [] if args.routed else ["--skip-plan-warmup"]
-        s = train.setup(train.parse_args(argv))
-        batch = s.batch_arrays(s.data.batch(0))
+        cfg = (dataclasses.replace(get_config(args.arch),
+                                   n_layers=args.layers)
+               if args.layers else None)
+        s = train.setup(train.parse_args(argv), cfg=cfg)
+        batch = (chip_smoke.frontend_batch if s.cfg.frontend != "none"
+                 else chip_smoke.launcher_batch)(torch, s)
         state, losses, _, _ = chip_smoke.train_steps(
             torch, s, batch, torch.device("cuda"), STEPS)
         with torch.no_grad():
             losses.append(float(steps.loss_fn(state[0], batch, s.cfg)))
         shard_ctx.set_gemm_context(None)
         set_tracer(None)
-        print(f"{s.cfg.name} lr {lr:g} ({'routed' if args.routed else 'unrouted'}"
+        print(f"{s.cfg.name} at {s.cfg.n_layers} layers, lr {lr:g} "
+              f"({'routed' if args.routed else 'unrouted'}"
               f", batch {BATCH} x seq {SEQ}): loss before each of {STEPS} "
               f"steps, then after: "
               f"{[round(x, 6) for x in losses]}", flush=True)
