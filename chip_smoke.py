@@ -48,6 +48,17 @@ Phases (any failure exits non-zero and prints no result line):
              the crash-resume loop at smoke width on the card: a failure
              injected at step 3 with a checkpoint every 2 steps must end
              on the parameters of an uninterrupted run, bitwise;
+   serve gemma-2b --traffic [bucket], [fifo] — `serve.main` with
+             `--traffic` at full width in both batch modes (2 tenants x 12
+             requests, seed 0): the run report's `serving` section must
+             equal `simulate`'s without dispatch on the same trace and
+             planner, plan-resolve rate 1.0, no silent degrade, one `mmad`
+             launch per distinct shape dispatched, one `serve.request`
+             marker per request; each M's route (stream kernels up to 16
+             rows, the tensor-core kernel above, FIFO's ragged M's on its
+             masked edges) and every dispatched shape held to the plain
+             version on random operands. Its goodput and latencies are the
+             cost model's virtual clock, not the card's time;
 6. serve deepseek-moe-16b and serve qwen3-14b — the serve phase's
              checks at full width and depth for the MoE model (28 layers,
              64 routed experts top-6 + 2 shared; the router on `mmad` in
@@ -114,8 +125,11 @@ Phases (any failure exits non-zero and prints no result line):
              router runs forward on the SIMT tile kernel and backward as
              fp32 `torch.matmul`, which the launch census and the profile
              count apart;
-   train zamba2-1.2b, xlstm-1.3b, seamless-m4t-medium, phi-3-vision-4.2b
-             — the train phase's checks at full width: the recurrent
+   train deepseek-v2-236b, zamba2-1.2b, xlstm-1.3b, seamless-m4t-medium,
+             phi-3-vision-4.2b — the train phase's checks at full width:
+             deepseek-v2-236b at V2_TRAIN_LAYERS of 60 (MLA's naive form
+             with `mla.*` in both backward products, attention at head
+             dim 192 for q and k and 128 for v); the recurrent
              stacks through the launcher (zamba2 at full depth, its 38
              Mamba2 layers and 6 applications of its shared block,
              `mamba.in`'s N = 8,384 in the backward; xlstm at
@@ -148,8 +162,9 @@ Phases (any failure exits non-zero and prints no result line):
              and its 256,206-column lm_head, phi-3-vision-4.2b), per shape
              of the two frontend forwards, and per train shape
              (gemma-2b, deepseek-moe-16b with its fp32 router on the SIMT
-             tile kernel, the four other families, xlstm's fp32 gates on
-             the SIMT tile kernel) the kernel's time (held to the
+             tile kernel, the five other families, xlstm's fp32 gates on
+             the SIMT tile kernel), and per distinct shape of the two
+             traffic replays, the kernel's time (held to the
              tolerance again) beside the plain version's, one
              `torch.matmul` call's, the bound and the roofline share
              (bound / kernel time); per bf16
@@ -290,6 +305,17 @@ FP32_HELD_TRAIN = ("xlstm-1.3b",)
 # stream kernels at M = 4), through 6 layers of random weights; the
 # routed-vs-unrouted bound above.
 SERVE_V2_LAYERS = 6
+# deepseek-v2-236b trains at full width, V2_TRAIN_LAYERS deep: layer 0
+# alone (MLA + the dense FFN, 1.39 B parameters with embed and lm_head). Two
+# layers (+ 1 MoE layer of 160 experts, 5.36 B) hold 64 GB of parameters,
+# gradients and fp32 AdamW moments before activations and temporaries, and
+# ran out of the card's memory after a peak of 82.56 GB; one layer peaked
+# at 34.16 GB (`tools/train_lr_probe.py --arch deepseek-v2-236b --layers 2`
+# and `--layers 1`, routed, on an H100). The MoE layer's training on the
+# card is deepseek-moe-16b's phase. At TRAIN_LR its loss went 12.20 ->
+# 17.85 -> 11.42 -> 9.98 over the three steps (routed; at 1e-3 it ended at
+# 13.50).
+V2_TRAIN_LAYERS = 1
 NAIVE_ABSORBED_REL_L2 = FIRST_STEP_REL_L2
 # The recurrent stacks' chunked forward against their recurrent decode,
 # relative L2 of the logits over every position of CHECK_BATCH x CHECK_SEQ
@@ -332,7 +358,7 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f}s)", flush=True)
 
 
 def smi_line() -> str:
@@ -1655,6 +1681,168 @@ def prefix_forward(torch, mmad_mod, cfg, dev, params, planner, prompts):
             "forward_table": table}
 
 
+# `serve --traffic` at full width (TRAFFIC_ARCH), in both batch modes,
+# through `serve.main` with the launcher's own traffic defaults: 2 tenants
+# x 12 requests at 100 req/s, seed 0, prompts of 5-17 tokens, 2-5 generated.
+# Its virtual clock is the cost model's (`launch/traffic.py`), not the
+# card's: each distinct GEMM shape the replay admits runs once on the card.
+TRAFFIC_ARCH = "gemma-2b"
+TRAFFIC_MODES = ("bucket", "fifo")
+H100_SMS = 132          # H100 SXM: the SM count `plan_launch` is given
+
+
+def route_name(mmad_mod, variant: int) -> str:
+    return {mmad_mod.ROW_STREAM: "row stream",
+            mmad_mod.COL_STREAM: "column stream",
+            mmad_mod.WGMMA: "tensor-core",
+            mmad_mod.TILE: "SIMT tile"}[variant]
+
+
+def traffic_routes(torch, mmad_mod, table, dev, mode: str) -> dict:
+    """The variant `mmad` takes for each shape of a traffic replay's launch
+    table, with the operands its dispatch lays out (contiguous (m, k) and
+    (k, n) of the table's dtype on `dev`, left uninitialised) and the
+    card's SM count (an H100's on the CPU), as `plan_launch` decides. Fails
+    unless M <= STREAM_MAX_M takes a stream kernel and every larger M of a
+    tensor-core dtype the tensor-core kernel, and unless FIFO's replay sent
+    a ragged M above STREAM_MAX_M (not a power of two: a partial 128-row
+    tile, the kernel's masked edges) to the tensor-core kernel."""
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    routes = {}
+    for key, info in sorted(table.items()):
+        m, n, k = key[:3]
+        a = torch.empty((m, k), dtype=info["dtype"], device=dev)
+        w = torch.empty((k, n), dtype=info["dtype"], device=dev)
+        routes[key] = mmad_mod.plan_launch(
+            m, n, k, info["block"], sms, mmad_mod.b_layout(w),
+            info["dtype"].itemsize, mmad_mod.wgmma_b_major(a, w))[0]
+        del a, w
+    streams = (mmad_mod.ROW_STREAM, mmad_mod.COL_STREAM)
+    off = [key for key, variant in routes.items()
+           if (variant in streams) != (key[0] <= mmad_mod.STREAM_MAX_M)
+           or (key[0] > mmad_mod.STREAM_MAX_M
+               and table[key]["dtype"] in mmad_mod.WGMMA_DTYPES
+               and variant != mmad_mod.WGMMA)]
+    if off:
+        fail(f"traffic [{mode}] shapes off their route: "
+             f"{[(key[:3], route_name(mmad_mod, routes[key])) for key in off]}")
+    ragged = [key for key, variant in routes.items()
+              if key[0] > mmad_mod.STREAM_MAX_M and key[0] & (key[0] - 1)
+              and variant == mmad_mod.WGMMA]
+    if mode == "fifo" and not ragged:
+        fail("the FIFO replay sent no ragged M above "
+             f"{mmad_mod.STREAM_MAX_M} to the tensor-core kernel")
+    by_m = {}
+    for key, variant in routes.items():
+        by_m.setdefault(key[0], set()).add(route_name(mmad_mod, variant))
+    print(f"traffic [{mode}] routes by M: " + "; ".join(
+        f"{m}: {'/'.join(sorted(names))}" for m, names in sorted(by_m.items())),
+        flush=True)
+    return routes
+
+
+def serve_traffic(torch, mmad_mod, dev, mode: str, smoke: bool = False,
+                  fresh: bool = True) -> dict:
+    """One `serve --traffic` run of TRAFFIC_ARCH in batch `mode` through
+    `serve.main` (its plan cache wiped first when `fresh`, else the earlier
+    mode's). Asserts its run report's `serving` section equal to that of
+    `simulate` without dispatch on the same trace and planner (the card's
+    dispatches change no admission or plan decision), plan-resolve rate
+    1.0, no silent degrade, `mmad` launches == distinct shapes dispatched ==
+    routed dispatches, one `serve.request` marker per request, and each
+    dispatched shape's route (`traffic_routes`). The timing phase holds
+    every dispatched shape to the plain version on random operands (the
+    replay's zeros prove nothing) through the wrapper the path calls.
+    Returns the launches, the section, the launch table and the seconds
+    `serve.main` took."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve, traffic
+    from repro_torch.models import shard_ctx
+    from repro_torch.obs import set_tracer
+
+    cfg = (smoke_config if smoke else get_config)(TRAFFIC_ARCH)
+    out = ROOT / "build" / "chip_smoke"
+    plans = out / "traffic_plans"
+    if fresh:
+        shutil.rmtree(plans, ignore_errors=True)
+    report_path, trace_path = (out / f"traffic_{mode}_report.json",
+                               out / f"traffic_{mode}_trace.json")
+    argv = (["--arch", TRAFFIC_ARCH, "--device", dev.type, "--traffic",
+             "--batch-mode", mode, "--plan-cache", str(plans),
+             "--run-report", str(report_path), "--trace", str(trace_path)]
+            + (["--smoke"] if smoke else []))
+    seen = {}
+    real_simulate = traffic.simulate
+
+    def recorded(trace, planner, cfgs, **kw):
+        seen.update(trace=trace, planner=planner, cfgs=cfgs, kw=kw)
+        return real_simulate(trace, planner, cfgs, **kw)
+
+    traffic.simulate = recorded
+    mmad_mod.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        report = serve.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = mmad_mod.launch_count()
+        ctx = shard_ctx.get_gemm_context()
+    finally:
+        traffic.simulate = real_simulate
+        shard_ctx.set_gemm_context(None)
+        set_tracer(None)
+    section = report["serving"]
+    if json.loads(report_path.read_text()) != json.loads(json.dumps(report)):
+        fail(f"traffic [{mode}]: the written run report is not the one "
+             f"serve returned")
+    plain = traffic.serving_section(real_simulate(
+        seen["trace"], seen["planner"], seen["cfgs"],
+        **dict(seen["kw"], dispatch=None)))
+    if json.loads(json.dumps(plain)) != json.loads(json.dumps(section)):
+        fail(f"traffic [{mode}]: the run report's serving section differs "
+             f"from simulate's without dispatch on the same trace and "
+             f"planner: {section} against {plain}")
+    stats = ctx.stats
+    if stats.resolve_rate != 1.0 or section["resolve_rate"] != 1.0:
+        fail(f"traffic [{mode}] plan-resolve rate {stats.resolve_rate} "
+             f"(replay {section['resolve_rate']})")
+    if stats.silent_degrades:
+        fail(f"traffic [{mode}]: {stats.silent_degrades} silent degrades")
+    distinct = section["distinct_shapes"]
+    if not launches == distinct == stats.executed_gemm > 0:
+        fail(f"traffic [{mode}]: mmad launched {launches} times for "
+             f"{distinct} distinct shapes and {stats.executed_gemm} routed "
+             f"dispatches")
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    markers = sum(e.get("name") == "serve.request" for e in events)
+    if markers != section["requests"]:
+        fail(f"traffic [{mode}]: {markers} serve.request markers for "
+             f"{section['requests']} requests")
+    table = {}
+    for tag, shape in ctx.resolved:
+        if not tag.startswith("traffic."):
+            fail(f"traffic [{mode}] dispatched {tag}")
+        key = (shape.m, shape.n, shape.k, str(cfg.dtype))
+        table[key] = {"block": plan_block(seen["planner"], ctx, shape,
+                                          cfg.dtype.itemsize),
+                      "count": 1, "dtype": cfg.dtype}
+    if len(table) != distinct:
+        fail(f"traffic [{mode}]: {len(table)} shapes in the launch table for "
+             f"{distinct} distinct shapes")
+    traffic_routes(torch, mmad_mod, table, dev, mode)
+    print(f"serve {cfg.name} --traffic [{mode}] on the virtual clock (the "
+          f"cost model's, not the card's time): {section['requests']} "
+          f"requests, goodput {section['goodput_tps']:.1f} tok/s, p99 "
+          f"latency {section['p99_latency_s'] * 1e3:.3f} ms, "
+          f"{section['batches']} batches, {distinct} distinct shapes "
+          f"({section['cold_shapes']} cold); on {dev}: {launches} mmad "
+          f"launches, resolve rate {stats.resolve_rate}; serve.main took "
+          f"{seconds:.2f} s (the pool's plans warmed, each shape run once)",
+          flush=True)
+    return {"launches": launches, "serving": section, "table": table,
+            "seconds": seconds}
+
+
 def train_steps(torch, s, batch, dev, n: int, state=None, step_fn=None):
     """`n` steps of the trainer's step function (or `step_fn`) on one fixed
     batch from a fresh state (the launcher's seeded weights, zero moments;
@@ -2305,7 +2493,7 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
         arch_args + ["--steps", str(TRAIN_STEPS), "--lr", str(lr),
                      "--plan-cache", str(plan_dir)]), cfg=cfg)
     cfg = s.cfg
-    moe = bool(cfg.n_experts)
+    moe = bool(cfg.n_experts) and cfg.n_layers > cfg.n_dense_layers
     held32 = s.args.arch in FP32_HELD_TRAIN
     recurrent = cfg.block_pattern in ("mamba2_hybrid", "xlstm")
     batch = make_batch(torch, s)
@@ -2881,6 +3069,14 @@ def main() -> int:
     resume_check(torch, dev)
     release(torch)
 
+    # serve --traffic: mode -> what `serve_traffic` returns
+    traffic = {}
+    for i, mode in enumerate(TRAFFIC_MODES):
+        phase(f"serve {TRAFFIC_ARCH} --traffic [{mode}]")
+        traffic[mode] = serve_traffic(torch, mmad_mod, dev, mode,
+                                      fresh=i == 0)
+        release(torch)
+
     served, served_cfgs = {}, {}
     for arch in ("deepseek-moe-16b", "qwen3-14b"):
         phase(f"serve {arch}")
@@ -2927,9 +3123,16 @@ def main() -> int:
         torch, mmad_mod, dev, train_args(arch), cfg=moe_cfg)
     release(torch)
 
-    # the other families: arch -> (config, launches per step, backward
-    # launches per step, launch table, summary)
+    # MLA's naive form in a backward, and the other families: arch ->
+    # (config, launches per step, backward launches per step, launch table,
+    # summary)
     trained = {}
+    arch = "deepseek-v2-236b"
+    phase(f"train {arch} ({V2_TRAIN_LAYERS} layers)")
+    v2_train = dataclasses.replace(get_config(arch), n_layers=V2_TRAIN_LAYERS)
+    trained[arch] = (v2_train, *train_model(torch, mmad_mod, dev,
+                                            train_args(arch), cfg=v2_train))
+    release(torch)
     for arch, layers, make_batch, lr in TRAIN_PHASES:
         full = get_config(arch)
         train_cfg = (full if layers is None
@@ -2971,6 +3174,15 @@ def main() -> int:
     moe_experts = time_expert_einsums(torch, moe_cfg, dev, SEED + 9,
                                       tokens=TRAIN_BATCH * TRAIN_SEQ,
                                       train=True)
+    # every distinct shape of both traffic replays, once, held to the plain
+    # version on random operands as the dispatch lays them out (an untied
+    # (k, n) weight, lm_head too)
+    traffic_table = {}
+    for summary in traffic.values():
+        traffic_table.update(summary["table"])
+    traffic_rows = time_shapes(
+        torch, mmad_mod, ref, dataclasses.replace(cfg, tie_embeddings=False),
+        traffic_table, dev, SEED + 31, kind="traffic")
 
     def per_step_ms(key, rows=rows):
         return sum(r[key] * r["launches_per_step"] for r in rows)
@@ -3063,13 +3275,14 @@ def main() -> int:
     for arch, (train_cfg, per_step_, _, _, summary) in trained.items():
         cut = train_cfg != get_config(arch)
         depth = f", {train_cfg.n_layers} layers" if cut else ""
+        fp32_what = "router" if train_cfg.n_experts else "gates"
         entry = train_path_entry(
             f"mmad/{arch}-train", f"{arch} train{depth}, batch {TRAIN_BATCH} "
             f"x seq {TRAIN_SEQ}", per_step_ * TRAIN_STEPS, trained_rows[arch],
-            simt_key="simt_gates")
+            simt_key=f"simt_{fp32_what}")
         trained_entries.append(entry)
-        extra = (simt_text(entry["simt_gates"], "gates")
-                 if entry["simt_gates"] else "")
+        extra = (simt_text(entry[f"simt_{fp32_what}"], fp32_what)
+                 if entry[f"simt_{fp32_what}"] else "")
         if "slstm_step_ms" in summary:
             extra += (f"; the sLSTM recurrence {summary['slstm_step_ms']:.1f}"
                       f" ms of a {summary['slstm_split_step_ms']:.1f} ms "
@@ -3077,6 +3290,39 @@ def main() -> int:
         print_train_path(arch + (f" ({train_cfg.n_layers} layers)"
                                  if cut else ""),
                          per_step_, summary, entry, extra)
+    traffic_entries = []
+    for mode, summary in traffic.items():
+        shapes = {key[:3] for key in summary["table"]}
+        rows_ = [r for r in traffic_rows if tuple(r["shape"]) in shapes]
+        entry = path_entry(f"mmad/{TRAFFIC_ARCH}-traffic-{mode}",
+                           f"{TRAFFIC_ARCH} serve --traffic, {mode} "
+                           f"admission, each distinct shape once",
+                           summary["launches"], rows_)
+        traffic_entries.append(entry)
+        section = summary["serving"]
+        by_m = {}
+        for r in rows_:
+            by_m.setdefault((r["shape"][0], route_name(mmad_mod,
+                                                       r["variant"])),
+                            []).append(r)
+        for (m, name), rs in sorted(by_m.items()):
+            print(f"traffic [{mode}] M = {m}: {name}, {len(rs)} shapes "
+                  f"{sum(r['kernel_ms'] for r in rs) * 1e3:.1f} us (bound "
+                  f"{sum(r['bound_ms'] for r in rs) * 1e3:.1f}, "
+                  f"torch.matmul "
+                  f"{sum(r['library_ms'] for r in rs) * 1e3:.1f})",
+                  flush=True)
+        print(f"serve {TRAFFIC_ARCH} --traffic [{mode}]: virtual clock (the "
+              f"cost model's, not the card's time) goodput "
+              f"{section['goodput_tps']:.1f} tok/s, p99 latency "
+              f"{section['p99_latency_s'] * 1e3:.3f} ms, "
+              f"{section['distinct_shapes']} distinct shapes; on the card "
+              f"mmad {summary['launches']} launches, one a shape, "
+              f"{entry['ms']:.3f} ms over the timed shapes against a bound "
+              f"of {entry['bound_ms']:.3f} ms (share "
+              f"{entry['bound_ms'] / entry['ms']:.1%}) and torch.matmul's "
+              f"{entry['library_ms']:.3f} ms; serve.main took "
+              f"{summary['seconds']:.2f} s", flush=True)
     print(json.dumps({"chunked_sdpa": attn_rows, "moe_expert_einsums":
                       list(experts_rows.values()) + [moe_experts]}),
           flush=True)
@@ -3122,7 +3368,7 @@ def main() -> int:
                                        served[arch][2].get("prefix_launches")),
                    rows_)
         for arch, rows_ in forward_rows.items()] + [moe_entry]
-        + trained_entries}), flush=True)
+        + trained_entries + traffic_entries}), flush=True)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - T_START:.1f}s", flush=True)
     print(smi, flush=True)

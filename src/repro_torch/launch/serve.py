@@ -24,8 +24,16 @@ cross-validation holds; the recurrent stacks' projections are routed
 GEMMs and their scans run outside `mmad`. Runs on the card unless `--device cpu` is given;
 with no card it raises.
 
+`--traffic` replays a seeded multi-tenant Poisson trace through the
+shape-bucket-aware continuous batcher instead (`run_traffic`,
+`launch/traffic.py`): the virtual clock does the SLO accounting, and each
+distinct GEMM shape the replay admits runs once through the routed `pmm`
+on the card.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --batch 4 --prompt-len 32 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+      --traffic --batch-mode fifo
 """
 from __future__ import annotations
 
@@ -38,13 +46,15 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.deploy import Planner, model_workload, workload_coverage
+from repro_torch.deploy.batcher import BATCH_MODES, BatchPolicy
 from repro_torch.deploy.warmup import add_plan_args, build_planner, warm_buckets
 from repro_torch.launch.mesh import make_host_mesh, resolve_device
 from repro_torch.models import shard_ctx
+from repro_torch.models.matmul import pmm
 from repro_torch.models.model import decode_init, init_params
 from repro_torch.obs import (DriftMonitor, Tracer, build_run_report,
                              render_run_report, set_tracer, write_run_report)
-from repro_torch.obs.trace import maybe_span
+from repro_torch.obs.trace import CAT_STEP, maybe_span
 from repro_torch.train.steps import make_serve_step
 
 
@@ -189,6 +199,85 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int,
             "t_prefill": t_prefill, "t_gen": t_gen}
 
 
+def run_traffic(args) -> dict:
+    """`--traffic` mode: replay a seeded multi-tenant trace through the
+    continuous batcher against the warmed planner. Returns the run report.
+
+    The virtual-clock loop in `launch/traffic.py` does the SLO accounting;
+    every distinct GEMM shape the replay admits runs once through the
+    routed `pmm` on `args.device`, on zeros of the model's dtype (the
+    reference's trace-time semantics: one execution per shape). The run
+    report gains the `serving` and `traffic` sections and the tracer one
+    `serve.request` marker per request."""
+    from repro_torch.launch.traffic import (TenantSpec, TrafficConfig,
+                                            generate_trace, serving_section,
+                                            simulate, warm_pool)
+    device = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    policy = BatchPolicy(mode=args.batch_mode)
+    tenants = tuple(
+        TenantSpec(name=f"tenant{i}", arch=cfg.name,
+                   rate_rps=args.traffic_rate,
+                   n_requests=args.traffic_requests,
+                   prompt_lens=(5, 9, 13, 17), gen_lens=(2, 3, 5))
+        for i in range(args.traffic_tenants))
+    tcfg = TrafficConfig(seed=args.traffic_seed, tenants=tenants)
+    cfgs = {t.name: cfg for t in tenants}
+
+    planner = build_planner(args.plan_cache, args.plan_grid,
+                            args.plan_candidates,
+                            online_tune=not args.no_online_tune)
+    warmed = warm_pool(planner, {cfg.name: cfg}, policy,
+                       tcfg.max_rows(policy))
+    print(f"traffic: warmed {len(warmed)} pool shape(s) "
+          f"[mode={policy.mode}]")
+    gemm_ctx = install_gemm_context(planner, device)
+    tracer = Tracer(process_name=f"serve.traffic.{cfg.name}")
+    set_tracer(tracer)
+
+    @torch.inference_mode()
+    def dispatch(shape, phase):
+        # one routed execution per distinct shape the replay admits
+        x = torch.zeros((shape.m, shape.k), dtype=cfg.dtype, device=device)
+        w = torch.zeros((shape.k, shape.n), dtype=cfg.dtype, device=device)
+        pmm(x, w, tag=f"traffic.{phase}")
+        _sync(device)
+
+    trace = generate_trace(tcfg)
+    t0 = time.perf_counter()
+    result = simulate(trace, planner, cfgs, policy=policy,
+                      precompiled=warmed, dispatch=dispatch)
+    wall = time.perf_counter() - t0
+    section = serving_section(result)
+    for rec in result.records:
+        tracer.instant("serve.request", cat=CAT_STEP, rid=rec.rid,
+                       tenant=rec.tenant,
+                       arrival_s=round(rec.arrival_s, 6),
+                       ttft_s=round(rec.ttft_s, 6),
+                       latency_s=round(rec.latency_s, 6), met=rec.met)
+    print(f"traffic replay: {len(trace)} requests / "
+          f"{len(tenants)} tenant(s), {section['batches']} batches, "
+          f"{section['distinct_shapes']} distinct GEMM shape(s) "
+          f"dispatched on {device} in {wall:.2f}s wall "
+          f"({section['makespan_s']:.3f}s virtual)")
+    report = build_run_report(
+        "serve", stats=gemm_ctx.stats.to_dict(), tracer=tracer,
+        extra={"arch": cfg.name, "device": str(device), "serving": section,
+               "traffic": {"seed": tcfg.seed, "tenants": len(tenants),
+                           "requests": len(trace),
+                           "rate_rps": args.traffic_rate,
+                           "batch_mode": policy.mode}})
+    for line in render_run_report(report):
+        print(line)
+    if args.run_report:
+        write_run_report(args.run_report, report)
+        print(f"run report: {args.run_report}")
+    if args.trace:
+        tracer.write(args.trace)
+        print(f"chrome trace: {args.trace}")
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -211,7 +300,20 @@ def main(argv=None):
                     help="after serving, full-tune up to N bucket/analytic-"
                          "served shapes and upgrade their cache entries")
     ap.add_argument("--traffic", action="store_true",
-                    help="multi-tenant traffic replay (not yet ported)")
+                    help="replay a seeded multi-tenant traffic trace "
+                         "through the shape-bucket-aware continuous "
+                         "batcher instead of the fixed-batch loop")
+    ap.add_argument("--traffic-requests", type=int, default=12,
+                    help="requests per tenant in the replayed trace")
+    ap.add_argument("--traffic-rate", type=float, default=100.0,
+                    help="per-tenant Poisson arrival rate (req/s)")
+    ap.add_argument("--traffic-seed", type=int, default=0,
+                    help="trace seed (same seed -> identical trace)")
+    ap.add_argument("--traffic-tenants", type=int, default=2,
+                    help="concurrent tenants sharing the card + plan cache")
+    ap.add_argument("--batch-mode", choices=BATCH_MODES, default="bucket",
+                    help="admission policy: bucket-aware (default) or the "
+                         "naive-FIFO baseline")
     ap.add_argument("--run-report", default="results/serve_run_report.json",
                     help="where to write the versioned run report "
                          "('' disables)")
@@ -221,9 +323,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.traffic:
-        raise NotImplementedError(
-            "--traffic is not yet ported: it waits for launch/traffic.py "
-            "(ROADMAP.md, queue 1: launchers and serving)")
+        return run_traffic(args)
 
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)

@@ -317,7 +317,7 @@ def test_serve_without_a_card_raises(monkeypatch):
         tserve.main(["--arch", "gemma-2b", "--smoke", "--skip-plan-warmup"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmesh.make_host_mesh()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--arch", "gemma-2b", "--smoke", "--traffic"])
 
 

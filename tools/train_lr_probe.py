@@ -13,8 +13,11 @@ with the launcher's schedule (warm-up over max(5, steps // 20) steps),
 through `chip_smoke.py`'s own `train_steps`. Unrouted (the default) every
 matmul is `x @ w` (cuBLAS) with PyTorch's own backward; `--routed` warms
 the plan cache and sends every forward GEMM through `mmad`. Prints, per
-learning rate, the loss before each step and after the last one, and the
-card's name and power limit.
+learning rate, the loss before each step and after the last one, the
+peak device memory of the run (`torch.cuda.max_memory_allocated`), and
+the card's name and power limit. A run that exhausts the card's memory
+prints the peak reached before the failure and the probe exits 1, so a
+depth cut can be read from one call at two depths.
 """
 from __future__ import annotations
 
@@ -53,7 +56,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    status = 0
     for lr in args.lrs:
+        torch.cuda.reset_peak_memory_stats()
         argv = ["--arch", args.arch, "--device", "cuda", "--batch",
                 str(BATCH), "--seq", str(SEQ), "--steps", str(STEPS),
                 "--lr", str(lr), "--plan-cache",
@@ -65,20 +70,30 @@ def main() -> int:
         s = train.setup(train.parse_args(argv), cfg=cfg)
         batch = (chip_smoke.frontend_batch if s.cfg.frontend != "none"
                  else chip_smoke.launcher_batch)(torch, s)
-        state, losses, _, _ = chip_smoke.train_steps(
-            torch, s, batch, torch.device("cuda"), STEPS)
-        with torch.no_grad():
-            losses.append(float(steps.loss_fn(state[0], batch, s.cfg)))
-        shard_ctx.set_gemm_context(None)
-        set_tracer(None)
-        print(f"{s.cfg.name} at {s.cfg.n_layers} layers, lr {lr:g} "
-              f"({'routed' if args.routed else 'unrouted'}"
-              f", batch {BATCH} x seq {SEQ}): loss before each of {STEPS} "
-              f"steps, then after: "
-              f"{[round(x, 6) for x in losses]}", flush=True)
+        run = (f"{s.cfg.name} at {s.cfg.n_layers} layers, lr {lr:g} "
+               f"({'routed' if args.routed else 'unrouted'}, batch {BATCH} "
+               f"x seq {SEQ})")
+        state = None
+        try:
+            state, losses, _, _ = chip_smoke.train_steps(
+                torch, s, batch, torch.device("cuda"), STEPS)
+            with torch.no_grad():
+                losses.append(float(steps.loss_fn(state[0], batch, s.cfg)))
+            print(f"{run}: loss before each of {STEPS} steps, then after: "
+                  f"{[round(x, 6) for x in losses]}; peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+                  flush=True)
+        except torch.cuda.OutOfMemoryError as e:
+            status = 1
+            print(f"{run}: out of device memory after a peak of "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB: "
+                  f"{str(e).splitlines()[0]}", flush=True)
+        finally:
+            shard_ctx.set_gemm_context(None)
+            set_tracer(None)
         del state, batch, s
-        torch.cuda.empty_cache()
-    return 0
+        chip_smoke.release(torch)
+    return status
 
 
 if __name__ == "__main__":
