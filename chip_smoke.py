@@ -156,6 +156,14 @@ Phases (any failure exits non-zero and prints no result line):
              256) and qwen3-14b's (40 / 8 / 128): forward and the grads of
              q, k and v within `ATTN_TOL`, then their times beside
              `scaled_dot_product_attention`'s and their peak memory;
+   dryrun  — a host phase, nothing on the card: `launch/dryrun.py` at
+             full configuration over its fake 16x16 world on the meta
+             device, a record-only gemma-2b train_4k cell and a routed
+             gemma-2b decode_32k cell as two processes at once
+             (`dryrun_cells`): both ok, the routed cell resolving every
+             plan with no silent degrade, `model_workload` covered but for
+             the train lm_head the loss chunks, the useful-FLOP ratio
+             printed, the phase within DRYRUN_LIMIT_S;
 8. timing  — per decode shape (gemma-2b, deepseek-moe-16b with its fp32
              router, qwen3-14b, deepseek-v2-236b, zamba2-1.2b, xlstm-1.3b
              with its fp32 gates, seamless-m4t-medium with its cross K/V
@@ -418,10 +426,9 @@ def device_profile(torch, dev, host: bool = False):
         time.sleep(PROFILE_EDGE_S)
 
 
-def edge_kernels_kept(torch, prof) -> tuple[int, int]:
+def edge_counts(torch, prof) -> tuple[int, int] | None:
     """How many of a `device_profile` window's leading and trailing spin
-    kernels the profile holds. Fails if it holds none at either edge: the
-    profile may then have lost counted work too."""
+    kernels the profile holds; None when it holds no device work."""
     from torch.autograd import DeviceType
     names = [e.name for e in sorted(
         (e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -430,8 +437,18 @@ def edge_kernels_kept(torch, prof) -> tuple[int, int]:
         key=lambda e: e.time_range.start)]
     work = [i for i, name in enumerate(names) if SPIN_KERNEL not in name]
     if not work:
+        return None
+    return work[0], len(names) - 1 - work[-1]
+
+
+def edge_kernels_kept(torch, prof) -> tuple[int, int]:
+    """`edge_counts`, failing if the profile holds no device work or none
+    of the spin kernels at either edge: the profile may then have lost
+    counted work too."""
+    edges = edge_counts(torch, prof)
+    if edges is None:
         fail("the profiled window holds no device work")
-    lead, trail = work[0], len(names) - 1 - work[-1]
+    lead, trail = edges
     if not (lead and trail):
         fail(f"the profiled window kept {lead} leading and {trail} trailing "
              f"of its {PROFILE_EDGE_KERNELS} edge kernels")
@@ -2365,6 +2382,9 @@ def scan_arguments(torch, cfg, store: dict):
             setattr(ssm, name, real)
 
 
+REPLAY_ATTEMPTS = 3
+
+
 def scan_library_gemms(torch, dev, cfg, store: dict) -> int:
     """The fp32 library GEMM kernels a recurrent stack's train step runs in
     its scans: each scan replayed alone under a device profile, on the
@@ -2372,21 +2392,40 @@ def scan_library_gemms(torch, dev, cfg, store: dict) -> int:
     shapes, strides and dtypes, so the same kernels), forward with autograd
     recording and then backward from its output; a remat step runs each
     layer's forward twice (the pass and the recompute) and its backward
-    once."""
+    once. Prints how many windows were replayed, so that a rising rate
+    of lost edge kernels shows in the log."""
     from repro_torch.models import ssm
-    total, parts = 0, []
+    total, parts, windows, retries = 0, [], 0, 0
     for span, layers in state_spans(cfg).items():
         name = SCAN_FNS[span]
         args = [a.detach().requires_grad_(a.requires_grad)
                 if isinstance(a, torch.Tensor) else a for a in store[name]]
+
+        def forward():
+            y = getattr(ssm, name)(*args)
+            return y[0] if isinstance(y, tuple) else y
+
         counts = []
         for run in ("forward", "backward"):
-            with device_profile(torch, dev) as prof:
-                if run == "forward":
-                    y = getattr(ssm, name)(*args)
-                    y = y[0] if isinstance(y, tuple) else y
-                else:
-                    torch.autograd.backward(y, torch.ones_like(y))
+            # a replay changes no state, so a window whose profile lost its
+            # edge kernels (seen once on the card: all 1000 trailing ones of
+            # one of these windows) is replayed, up to REPLAY_ATTEMPTS
+            # windows; only a window that kept both edges is counted
+            for attempt in range(REPLAY_ATTEMPTS):
+                if run == "backward" and attempt:
+                    y = forward()        # the graph the last backward freed
+                with device_profile(torch, dev) as prof:
+                    if run == "forward":
+                        y = forward()
+                    else:
+                        torch.autograd.backward(y, torch.ones_like(y))
+                edges = edge_counts(torch, prof)
+                windows += 1
+                if (edges and all(edges)) or attempt == REPLAY_ATTEMPTS - 1:
+                    break
+                retries += 1
+                print(f"{name} {run} replay: the profile kept {edges} of its "
+                      f"edge kernels; replaying", flush=True)
             edge_kernels_kept(torch, prof)
             counts.append(sum(c for _, c, _ in library_gemms(
                 device_kernels(torch, prof))[1]))
@@ -2398,6 +2437,8 @@ def scan_library_gemms(torch, dev, cfg, store: dict) -> int:
     print(f"the scans' fp32 library GEMMs, each replayed alone on its first "
           f"layer's arguments: {'; '.join(parts)}; {total} a step",
           flush=True)
+    print(f"scan replay retries: {retries} of {windows} profiled windows "
+          f"(limit {REPLAY_ATTEMPTS} windows a scan and pass)", flush=True)
     return total
 
 
@@ -2904,6 +2945,118 @@ def time_expert_einsums(torch, cfg, dev, seed: int, tokens: int = BATCH,
     return row
 
 
+# the dry-run phase: (shape, routed) cells of DRYRUN_ARCH, each its own
+# `python -m repro_torch.launch.dryrun` process, both at once. The routed
+# cell is a decode cell: a routed train_4k cell cannot warm its planner in
+# either package (`model_workload`'s unchunked train lm_head, 1,048,576 x
+# 256,000 x 2,048, has no legal schedule on any plan grid).
+DRYRUN_ARCH = "gemma-2b"
+DRYRUN_CELLS = (("train_4k", False), ("decode_32k", True))
+DRYRUN_LIMIT_S = 120.0
+
+
+def dryrun_cells() -> dict:
+    """The dry-run launcher at full configuration on the meta device over
+    its fake 16x16 world (no card): a record-only train_4k cell and a
+    routed decode_32k cell, run as two processes at once. Asserts each
+    status ok; the routed cell's plan-resolve rate 1.0 and no silent
+    degrade; `model_workload` fully covered at decode, and at train
+    everything but the lm_head, which the loss runs in LOSS_CHUNK-token
+    chunks while `model_workload` predicts it whole (a caveat of the
+    reference, in both packages); and a useful-FLOP ratio printed. Prints
+    each cell's seconds; the phase must end within DRYRUN_LIMIT_S."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.deploy import model_workload
+    from repro_torch.launch.input_specs import input_specs
+    from repro_torch.train.steps import LOSS_CHUNK
+
+    work = ROOT / "build" / "chip_smoke" / "dryrun"
+    shutil.rmtree(work, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    (work / "cells").mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs, logs = {}, {}
+    try:
+        for shape, routed in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", DRYRUN_ARCH, "--shape", shape, "--plan-cache",
+                   str(work / f"plans_{shape}"), "--out", str(work / "cells")]
+            logs[shape] = work / f"{shape}.log"
+            with open(logs[shape], "w") as log:
+                procs[shape] = subprocess.Popen(
+                    cmd + (["--route"] if routed else []), env=env,
+                    stdout=log, stderr=subprocess.STDOUT)
+        seconds = {}
+        while len(seconds) < len(procs):
+            for shape, proc in procs.items():
+                if shape not in seconds and proc.poll() is not None:
+                    seconds[shape] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > DRYRUN_LIMIT_S:
+                fail(f"dryrun cells past {DRYRUN_LIMIT_S:.0f}s")
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cells = {}
+    for shape, routed in DRYRUN_CELLS:
+        tag = f"{DRYRUN_ARCH}__{shape}__sp" + ("__routed" if routed else "")
+        path = work / "cells" / f"{tag}.json"
+        if procs[shape].returncode != 0 or not path.exists():
+            fail(f"dryrun {shape}: exit {procs[shape].returncode}\n"
+                 f"{logs[shape].read_text()[-3000:]}")
+        cells[shape] = json.loads(path.read_text())
+    cfg = get_config(DRYRUN_ARCH)
+    for shape, routed in DRYRUN_CELLS:
+        r = cells[shape]
+        if r.get("status") != "ok":
+            fail(f"dryrun {shape}: status {r.get('status')}: "
+                 f"{r.get('error')}")
+        w = r["workload"]
+        specs = input_specs(cfg, shape)
+        predicted = model_workload(cfg, specs["batch"], specs["seq"],
+                                   kind=specs["kind"], dp=16)
+        missing, extra = w["missing"], w["extra"]
+        if specs["kind"] == "train":
+            b, s = specs["batch"], specs["seq"]
+            want = ([[b * s, cfg.vocab, cfg.d_model]],
+                    [[b * LOSS_CHUNK, cfg.vocab, cfg.d_model]])
+        else:
+            want = ([], [])
+        if w["predicted"] != len(predicted) or (missing, extra) != want:
+            fail(f"dryrun {shape}: workload {w} (expected missing, extra "
+                 f"{want})")
+        acc, full = r["accounting"], r["full"]
+        line = (f"dryrun {DRYRUN_ARCH} {shape}"
+                f"{' routed' if routed else ''}: {seconds[shape]:.1f}s, "
+                f"covered {w['covered']:.3f} of {w['predicted']}, "
+                f"{full['argument_bytes_per_device'] / 1e9:.3f} GB "
+                f"arguments/device, hlo_flops {acc['hlo_flops']:.4g}, "
+                f"model_flops {acc['model_flops']:.4g}, useful_ratio "
+                f"{acc['useful_ratio']}, roofline dominant "
+                f"{(r['roofline'] or {}).get('dominant')}")
+        if routed:
+            rt = r["routing"]
+            if rt["resolve_rate"] != 1.0 or rt["silent_auto_degrades"]:
+                fail(f"dryrun {shape} routed: {rt}")
+            if r["roofline"] is not None:
+                fail(f"dryrun {shape} routed: a rank-0 roofline "
+                     f"{r['roofline']}")
+            line += (f", resolve_rate {rt['resolve_rate']}, modes "
+                     f"{rt['modes']}, collectives {full['collectives']}")
+        elif not acc["useful_ratio"]:
+            fail(f"dryrun {shape}: no useful_ratio: {acc}")
+        print(line, flush=True)
+    total = time.perf_counter() - t0
+    print(f"dryrun phase {total:.1f}s", flush=True)
+    if total > DRYRUN_LIMIT_S:
+        fail(f"dryrun phase took {total:.1f}s > {DRYRUN_LIMIT_S:.0f}s")
+    return {shape: round(seconds[shape], 1) for shape in seconds}
+
+
 def release(torch) -> None:
     """Free what a phase left on the card before the next one."""
     import gc
@@ -3147,6 +3300,9 @@ def main() -> int:
     phase("chunked_sdpa vs plain")
     attn_rows = attention_vs_plain(torch, dev)
     release(torch)
+
+    phase("dryrun")
+    dryrun_cells()
 
     # times below are per gemma-2b decode step at batch 4, and per train
     # step at batch 2 x seq 1024: the sum over the step's launches of each

@@ -23,11 +23,24 @@ Every rank must issue the same collectives in the same order, backward
 included: the mode bodies select rank-dependent values with `pick` (both
 sides stay in the autograd graph, as `jnp.where` keeps them), never with a
 Python branch around a collective's input.
+
+Every call into `torch.distributed` goes through one helper here, which
+counts it while a recording is active (`recording`, used by
+`launch.hlo_stats.record_collectives`): its kind under the reference's HLO
+names (`all-reduce` for `psum`, `pmax` and the backward of `shard`;
+`all-gather` for `all_gather` and `unshard`; `reduce-scatter`;
+`collective-permute` for `ppermute` and `ppermute_start`) and its operand's
+bytes, forward and backward alike. A collective on a size-1 axis is the
+identity and is not counted. On the meta device (the dry run's shape-only
+trace over a fake world) `ppermute` posts nothing and returns an empty
+tensor of its operand's shape, still counted; the other collectives take
+the fake process group's meta tensors as they are.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,18 +67,53 @@ def _dist():
     return dist
 
 
+# (kind, operand bytes) -> None while a recording is active
+_recorder: Optional[Callable[[str, int], None]] = None
+
+
+@contextlib.contextmanager
+def recording(add: Callable[[str, int], None]) -> Iterator[None]:
+    """Call `add(kind, operand_bytes)` for every collective called inside
+    the block (nested recordings: the innermost one counts)."""
+    global _recorder
+    prev, _recorder = _recorder, add
+    try:
+        yield
+    finally:
+        _recorder = prev
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    if _recorder is not None:
+        _recorder(kind, x.numel() * x.element_size())
+
+
+def _all_reduce(x: torch.Tensor, group=None, op=None) -> None:
+    """In-place all-reduce of `x` (a sum unless `op` says otherwise)."""
+    _count("all-reduce", x)
+    dist = _dist()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
+
+
+def _all_gather(parts: List[torch.Tensor], x: torch.Tensor,
+                group=None) -> None:
+    _count("all-gather", x)
+    _dist().all_gather(parts, x, group=group)
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
-        _dist().all_reduce(y, group=group)
+        _all_reduce(y, group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        _dist().all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g, None
 
 
@@ -81,21 +129,21 @@ def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return x.detach()
     y = x.detach().contiguous().clone()
-    dist = _dist()
-    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.group(axis))
+    _all_reduce(y, mesh.group(axis), _dist().ReduceOp.MAX)
     return y
 
 
 def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    _dist().all_gather(parts, x, group=group)
+    _all_gather(parts, x, group)
     return torch.cat(parts, dim=dim)
 
 
 def _scatter(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     chunks = [c.contiguous() for c in x.chunk(n, dim=dim)]
     out = torch.empty_like(chunks[0])
+    _count("reduce-scatter", x)
     _dist().reduce_scatter(out, chunks, group=group)
     return out
 
@@ -160,7 +208,11 @@ def _post(x: torch.Tensor, group, ranks: Tuple[int, ...], me: int,
           pairs) -> Tuple[torch.Tensor, List]:
     """Post this rank's sends and receives of a permutation of axis
     indices: returns the buffer the receive fills (zeros when nothing
-    arrives) and the works to wait on."""
+    arrives) and the works to wait on. A meta tensor has no data to send:
+    it posts nothing and returns an empty tensor of its shape."""
+    _count("collective-permute", x)
+    if x.device.type == "meta":
+        return torch.empty_like(x), []
     dist = _dist()
     x = x.contiguous()
     ops = [dist.P2POp(dist.isend, x, ranks[dst], group)
@@ -259,7 +311,7 @@ class _Shard(torch.autograd.Function):
     def backward(ctx, g):
         full = g.new_zeros(ctx.shape)
         full[ctx.sl] = g
-        _dist().all_reduce(full)
+        _all_reduce(full)
         return full, None, None
 
 
@@ -268,7 +320,7 @@ class _Unshard(torch.autograd.Function):
     def forward(ctx, y, mesh, spec, shape):
         world = mesh.size
         parts = [torch.empty_like(y) for _ in range(world)]
-        _dist().all_gather(parts, y.contiguous())
+        _all_gather(parts, y.contiguous())
         out = y.new_empty(shape)
         done = set()
         for r in range(world):

@@ -1,5 +1,7 @@
 from repro_torch.hw.config import (
     AcceleratorConfig,
+    GPUChipConfig,
+    H100_SXM,
     HBMConfig,
     NoCConfig,
     TileConfig,
@@ -13,6 +15,8 @@ from repro_torch.hw.config import (
 
 __all__ = [
     "AcceleratorConfig",
+    "GPUChipConfig",
+    "H100_SXM",
     "HBMConfig",
     "NoCConfig",
     "TileConfig",

@@ -1,5 +1,6 @@
-"""Hardware configuration for tile-based many-PE accelerators (SoftHier template)
-and the TPU deployment target.
+"""Hardware configuration for tile-based many-PE accelerators (SoftHier template),
+the TPU pod view the planner prices plans on, and the H100 the dry run's
+roofline reports against.
 
 The paper (Table 1) instantiates SoftHier to match an NVIDIA GH200:
   32x32 tiles, 4096-bit NoC links, 32x2 HBM channels on west/south edges,
@@ -124,7 +125,9 @@ def softhier_a100() -> AcceleratorConfig:
 
 
 # ---------------------------------------------------------------------------
-# TPU deployment target (the machine the dry-run + roofline report against).
+# TPU pod view: the grid the planner prices and tunes plans on (the
+# reference's deployment target; its constants stay the TPU's so a plan
+# cache is shared with the reference package).
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +162,39 @@ def tpu_pod_as_accelerator(grid: Tuple[int, int] = (16, 16)) -> AcceleratorConfi
         hbm=HBMConfig(n_channels=grid[0] * grid[1], channel_bw=c.hbm_bw,
                       edges=("local",)),
     )
+
+
+# ---------------------------------------------------------------------------
+# GPU deployment target: the machine the dry run's roofline reports against.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GPUChipConfig:
+    """Data-sheet constants of one card, for the dry run's roofline terms
+    (compute, memory and collective seconds). Nothing here prices a plan:
+    the planner stays on the TPU pod view above."""
+    name: str
+    peak_flops_bf16: float       # dense (no sparsity), FLOP/s
+    hbm_bw: float                # bytes/s
+    hbm_bytes: int
+    nvlink_bw: float             # per card, both directions together, bytes/s
+    nic_bw: float                # per card, the inter-node network, bytes/s
+
+
+H100_SXM = GPUChipConfig(
+    name="h100-sxm",
+    # NVIDIA H100 Tensor Core GPU data sheet, SXM5: 1,979 TFLOPS bf16 with
+    # sparsity, half that dense
+    peak_flops_bf16=989.4e12,
+    # same data sheet: HBM3, 3.35 TB/s, 80 GB
+    hbm_bw=3.35e12,
+    hbm_bytes=80 * 10 ** 9,
+    # same data sheet: NVLink 4, 900 GB/s per card (both directions)
+    nvlink_bw=900e9,
+    # NVIDIA DGX H100 system specifications: one 400 Gb/s ConnectX-7 NIC
+    # per card for the compute fabric, i.e. 50 GB/s
+    nic_bw=400e9 / 8,
+)
 
 
 PRESETS = {

@@ -353,7 +353,9 @@ def mmad(a: torch.Tensor, b: torch.Tensor,
     """C = A @ B with a float32 accumulator, A (M, K), B (K, N), any strides.
 
     Unlike the Pallas kernel, shapes need not divide the block shape: the
-    kernel masks the ragged edge itself."""
+    kernel masks the ragged edge itself. CPU operands run the plain
+    version; meta operands (the dry run's shape-only trace) give an empty
+    meta tensor of the product's shape and launch nothing."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"mmad takes 2-D operands, got {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -366,6 +368,8 @@ def mmad(a: torch.Tensor, b: torch.Tensor,
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu" and b.device.type == "cpu":
         return ref.mmad_ref(a, b, out_dtype)
+    if a.device.type == "meta" and b.device.type == "meta":
+        return torch.empty((m, n), dtype=out_dtype, device=a.device)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"mmad operands must both be on one CUDA device or "
                          f"both on the CPU, got {a.device} and {b.device}")

@@ -25,7 +25,9 @@ is the fp32 image of a bf16 gradient, since every mode body returns
 the fp32 products, which is what the CPU parity tests compare.
 
 Dispatch follows the tensors' device: CUDA tensors run the kernel (or the
-wrapper raises), CPU tensors run the plain version. There is no fallback
+wrapper raises), CPU tensors run the plain version, and meta tensors (the
+dry run's shape-only trace) give an fp32 meta tensor of the product's
+shape, forward and backward, launching nothing. There is no fallback
 from one to the other.
 """
 from __future__ import annotations

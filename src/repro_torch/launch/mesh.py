@@ -16,6 +16,10 @@ has two meshes, both exposing what the lowering and the mode bodies read
 one rank is initialised, else a `HostMesh`. NCCL puts one rank on each
 card, so on one H100 it is always the 1x1 mesh; the multi-rank meshes run
 in the CPU tests as gloo processes (`tests/test_torch_dist.py`).
+`make_production_mesh` is the reference's 16x16 (or 2x16x16, with a pure
+data-parallel `pod` axis) mesh over a world of exactly that many ranks:
+the dry run's fake world (`launch/dryrun.py`), in which this process is
+rank 0 and the collectives move no data.
 """
 from __future__ import annotations
 
@@ -124,39 +128,64 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def make_dist_mesh(shape: Tuple[int, int], device,
-                   axis_names: Tuple[str, str] = ("data", "model")
+def make_dist_mesh(shape: Tuple[int, ...], device,
+                   axis_names: Tuple[str, ...] = ("data", "model")
                    ) -> DistMesh:
-    """A (rows, cols) `DistMesh` over the initialised world. Collective:
+    """A `DistMesh` of `shape` over the initialised world. Collective:
     every rank calls it with the same arguments, and it creates, in one
     order, the process group of every axis and of every sub-axis of the
-    views `core.lower.mesh_views` lists (the only views a plan can name)."""
+    views `core.lower.mesh_views` lists for the last two axes (the only
+    views a plan can name: the modes run over `data` and `model`; a
+    leading `pod` axis is pure data parallelism and gets its own group)."""
     import torch.distributed as dist
     from repro_torch.core.lower import mesh_views
 
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {tuple(shape)} does not match axes "
+                         f"{tuple(axis_names)}")
     world = dist.get_world_size()
     sizes = dict(zip(axis_names, shape))
     if math.prod(shape) != world:
-        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
-                         f"the world has {world}")
+        raise ValueError(f"a {tuple(shape)} mesh needs {math.prod(shape)} "
+                         f"ranks, the world has {world}")
     mesh = DistMesh(torch.device(device), tuple(axis_names), sizes,
                     dist.get_rank(), _strides(axis_names, sizes), {})
-    wanted = []
+    wanted: Dict[Tuple[int, ...], None] = {}     # ordered set
     for m in [mesh] + [mesh.view(v.splits)
-                       for v in mesh_views(sizes, *axis_names)]:
+                       for v in mesh_views(sizes, *axis_names[-2:])]:
         for ax in m.axis_names:
             if m.shape[ax] < 2:
                 continue
             for r in range(world):
-                ranks = m.axis_ranks(ax, r)
-                if ranks not in wanted:
-                    wanted.append(ranks)
+                wanted.setdefault(m.axis_ranks(ax, r))
     groups = {}
     for ranks in wanted:                 # the same order on every rank
         group = dist.new_group(list(ranks))
         if mesh.rank in ranks:
             groups[ranks] = group
     return dataclasses.replace(mesh, groups=groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> DistMesh:
+    """The reference's production mesh over the initialised world: one
+    16x16 ('data', 'model') pod, or with `multi_pod` a 2x16x16 ('pod',
+    'data', 'model') one whose leading axis is pure data parallelism. The
+    world must hold exactly 256 (or 512) ranks: no smaller mesh is ever
+    built in its place. The dry run initialises a fake world of that size
+    and traces on the meta device, its default."""
+    import torch.distributed as dist
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 0)
+    if world != need:
+        raise ValueError(f"the production mesh {shape} needs a world of "
+                         f"{need} ranks; the initialised world has "
+                         f"{world or 'none'}")
+    return make_dist_mesh(shape, device, axes)
 
 
 def make_host_mesh(device="cuda"):

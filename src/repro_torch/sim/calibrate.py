@@ -26,12 +26,21 @@ picks'. Downstream (autotuner / Planner) uses the calibrated ranking — and
 widens the DEFAULT search space to the hierarchical compositions — only for
 trusted profiles; an untrusted profile degrades to the analytical prior.
 
-`measure_modes` (the measurement harness that times every executable mode
-over the shared `MODE_CASES` table) is not in this package yet: it joins
-with the benchmarks slice, timed with CUDA events. Profiles persist next to
-the plan cache keyed by hardware fingerprint (`save_profile` /
-`load_profile`), so a warmed deployment directory carries its calibration,
-and a profile written by the reference package loads here.
+`measure_modes` is the measurement harness: every executable mode (the
+shared `MODE_CASES` table below) runs the same GEMM grid on a `DistMesh`
+of `hw.grid` ranks, lowering asserted clean before timing, yielding the
+(PerfReport, measured seconds) pairs the fit consumes. The ranks are
+NCCL processes, one a card, or gloo CPU processes when the caller asks for
+the CPU (the reference's fake CPU devices); the one-card 1x1 mesh cannot
+host the table (three of its rows degrade there), so it raises. Profiles
+persist next to the plan cache keyed by hardware fingerprint
+(`save_profile` / `load_profile`), so a warmed deployment directory
+carries its calibration, and a profile written by the reference package
+loads here.
+
+Everything except `time_best_of` / `measure_modes` / `calibrate_mesh` is
+free of `torch.distributed` (the fit runs device-free in tests and on
+machines that only replay persisted measurements).
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import json
 import math
 import os
 import tempfile
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.schedule import GEMMShape, Schedule, Tiling
@@ -431,3 +441,116 @@ def build_mode_schedule(dataflow: str, knobs: Dict[str, object],
                     inner=(2, 2), elem_bytes=elem_bytes,
                     inner_kernel=inner_kernel, overlap=overlap)
 
+
+def _wait(out, mesh) -> None:
+    """Block until `out` is computed on every rank of `mesh`: the card's
+    queue drained (a CUDA mesh), then a barrier over the mesh's world (a
+    multi-rank mesh; the mode bodies' collectives run on the host, so
+    device events alone would not bound them)."""
+    import torch
+    if out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    if getattr(mesh, "size", 1) > 1:
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def time_best_of(fn, a, b, reps: int, mesh=None) -> float:
+    """Best-of-`reps` wall seconds, 3 executions per rep, after one
+    warm call (the shared timing discipline of the measurement harness
+    and the routing benchmark). Waits on every rank of `mesh` (`_wait`)
+    before reading the clock."""
+    _wait(fn(a, b), mesh)                    # warm
+    best = float("inf")
+    for _ in range(max(1, reps)):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = fn(a, b)
+        _wait(out, mesh)
+        best = min(best, (time.perf_counter() - t0) / 3)
+    return best
+
+
+def _world_mesh(grid: Tuple[int, int], row_axis: str, col_axis: str):
+    """A `grid` `DistMesh` over the initialised world, on its backend's
+    device: the current card for NCCL, the CPU for gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_dist_mesh
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"measure_modes needs a mesh of {grid[0]}x{grid[1]} "
+                         f"ranks: initialise a torch.distributed world of "
+                         f"that size or pass mesh=")
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    return make_dist_mesh(tuple(grid), device, (row_axis, col_axis))
+
+
+def measure_modes(hw: AcceleratorConfig, mesh=None,
+                  gemms: Sequence[Tuple[int, int, int]] = DEFAULT_GEMM_GRID,
+                  reps: int = 2,
+                  row_axis: str = "data", col_axis: str = "model",
+                  ) -> List[CalibrationSample]:
+    """Execute every mode over a GEMM shape grid on the mesh.
+
+    For each (GEMM, mode): the schedule is priced with the analytical model
+    on `hw`, its lowering onto `mesh` is asserted clean (a silent degrade
+    would pair `auto`'s measurement with another mode's prediction), and the
+    execution is timed best-of-`reps`, 3 calls per rep after a warm call.
+    `hw.grid` must match the mesh so prediction and measurement describe
+    the same machine. `mesh=None` builds one over the initialised world.
+    Every rank makes the whole operands (the modes take whole operands)
+    from the same seed.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.core.gemm import dit_gemm
+    from repro_torch.core.lower import lower_schedule
+    from repro_torch.core.schedule import build_program
+    from repro_torch.sim.perf import estimate
+
+    if mesh is None:
+        mesh = _world_mesh(hw.grid, row_axis, col_axis)
+    rows, cols = (mesh.shape[row_axis], mesh.shape[col_axis])
+    if (rows, cols) != tuple(hw.grid):
+        raise ValueError(f"mesh {rows}x{cols} does not match hw.grid "
+                         f"{hw.grid}; the profile would pair predictions "
+                         f"and measurements from different machines")
+
+    rng = np.random.default_rng(0)
+    samples: List[CalibrationSample] = []
+    with torch.inference_mode():
+        for (M, N, K) in gemms:
+            a = torch.as_tensor(rng.standard_normal((M, K)),
+                                dtype=torch.float32).to(mesh.device)
+            b = torch.as_tensor(rng.standard_normal((K, N)),
+                                dtype=torch.float32).to(mesh.device)
+            for label, df, kw in MODE_CASES:
+                sched = build_mode_schedule(df, kw, rows, cols, (M, N, K),
+                                            elem_bytes=hw.tile.elem_bytes)
+                ep = lower_schedule(sched, mesh, row_axis, col_axis,
+                                    shape=(M, N, K))
+                if ep.mode != label or ep.degraded:
+                    raise RuntimeError(f"{df} lowered to {ep.describe()}, "
+                                       f"expected clean {label}")
+                report = estimate(build_program(sched, hw), hw)
+                t = time_best_of(
+                    lambda x, y, e=ep: dit_gemm(x, y, mesh, exec_plan=e,
+                                                row_axis=row_axis,
+                                                col_axis=col_axis),
+                    a, b, reps, mesh)
+                samples.append(CalibrationSample(
+                    shape=(M, N, K), dataflow=df, mode=label,
+                    report=report, measured_s=t))
+    return samples
+
+
+def calibrate_mesh(hw: AcceleratorConfig, mesh=None,
+                   gemms: Sequence[Tuple[int, int, int]] = DEFAULT_GEMM_GRID,
+                   reps: int = 2,
+                   ) -> Tuple[CalibrationProfile, List[CalibrationSample]]:
+    """measure_modes + fit_profile in one call (the dryrun/bench entry)."""
+    samples = measure_modes(hw, mesh, gemms=gemms, reps=reps)
+    return fit_profile(samples, hw), samples

@@ -138,12 +138,21 @@ def test_mmad_default_out_dtype_is_input_dtype():
 
 
 def test_mmad_rejects_non_cpu_non_cuda_tensors():
-    """The plain version runs only for CPU tensors: anything else must launch
-    the kernel or raise — here a meta tensor raises."""
+    """The plain version runs only for CPU tensors, and meta operands on
+    both sides (the dry run's shape-only trace) give an empty meta product
+    and launch nothing: anything else must launch the kernel or raise —
+    here a meta operand beside a CPU one raises."""
     a = torch.empty((4, 8), device="meta")
     b = torch.empty((8, 4), device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        tmmad_mod.mmad(a, b)
+        tmmad_mod.mmad(a, torch.zeros(8, 4))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tmmad_mod.mmad(torch.zeros(4, 8), b)
+    launches = tmmad_mod._launches
+    out = tmmad_mod.mmad(a, b, out_dtype=torch.float32)
+    assert (out.device.type, out.shape, out.dtype) == \
+        ("meta", (4, 4), torch.float32)
+    assert tmmad_mod._launches == launches
     with pytest.raises(ValueError, match="inner dims"):
         tmmad_mod.mmad(torch.zeros(4, 8), torch.zeros(7, 4))
     with pytest.raises(ValueError, match="block shape"):
