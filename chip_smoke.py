@@ -48,6 +48,21 @@ Phases (any failure exits non-zero and prints no result line):
              the crash-resume loop at smoke width on the card: a failure
              injected at step 3 with a checkpoint every 2 steps must end
              on the parameters of an uninterrupted run, bitwise;
+   train gemma-2b sharded — the train phase's model, weights, batch and
+             plans through `launch.train.setup(..., mesh=...)` on
+             `make_dist_mesh((1, 1))` over an NCCL world of one rank
+             (NCCL puts one rank on each card): parameters, AdamW moments
+             and residuals kept as `spec_rules` blocks and gathered on use
+             (`parallel/sharded.py`), whole on one rank. Its losses, grad
+             norms and final parameters must equal the routed run's
+             bitwise, its `mmad` launches per step too, its state bytes
+             the `spec_rules` bytes; its peak is printed. Then at smoke
+             width a sharded checkpoint saved and restored, and
+             `elastic_reshard` onto the same and a new 1x1 mesh, bitwise;
+             then SHARDED_HOST_RANKS gloo CPU processes on the card's
+             host train smoke gemma-2b in fp32 on the 2x2 and the 2x1x2
+             `pod x data x model` meshes, unrouted and routed, held to the
+             unsharded step (`host_sharded_run`);
    serve gemma-2b --traffic [bucket], [fifo] — `serve.main` with
              `--traffic` at full width in both batch modes (2 tenants x 12
              requests, seed 0): the run report's `serving` section must
@@ -876,23 +891,34 @@ def busy_share(torch, params, cfg, planner, prompts, dev,
     from repro_torch.models.model import decode_init
     from repro_torch.train.steps import make_serve_step
 
-    serve.install_gemm_context(planner, dev)
     step = make_serve_step(cfg)
-    with torch.inference_mode():
-        caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
-        for i in range(PROMPT):
-            logits, caches = step(params, caches, prompts[:, i:i + 1], i,
-                                  encoder_out)
-        tok = torch.argmax(logits, -1)[:, None]
-        with device_profile(torch, dev) as prof:
-            t0 = time.perf_counter()
-            for i in range(GEN):
-                logits, caches = step(params, caches, tok, PROMPT + i,
+    # a window whose profile lost its edge kernels (seen on the card: all
+    # 1000 trailing ones of one deepseek-moe-16b window) is run again from
+    # a fresh prefill, up to REPLAY_ATTEMPTS windows; only a window that
+    # kept both edges is counted
+    for attempt in range(REPLAY_ATTEMPTS):
+        serve.install_gemm_context(planner, dev)
+        with torch.inference_mode():
+            caches = decode_init(params, cfg, BATCH, PROMPT + GEN)
+            for i in range(PROMPT):
+                logits, caches = step(params, caches, prompts[:, i:i + 1], i,
                                       encoder_out)
-                tok = torch.argmax(logits, -1)[:, None]
-            serve._sync(dev)
-            wall_ms = (time.perf_counter() - t0) * 1e3 / GEN
-    shard_ctx.set_gemm_context(None)
+            tok = torch.argmax(logits, -1)[:, None]
+            with device_profile(torch, dev) as prof:
+                t0 = time.perf_counter()
+                for i in range(GEN):
+                    logits, caches = step(params, caches, tok, PROMPT + i,
+                                          encoder_out)
+                    tok = torch.argmax(logits, -1)[:, None]
+                serve._sync(dev)
+                wall_ms = (time.perf_counter() - t0) * 1e3 / GEN
+        shard_ctx.set_gemm_context(None)
+        edges = edge_counts(torch, prof)
+        if (edges and all(edges)) or attempt == REPLAY_ATTEMPTS - 1:
+            break
+        del caches
+        print(f"{cfg.name} decode window: the profile kept {edges} of its "
+              f"edge kernels; running it again", flush=True)
     edges = edge_kernels_kept(torch, prof)
     kernels = device_kernels(torch, prof)
     busy_ms = sum(us for us, _, _ in kernels) / 1e3 / GEN
@@ -2505,7 +2531,8 @@ def slstm_split(torch, s, state, batch, dev):
 
 
 def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
-                make_batch=launcher_batch, lr: float = TRAIN_LR):
+                make_batch=launcher_batch, lr: float = TRAIN_LR,
+                keep: dict | None = None):
     """A train phase's main path: a full-width model (as `arch_args` name
     it; `cfg`, when given, its depth cut), three routed steps on one fixed
     batch (`make_batch(torch, setup)`: the launcher's, or one the phase
@@ -2517,9 +2544,13 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
     copies of its weights (`fp32_trajectory`), and every `mmad` call of
     its first bf16 routed step on its own operands (`OperandCheck`).
     Returns the per-step launch count, the backward's per-step launches,
-    the per-shape launch table and the numbers the report prints."""
+    the per-shape launch table and the numbers the report prints. `keep`,
+    when given, receives the routed run's losses, grad norms, launches per
+    step and final parameters (a copy in host memory), which the sharded
+    phase is held to (`sharded_train`)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import flops, serve, train
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import shard_ctx
     from repro_torch.obs import build_run_report, render_run_report, set_tracer
     from repro_torch.train import steps
@@ -2532,7 +2563,8 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
     shutil.rmtree(plan_dir, ignore_errors=True)
     s = train.setup(train.parse_args(
         arch_args + ["--steps", str(TRAIN_STEPS), "--lr", str(lr),
-                     "--plan-cache", str(plan_dir)]), cfg=cfg)
+                     "--plan-cache", str(plan_dir)]), cfg=cfg,
+        mesh=make_host_mesh(dev))
     cfg = s.cfg
     moe = bool(cfg.n_experts) and cfg.n_layers > cfg.n_dense_layers
     held32 = s.args.arch in FP32_HELD_TRAIN
@@ -2618,6 +2650,12 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
         ops._LocalMatmul.backward = staticmethod(real_backward)
         ops.tensor_core_backward = real_choice
     launches = mmad_mod.launch_count()
+    if keep is not None:
+        # on the host, so neither phase's peak holds the copy
+        keep.update(losses=list(losses), norms=list(norms),
+                    per_step=launches // TRAIN_STEPS,
+                    params={n: p.detach().to("cpu", copy=True)
+                            for n, p in state[0].named_parameters()})
     stats = ctx.stats
     executed = stats.executed_gemm
     report = build_run_report("train", stats=stats.to_dict(),
@@ -3057,6 +3095,330 @@ def dryrun_cells() -> dict:
     return {shape: round(seconds[shape], 1) for shape in seconds}
 
 
+# The sharded train phase: gemma-2b at full width and depth, its state
+# sharded by `spec_rules` (`parallel/sharded.py`) on a DistMesh over an
+# NCCL world of one rank, held bitwise to the train phase's routed run;
+# then SHARDED_HOST_RANKS gloo processes on the card's host, at smoke
+# width in fp32, on SHARDED_HOST_MESHES, held to the port's unsharded
+# step. NCCL puts one rank on each card, so the host's CPU ranks are the
+# multi-rank evidence here, as in tests/test_torch_sharded_train.py.
+SHARDED_HOST_RANKS = 4
+SHARDED_HOST_MESHES = {"2x2": ((2, 2), ("data", "model")),
+                       "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+SHARDED_HOST_STEPS = 2
+SHARDED_HOST_TIMEOUT_S = 300
+# The host ranks against the unsharded step on the same host, fp32: each
+# step's loss within 1e-5 relative and grad norm within 1e-4 (fp32 sums
+# taken in other orders: each pod averages its own rows; the routed modes
+# sum their blocks), every parameter within SHARDED_PARAM_ATOL but for at
+# most 1 % of each tensor's elements, whose gradient sits at the fp32
+# noise floor (Adam steps them about lr x sign(g)); every element of both
+# runs within the steps' reach of where it started, 3 x the sum of the
+# steps' lr x (1 + weight decay x |p|). An unchanged or wrong tensor,
+# however small, fails.
+SHARDED_PARAM_ATOL = 1e-5
+
+
+def sharded_train(torch, mmad_mod, dev, routed: dict, arch_args):
+    """The sharded phase's main path: an NCCL world of one rank (gloo in
+    the CPU rehearsal), `make_dist_mesh((1, 1))`, and TRAIN_STEPS steps
+    through `launch.train.setup(..., mesh=...)` from the train phase's
+    weights (seed 0) on its batch, the parameters, AdamW moments and
+    plans the launcher's. Every gather is the identity on one rank, so the
+    loss, grad norm and final parameters must equal the train phase's
+    routed run (`routed`, from `train_model(keep=...)`) bitwise, and its
+    `mmad` launches per step too. Then a sharded checkpoint and
+    `elastic_reshard` at smoke width (`sharded_checkpoint`), and the host's
+    gloo ranks (`host_sharded_run`)."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_dist_mesh
+    from repro_torch.models import shard_ctx
+    from repro_torch.obs import set_tracer
+    from repro_torch.parallel import sharded, spec_rules
+
+    t0 = time.perf_counter()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    store = ROOT / "build" / "chip_smoke" / "sharded_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_dist_mesh((1, 1), dev.type)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        plan_dir = ROOT / "build" / "chip_smoke" / "train_plans"
+        s = train.setup(train.parse_args(
+            arch_args + ["--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
+                         "--plan-cache", str(plan_dir)]), mesh=mesh)
+        state = s.init_state()
+        batch = launcher_batch(torch, s)
+        mmad_mod.reset_launch_count()
+        state, losses, norms, step_ms = train_steps(torch, s, batch, dev,
+                                                    TRAIN_STEPS, state=state)
+        launches = mmad_mod.launch_count()
+        stats = s.gemm_ctx.stats
+        params = state[0]
+        layout = sharded.layout_of(params)
+        held = sum(t.numel() * t.element_size() for t in
+                   list(params.parameters()) + list(state[1].mu.values())
+                   + list(state[1].nu.values()))
+        # each parameter's block and its two fp32 moments' blocks
+        spec_bytes = sum(
+            spec_rules.local_bytes(torch.empty(pl.shape, dtype=dtype,
+                                               device="meta"), pl.spec, mesh)
+            for n, p in params.named_parameters()
+            for pl in [layout.placements[n]]
+            for dtype in (p.dtype, torch.float32, torch.float32))
+        diff = [n for n, p in params.named_parameters()
+                if not torch.equal(p.detach().cpu(), routed["params"][n])]
+        peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else 0.0)
+        mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
+        print(f"train {s.cfg.name} sharded on a {dict(mesh.shape)} DistMesh "
+              f"({backend} world of 1): losses {losses}, grad norms "
+              f"{norms} (the train phase's routed run: {routed['losses']}, "
+              f"{routed['norms']}); {len(diff)} of "
+              f"{len(routed['params'])} parameters differ from its final "
+              f"ones; mmad {launches // TRAIN_STEPS} launches per step "
+              f"(routed run: {routed['per_step']}); step ms "
+              f"{[round(t, 3) for t in step_ms]}; state {held} bytes "
+              f"(spec_rules: {spec_bytes}); resolve rate "
+              f"{stats.resolve_rate}; peak {peak:.2f} GB", flush=True)
+        if losses != routed["losses"] or norms != routed["norms"]:
+            fail("the sharded step's losses or grad norms differ from the "
+                 "routed train phase's")
+        if diff:
+            fail(f"the sharded step's final parameters differ: {diff[:5]}")
+        if (launches == 0 or launches % TRAIN_STEPS
+                or launches // TRAIN_STEPS != routed["per_step"]):
+            fail(f"the sharded step launched mmad {launches} times in "
+                 f"{TRAIN_STEPS} steps, the routed run "
+                 f"{routed['per_step']} a step")
+        if held != spec_bytes or stats.resolve_rate != 1.0:
+            fail(f"sharded state of {held} bytes (spec_rules: {spec_bytes})"
+                 f", resolve rate {stats.resolve_rate}")
+        del state, params, layout
+        routed["params"].clear()
+        if dev.type == "cuda":
+            release(torch)
+        shard_ctx.set_gemm_context(None)
+        set_tracer(None)
+        sharded_checkpoint(torch, dev, mesh)
+    finally:
+        shard_ctx.set_gemm_context(None)
+        shard_ctx.set_mesh(None)
+        set_tracer(None)
+        dist.destroy_process_group()
+    host = host_sharded_run(torch)
+    seconds = time.perf_counter() - t0
+    print(f"sharded phase took {seconds:.1f} s", flush=True)
+    return {"launches": launches, "per_step": launches // TRAIN_STEPS,
+            "step_ms": step_ms, "mean_step_ms": mean_ms, "peak_gb": peak,
+            "host": host, "seconds": seconds}
+
+
+def sharded_checkpoint(torch, dev, mesh) -> None:
+    """A sharded checkpoint at smoke width on `mesh` (the card's world of
+    one): one step, a save through `state_shardings`, a restore with them
+    into a fresh sharded state, bitwise; `elastic_reshard` onto the same
+    mesh hands back the same tensors, and onto a new 1x1 mesh equal
+    ones."""
+    from repro_torch.ckpt.manager import CheckpointManager, flatten
+    from repro_torch.ft import runtime
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_dist_mesh
+    from repro_torch.parallel import sharded
+
+    work = ROOT / "build" / "chip_smoke" / "sharded_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    s = train.setup(train.parse_args([
+        "--arch", "gemma-2b", "--smoke", "--device", dev.type, "--steps",
+        "2", "--batch", "2", "--seq", "32", "--skip-plan-warmup"]),
+        mesh=mesh)
+    state, _ = s.step_fn(s.init_state(), launcher_batch(torch, s))
+    want = [(n, t.clone()) for n, t in flatten(state)]
+    mgr = CheckpointManager(str(work))
+    mgr.save(0, state, shardings=sharded.state_shardings(state))
+    like = s.init_state()
+    back = flatten(mgr.restore(0, like, sharded.state_shardings(like)))
+    same = flatten(runtime.elastic_reshard(state, mesh))
+    moved = flatten(runtime.elastic_reshard(state, make_dist_mesh(
+        (1, 1), dev.type)))
+    for label, got in (("restored", back), ("re-placed", same),
+                       ("re-meshed", moved)):
+        bad = [n for (n, a), (m, b) in zip(got, want)
+               if n != m or not torch.equal(a, b)]
+        if bad or len(got) != len(want):
+            fail(f"the {label} sharded state differs: {bad[:5]}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"sharded checkpoint at smoke width on {dev}: {len(want)} state "
+          f"tensors saved through state_shardings and restored with them, "
+          f"and re-placed by elastic_reshard onto the same and a new 1x1 "
+          f"mesh, all bitwise", flush=True)
+
+
+def host_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One gloo rank of `host_sharded_run` (a spawned process): smoke
+    gemma-2b in fp32, SHARDED_HOST_STEPS steps on each mesh, unrouted and
+    routed, through `launch.train.setup(..., mesh=...)`; rank 0 writes
+    the losses, grad norms and whole parameters."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    from repro_torch.launch.mesh import make_dist_mesh
+    try:
+        meshes = {name: make_dist_mesh(shape, "cpu", axes)
+                  for name, (shape, axes) in SHARDED_HOST_MESHES.items()}
+        out = {}
+        for name, mesh in meshes.items():
+            for routed in (False, True):
+                out.update(host_case(torch, np, f"{name}/{routed}",
+                                     routed, mesh, out_path, rank))
+        if rank == 0:
+            np.savez(out_path, **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def host_case(torch, np, key: str, routed: bool, mesh, out_path: str,
+              rank: int = 0) -> dict:
+    """SHARDED_HOST_STEPS steps of smoke gemma-2b in fp32 on the CPU on
+    `mesh` (a DistMesh: sharded; None: the unsharded step); returns its
+    losses, grad norms, learning rates, weight decay, and whole parameters
+    before (`init`) and after (`params`) the steps, under `key`."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import shard_ctx
+    from repro_torch.obs import set_tracer
+    from repro_torch.parallel import sharded
+
+    cfg = dataclasses.replace(smoke_config("gemma-2b"), dtype=torch.float32)
+    s = train.setup(train.parse_args(
+        ["--arch", "gemma-2b", "--smoke", "--device", "cpu", "--batch", "4",
+         "--seq", "32", "--steps", str(SHARDED_HOST_STEPS), "--lr", "1e-3",
+         "--plan-cache", f"{out_path}.plans{rank}"]
+        + ([] if routed else ["--skip-plan-warmup"])), cfg=cfg, mesh=mesh)
+    state = s.init_state()
+    layout = sharded.layout_of(state[0])
+
+    def whole(n, p):
+        return (p if layout is None else sharded.gather_data(
+            p, layout.placements[n])).detach().numpy().copy()
+    out = {f"{key}/init/{n}": whole(n, p)
+           for n, p in state[0].named_parameters()}
+    losses, norms, lrs = [], [], []
+    try:
+        for i in range(SHARDED_HOST_STEPS):
+            state, m = s.step_fn(state, s.batch_arrays(s.data.batch(i)))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            lrs.append(float(m["lr"]))
+    finally:
+        shard_ctx.set_gemm_context(None)
+        shard_ctx.set_mesh(None)
+        set_tracer(None)
+    out.update({f"{key}/loss": np.array(losses), f"{key}/grad_norm":
+                np.array(norms), f"{key}/lr": np.array(lrs),
+                f"{key}/weight_decay": np.array(s.opt.weight_decay)})
+    for n, p in state[0].named_parameters():
+        out[f"{key}/params/{n}"] = whole(n, p)
+    return out
+
+
+def host_sharded_run(torch) -> dict:
+    """SHARDED_HOST_RANKS gloo processes on this host (spawned; CPU only)
+    train smoke gemma-2b sharded on SHARDED_HOST_MESHES, unrouted and
+    routed; this process runs the unsharded step, unrouted and routed,
+    and holds each sharded run to it (SHARDED_PARAM_ATOL)."""
+    import numpy as np
+
+    work = ROOT / "build" / "chip_smoke" / "sharded_host"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out_path = str(work / "ranks.npz")
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=host_rank, args=(
+        r, SHARDED_HOST_RANKS, str(work / "store"), out_path))
+        for r in range(SHARDED_HOST_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARDED_HOST_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * SHARDED_HOST_RANKS:
+        fail(f"the host's sharded ranks exited with {codes}")
+    ranks_s = time.perf_counter() - t0
+    got = dict(np.load(out_path))
+    want = {}
+    for routed in (False, True):
+        want.update(host_case(torch, np, f"whole/{routed}", routed, None,
+                              out_path))
+    rows = {}
+    for name in SHARDED_HOST_MESHES:
+        for routed in (False, True):
+            key, ref = f"{name}/{routed}", f"whole/{routed}"
+            rel_loss = float(np.max(np.abs(got[key + "/loss"]
+                                           - want[ref + "/loss"])
+                                    / want[ref + "/loss"]))
+            rel_norm = float(np.max(np.abs(got[key + "/grad_norm"]
+                                           - want[ref + "/grad_norm"])
+                                    / want[ref + "/grad_norm"]))
+            names = [k[len(ref + "/params/"):] for k in want
+                     if k.startswith(ref + "/params/")]
+            lr_sum = float(np.sum(want[ref + "/lr"]))
+            wd = float(want[ref + "/weight_decay"])
+            apart = 0
+            worst = 0.0
+            crowded, strayed = [], []
+            for n in names:
+                p0 = want[f"{ref}/init/{n}"]
+                new_s = got[f"{key}/params/{n}"]
+                new_w = want[f"{ref}/params/{n}"]
+                reach = 3 * lr_sum * (1 + wd * np.abs(p0)) + 1e-7
+                if not all((np.abs(new - p0) <= reach).all()
+                           for new in (new_s, new_w)):
+                    strayed.append(n)
+                err = np.abs(new_s - new_w)
+                worst = max(worst, float(err.max()))
+                n_apart = int((err > SHARDED_PARAM_ATOL).sum())
+                apart += n_apart
+                if n_apart > 0.01 * err.size:
+                    crowded.append(n)
+            rows[key] = {"loss_rel": rel_loss, "grad_norm_rel": rel_norm,
+                         "param_max_abs": worst, "params_apart": apart}
+            if not (rel_loss <= 1e-5 and rel_norm <= 1e-4
+                    and not crowded and not strayed):
+                fail(f"the host's sharded step on {key} left the unsharded "
+                     f"one: {rows[key]}; tensors with over 1 % of their "
+                     f"elements past {SHARDED_PARAM_ATOL}: {crowded[:5]}; "
+                     f"out of the steps' reach: {strayed[:5]}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"host: {SHARDED_HOST_RANKS} gloo ranks at smoke width (fp32) on "
+          f"{list(SHARDED_HOST_MESHES)} (unrouted / routed) against the "
+          f"unsharded step, {SHARDED_HOST_STEPS} steps: "
+          + "; ".join(f"{k}: loss rel {v['loss_rel']:.1e}, grad norm rel "
+                      f"{v['grad_norm_rel']:.1e}, params max "
+                      f"{v['param_max_abs']:.1e} ({v['params_apart']} "
+                      f"elements past {SHARDED_PARAM_ATOL})"
+                      for k, v in rows.items())
+          + f"; the ranks took {ranks_s:.1f} s", flush=True)
+    return rows
+
+
 def release(torch) -> None:
     """Free what a phase left on the card before the next one."""
     import gc
@@ -3085,7 +3447,9 @@ def path_entry(name: str, path: str, launches: int, rows) -> dict:
 def train_args(arch: str):
     """The train phases' launcher flags (the config's depth cut, if any,
     goes to `launch.train.setup` as a config: the launcher has no depth
-    flag)."""
+    flag; the phases pass the mesh: the card's 1x1 `HostMesh`, or the
+    sharded phase's `DistMesh`, in place of the production mesh these
+    flags, without `--smoke`, would name)."""
     return ["--arch", arch, "--device", "cuda", "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ)]
 
@@ -3217,9 +3581,17 @@ def main() -> int:
     release(torch)
 
     phase("train")
+    routed_run = {}
     train_launches, train_bwd_launches, train_table, train_summary = \
-        train_model(torch, mmad_mod, dev, train_args("gemma-2b"))
+        train_model(torch, mmad_mod, dev, train_args("gemma-2b"),
+                    keep=routed_run)
     resume_check(torch, dev)
+    release(torch)
+
+    phase("train gemma-2b sharded")
+    sharded_summary = sharded_train(torch, mmad_mod, dev, routed_run,
+                                    train_args("gemma-2b"))
+    del routed_run
     release(torch)
 
     # serve --traffic: mode -> what `serve_traffic` returns
@@ -3427,6 +3799,25 @@ def main() -> int:
                      f"ms (bound {moe_experts['bound_ms']:.3f}), backward "
                      f"{moe_experts['backward_ms']:.3f} ms (bound "
                      f"{moe_experts['backward_bound_ms']:.3f})")
+    sharded_entry = train_path_entry(
+        "mmad/gemma-2b-train-sharded",
+        f"gemma-2b train, state sharded by spec_rules on a 1x1 DistMesh "
+        f"(NCCL world of 1), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}",
+        sharded_summary["launches"], train_rows)
+    print(f"train gemma-2b sharded (1x1 DistMesh, NCCL world of 1, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}): "
+          f"{sharded_summary['mean_step_ms']:.3f} ms per step (the train "
+          f"phase's routed run: {train_summary['mean_step_ms']:.3f}), peak "
+          f"{sharded_summary['peak_gb']:.2f} GB; mmad "
+          f"{sharded_summary['per_step']} launches per step, forward "
+          f"{sharded_entry['forward_ms']:.3f} ms (bound "
+          f"{sharded_entry['forward_bound_ms']:.3f}, torch.matmul "
+          f"{sharded_entry['forward_library_ms']:.3f}), backward "
+          f"{sharded_entry['backward_ms']:.3f} ms (bound "
+          f"{sharded_entry['backward_bound_ms']:.3f}, bf16 torch.matmul "
+          f"{sharded_entry['backward_library_ms']:.3f}) from the train "
+          f"shapes' timings; the phase took "
+          f"{sharded_summary['seconds']:.1f} s", flush=True)
     trained_entries = []
     for arch, (train_cfg, per_step_, _, _, summary) in trained.items():
         cut = train_cfg != get_config(arch)
@@ -3524,7 +3915,7 @@ def main() -> int:
                                        served[arch][2].get("prefix_launches")),
                    rows_)
         for arch, rows_ in forward_rows.items()] + [moe_entry]
-        + trained_entries + traffic_entries}), flush=True)
+        + trained_entries + traffic_entries + [sharded_entry]}), flush=True)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - T_START:.1f}s", flush=True)
     print(smi, flush=True)

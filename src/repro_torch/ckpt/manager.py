@@ -15,6 +15,18 @@ Restore loads into the tensors of the state it is given, in place, after
 checking names and shapes: the trainer's step updates its state in place,
 so the live state is the one to overwrite, and no second copy of it is
 allocated on the device.
+
+A sharded state (`parallel.sharded`) keeps the file format: `save(...,
+shardings=...)` gathers one tensor at a time whole, rank 0 writes it, and
+the checkpoint is published (renamed into place) by rank 0 before a
+barrier that every rank passes, so a sharded run's checkpoint restores
+into an unsharded one and back. The barrier also tells every rank
+whether rank 0 could write: if not, every rank raises. `restore(..., shardings=...)` is the
+reference's elastic restore: each rank reads the whole tensors and keeps
+its own block of each, whatever mesh (and world) wrote them. `shardings`
+maps a leaf name (as `flatten` names it) to its `Placement`
+(`sharded.state_shardings` builds it for a trainer state); leaves it does
+not name are whole on every rank.
 """
 from __future__ import annotations
 
@@ -22,7 +34,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +91,28 @@ def _decode(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return t if t.dtype == dtype else t.view(dtype)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _agree(step: int, err: Optional[Exception], device) -> None:
+    """The end of a sharded save on every rank: wait for rank 0's write
+    (an all-reduce of its failure flag, in place of a barrier) and raise
+    on every rank alike if it failed, so that no rank goes on alone into
+    the next step's collectives. Rank 0 raises its own error."""
+    import torch.distributed as dist
+    failed = err is not None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        flag = torch.tensor([int(failed)], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        failed = bool(flag.item())
+    if err is not None:
+        raise err
+    if failed:
+        raise RuntimeError(f"rank 0 failed to write checkpoint step {step}")
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -108,10 +142,37 @@ class CheckpointManager:
     # -- save ------------------------------------------------------------------
 
     def save(self, step: int, state: Any, extra: Optional[Dict] = None,
-             blocking: bool = True) -> None:
+             blocking: bool = True,
+             shardings: Optional[Mapping[str, Any]] = None) -> None:
+        """Checkpoint `state` as step `step`. With `shardings` (a sharded
+        state's placements) this is a collective: every rank gathers each
+        sharded tensor in turn, rank 0 alone writes and publishes, and the
+        call returns on every rank once the checkpoint is in place (it
+        blocks whatever `blocking` says), or raises on every rank if rank 0
+        could not write it."""
         # snapshot to host memory synchronously (consistent view), write async
         leaves = flatten(state)
-        arrs = [_encode(t) for _, t in leaves]
+        if shardings is None:
+            arrs = [_encode(t) for _, t in leaves]
+        else:
+            from repro_torch.parallel import sharded
+            writer = _rank() == 0
+            err: Optional[Exception] = None
+            arrs = []
+            for name, t in leaves:
+                pl = shardings.get(name)
+                whole = t if pl is None else sharded.gather_data(t, pl)
+                # rank 0 keeps gathering after an error, so that the
+                # others are not left waiting in a gather
+                if writer and err is None:
+                    try:
+                        arrs.append(_encode(whole))
+                    except Exception as e:
+                        err = e
+                else:
+                    arrs.append(None)
+                del whole                  # one whole tensor at a time
+            blocking = True
         meta = {"step": step, "n_arrays": len(arrs),
                 "names": [n for n, _ in leaves],
                 "dtypes": [_dtype_name(t.dtype) for _, t in leaves],
@@ -132,7 +193,14 @@ class CheckpointManager:
             os.rename(tmp, final)          # atomic publish
             self._gc()
 
-        if blocking:
+        if shardings is not None:
+            if writer and err is None:
+                try:
+                    write()
+                except Exception as e:
+                    err = e
+            _agree(step, err, leaves[0][1].device if leaves else "cpu")
+        elif blocking:
             write()
         else:
             self.wait()
@@ -151,9 +219,12 @@ class CheckpointManager:
     # -- restore -----------------------------------------------------------------
 
     @torch.no_grad()
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any,
+                shardings: Optional[Mapping[str, Any]] = None) -> Any:
         """Load checkpoint `step` into the tensors of `like`, in place (cast
-        to each tensor's dtype and device), and return `like`."""
+        to each tensor's dtype and device), and return `like`. With
+        `shardings`, a tensor it places receives this rank's block of the
+        checkpoint's whole tensor (elastic restore onto any mesh)."""
         d = self._step_dir(step)
         with open(os.path.join(d, _MANIFEST)) as f:
             meta = json.load(f)
@@ -170,11 +241,19 @@ class CheckpointManager:
         with np.load(os.path.join(d, "arrays.npz")) as data:
             arrs = [_decode(data[f"a{i}"], meta["dtypes"][i])
                     for i in range(meta["n_arrays"])]
+        blocks = []
         for (name, want), got in zip(leaves, arrs):
+            pl = (shardings or {}).get(name)
+            if pl is not None:
+                if tuple(got.shape) != tuple(pl.shape):
+                    raise ValueError(f"shape mismatch {tuple(got.shape)} vs "
+                                     f"{tuple(pl.shape)} at {name}")
+                got = got[pl.block()]
             if tuple(got.shape) != tuple(want.shape):
                 raise ValueError(f"shape mismatch {tuple(got.shape)} vs "
                                  f"{tuple(want.shape)} at {name}")
-        for (_, want), got in zip(leaves, arrs):
+            blocks.append(got)
+        for (_, want), got in zip(leaves, blocks):
             want.copy_(got)
         return like
 

@@ -10,14 +10,17 @@ each is its transpose: `psum` <-> `psum`, `all_gather` <-> `psum_scatter`,
 reference uses it (under a stop-gradient).
 
 `shard` and `unshard` are the port's counterpart of a jax global array
-crossing a `shard_map` boundary. Operands arrive whole on every rank;
-`shard` takes this rank's block as a spec says (the reference's
+crossing a `shard_map` boundary. Operands arrive whole on every rank of a
+pod; `shard` takes this rank's block as a spec says (the reference's
 `in_specs`: per dimension None or a tuple of axes, major first), and its
-backward sums the blocks' gradients over the world, so every rank ends
-with the global gradient. `unshard` gathers the out spec's blocks so every
-rank returns the same global tensor; a block held by several ranks (an
-axis the spec leaves out) is taken from the lowest of them, and only that
-rank's copy receives the gradient.
+backward sums the blocks' gradients over the pod, so every rank of it ends
+with the pod's global gradient. `unshard` gathers the out spec's blocks
+over the pod so each of its ranks returns the same global tensor; a block
+held by several ranks (an axis the spec leaves out) is taken from the
+lowest of them, and only that rank's copy receives the gradient. A pod is
+the ranks that share a `pod` coordinate (`DistMesh.pod_ranks`): the whole
+world on a mesh without a `pod` axis. With one, each pod runs its own
+share of the batch (`parallel.sharded`), so nothing crosses pods here.
 
 Every rank must issue the same collectives in the same order, backward
 included: the mode bodies select rank-dependent values with `pick` (both
@@ -294,10 +297,17 @@ def _block(mesh, spec: Spec, shape, rank: int) -> Tuple[slice, ...]:
     return tuple(out)
 
 
-def _owner(mesh, spec: Spec, shape, rank: int) -> bool:
-    """Whether `rank` is the lowest rank holding its block."""
+def _owner(mesh, spec: Spec, shape, rank: int, ranks=None) -> bool:
+    """Whether `rank` is the lowest of `ranks` (its pod's by default)
+    holding its block."""
     mine = _block(mesh, spec, shape, rank)
-    return all(_block(mesh, spec, shape, r) != mine for r in range(rank))
+    ranks = mesh.pod_ranks(rank) if ranks is None else ranks
+    return all(_block(mesh, spec, shape, r) != mine for r in ranks
+               if r < rank)
+
+
+def _pod_size(mesh) -> int:
+    return mesh.size // int(mesh.shape.get("pod", 1))
 
 
 class _Shard(torch.autograd.Function):
@@ -305,32 +315,33 @@ class _Shard(torch.autograd.Function):
     def forward(ctx, x, mesh, spec):
         ctx.sl = _block(mesh, spec, x.shape, mesh.rank)
         ctx.shape = x.shape
+        ctx.group = mesh.pod_group()
         return x[ctx.sl].clone()
 
     @staticmethod
     def backward(ctx, g):
         full = g.new_zeros(ctx.shape)
         full[ctx.sl] = g
-        _all_reduce(full)
+        _all_reduce(full, ctx.group)
         return full, None, None
 
 
 class _Unshard(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, mesh, spec, shape):
-        world = mesh.size
-        parts = [torch.empty_like(y) for _ in range(world)]
-        _all_gather(parts, y.contiguous())
+        ranks = mesh.pod_ranks()
+        parts = [torch.empty_like(y) for _ in ranks]
+        _all_gather(parts, y.contiguous(), mesh.pod_group())
         out = y.new_empty(shape)
         done = set()
-        for r in range(world):
+        for r, part in zip(ranks, parts):
             sl = _block(mesh, spec, shape, r)
             key = tuple((s.start, s.stop) for s in sl)
             if key not in done:
-                out[sl] = parts[r]
+                out[sl] = part
                 done.add(key)
         ctx.sl = _block(mesh, spec, shape, mesh.rank)
-        ctx.owner = _owner(mesh, spec, shape, mesh.rank)
+        ctx.owner = _owner(mesh, spec, shape, mesh.rank, ranks)
         return out
 
     @staticmethod
@@ -346,14 +357,16 @@ def _spec(spec) -> Tuple[Optional[Tuple[str, ...]], ...]:
 
 
 def shard(x: torch.Tensor, mesh, spec) -> torch.Tensor:
-    """This rank's block of the global `x` (whole on every rank)."""
-    if mesh.size == 1:
+    """This rank's block of the pod's global `x` (whole on every rank of
+    the pod)."""
+    if _pod_size(mesh) == 1:
         return x
     return _Shard.apply(x, mesh, _spec(spec))
 
 
 def unshard(y: torch.Tensor, mesh, spec, shape) -> torch.Tensor:
-    """The global tensor of `shape` whose blocks the ranks hold as `y`."""
-    if mesh.size == 1:
+    """The pod's global tensor of `shape` whose blocks its ranks hold as
+    `y`."""
+    if _pod_size(mesh) == 1:
         return y
     return _Unshard.apply(y, mesh, _spec(spec), tuple(shape))

@@ -6,11 +6,12 @@ has two meshes, both exposing what the lowering and the mode bodies read
 
 - `HostMesh`, the 1x1 mesh of one device: every collective over it is the
   identity and nothing is launched for it (one H100);
-- `DistMesh`, a mesh over an initialised `torch.distributed` world of more
-  than one rank: this rank's coordinates, and a process group for each
-  axis and for each sub-axis of every `MeshView` the lowering can name,
-  all created when the mesh is made (the modes reduce over one axis at a
-  time; the world's default group gathers the global result).
+- `DistMesh`, a mesh over an initialised `torch.distributed` world: this
+  rank's coordinates, and a process group for each axis, for each sub-axis
+  of every `MeshView` the lowering can name and, on a mesh with a `pod`
+  axis, for each pod, all created when the mesh is made (the modes reduce
+  over one axis at a time; the pod's group, the world's default group on a
+  mesh without a `pod` axis, gathers the global result).
 
 `make_host_mesh` returns a `DistMesh` when a process group of more than
 one rank is initialised, else a `HostMesh`. NCCL puts one rank on each
@@ -95,6 +96,27 @@ class DistMesh:
                            f"{ranks}); groups are made by make_dist_mesh")
         return self.groups[ranks]
 
+    def pod_ranks(self, rank: Optional[int] = None) -> Tuple[int, ...]:
+        """The global ranks that share the `pod` coordinate of `rank` (this
+        one by default), ascending: the whole world on a mesh without a
+        `pod` axis."""
+        r = self.rank if rank is None else rank
+        if "pod" not in self.shape:
+            return tuple(range(self.size))
+        stride, c = self.strides["pod"], self.coord("pod", r)
+        if stride * self.shape["pod"] == self.size:     # a leading axis
+            return tuple(range(c * stride, (c + 1) * stride))
+        return tuple(q for q in range(self.size)
+                     if self.coord("pod", q) == c)
+
+    def pod_group(self):
+        """The process group of this rank's pod (of more than one rank):
+        the world's default group (None) on a mesh without a `pod`
+        axis."""
+        if "pod" not in self.shape:
+            return None
+        return self.groups[self.pod_ranks()]
+
     def view(self, splits) -> "DistMesh":
         """The mesh with physical axes split into sub-axes (a `MeshView`'s
         `splits`: outer-major, so the device order is kept), sharing this
@@ -136,7 +158,9 @@ def make_dist_mesh(shape: Tuple[int, ...], device,
     order, the process group of every axis and of every sub-axis of the
     views `core.lower.mesh_views` lists for the last two axes (the only
     views a plan can name: the modes run over `data` and `model`; a
-    leading `pod` axis is pure data parallelism and gets its own group)."""
+    leading `pod` axis is pure data parallelism and gets its own group),
+    and with a `pod` axis the group of each pod's ranks (the modes' and
+    the sharded parameters' collectives stay within a pod)."""
     import torch.distributed as dist
     from repro_torch.core.lower import mesh_views
 
@@ -158,6 +182,9 @@ def make_dist_mesh(shape: Tuple[int, ...], device,
                 continue
             for r in range(world):
                 wanted.setdefault(m.axis_ranks(ax, r))
+    if "pod" in sizes and world // sizes["pod"] > 1:
+        for r in range(world):
+            wanted.setdefault(mesh.pod_ranks(r))
     groups = {}
     for ranks in wanted:                 # the same order on every rank
         group = dist.new_group(list(ranks))

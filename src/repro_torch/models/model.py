@@ -340,7 +340,9 @@ def _mixer_block(p: MixerBlock, x: torch.Tensor, cfg: ModelConfig,
     `_slstm_block`): its mixer's chunked form, or with `state` its
     recurrent form."""
     h = apply_norm(p.ln, x, cfg)
-    y, new_state = _MIXERS[type(p.mixer)](p.mixer, h, cfg, state)
+    # by isinstance: a sharded mixer's class gathers its weights on use
+    mix = next(f for cls, f in _MIXERS.items() if isinstance(p.mixer, cls))
+    y, new_state = mix(p.mixer, h, cfg, state)
     return x + y, new_state
 
 
@@ -390,8 +392,9 @@ def _units(params: Model, cfg: ModelConfig, enc=None):
 
 def lm_head_weight(params: Model, cfg: ModelConfig) -> torch.Tensor:
     """(D, vocab) projection. Tied: the strided view `embed.T` — no copy;
-    the `mmad` kernel reads it through its strides."""
-    if params.lm_head is None:
+    the `mmad` kernel reads it through its strides. Tied or not as `cfg`
+    says: a test of `params.lm_head` would gather a sharded head."""
+    if cfg.tie_embeddings:
         return params.embed.to(cfg.dtype).T
     return params.lm_head
 

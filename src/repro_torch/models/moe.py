@@ -78,22 +78,31 @@ _GROUP_TOKENS = 512   # dispatch-group size, as the reference's: the einsum
 
 
 def _dp_groups(t: int) -> int:
-    """Dispatch groups: fixed-size token groups with per-group capacity,
-    their count a multiple of the data-parallel shard count of the
-    installed mesh (1 with none, and on the 1x1 mesh). The same rule as
-    `deploy.planner.moe_dispatch_geometry`."""
+    """Dispatch groups of the `t` tokens this rank routes: fixed-size token
+    groups with per-group capacity, their count a multiple of the
+    data-parallel shard count of the installed mesh (1 with none, and on
+    the 1x1 mesh). The same rule as `deploy.planner.moe_dispatch_geometry`,
+    applied to the global batch: when the batch splits over pods
+    (`shard_ctx.batch_pods`), this pod's tokens are a contiguous share of
+    it and take the same share of its groups, so each group holds the
+    tokens, and the capacity, of the reference's."""
     mesh = shard_ctx.get_mesh()
     dp = 1
     if mesh is not None:
         for a in ("pod", "data"):
             if a in mesh.axis_names:
                 dp *= mesh.shape[a]
-    if t % dp:
+    pods = shard_ctx.batch_pods()
+    whole = t * pods
+    if whole % dp:
         dp = 1
     g = dp
-    while t % (g * 2) == 0 and t // (g * 2) >= _GROUP_TOKENS:
+    while whole % (g * 2) == 0 and whole // (g * 2) >= _GROUP_TOKENS:
         g *= 2
-    return g
+    if g % pods:
+        raise ValueError(f"{g} dispatch groups of {whole} tokens do not "
+                         f"split over {pods} pods")
+    return g // pods
 
 
 def _constrain(x: torch.Tensor, *spec) -> torch.Tensor:
@@ -150,10 +159,11 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # one-hot einsum dispatch (the reference's: every op a dense
     # contraction, so it stays SPMD-friendly across an expert axis); expert
     # GEMMs batched over (G, E), each logical (cap, d) x (d, f) problem
-    # logged for the observed workload
+    # logged for the observed workload, its widths from `cfg` (a read of a
+    # sharded weight, its shape's too, gathers it whole)
     experts = p.experts
-    record_gemm("moe.expert_gate", cap, experts.gate.shape[-1], d)
-    record_gemm("moe.expert_down", cap, d, experts.down.shape[-2])
+    record_gemm("moe.expert_gate", cap, cfg.moe_d_ff, d)
+    record_gemm("moe.expert_down", cap, d, cfg.moe_d_ff)
     with profile_scope("moe.einsums"):
         oh_cap = F.one_hot(pos_c, cap).to(x.dtype)                # (G,TL,k,cap)
         sel = onehot.to(x.dtype) * within[..., None].to(x.dtype)  # (G,TL,k,E)

@@ -5,9 +5,13 @@ before the model runs and no-ops when absent:
 
 1. **Activation-sharding context** (`set_mesh` / `constrain_tokens`): in
    the reference it pins the residual stream's (batch=dp) layout at every
-   block boundary. In the port activations are whole on every rank (the
-   mode bodies take their blocks and gather their outputs), so there is
-   nothing to pin and `constrain_tokens` is the identity on every mesh.
+   block boundary. In the port activations are whole on every rank of a
+   pod (the mode bodies take their blocks and gather their outputs), so
+   there is nothing to pin and `constrain_tokens` is the identity on every
+   mesh. The sharded trainer splits the batch over the `pod` axis only
+   (`set_mesh(mesh, pod_batch=True)`): the model then sees its pod's share
+   of the global batch (`batch_pods`), which the MoE dispatch groups
+   account for. The dry run installs its mesh over the whole batch.
 
 2. **GEMM-routing context** (`set_gemm_context` / `GemmContext`): the mesh
    context extended into a full gemm context. It carries the device mesh plus
@@ -32,15 +36,26 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 
 _MESH: Optional[object] = None
+_POD_BATCH = False
 
 
-def set_mesh(mesh) -> None:
-    global _MESH
-    _MESH = mesh
+def set_mesh(mesh, pod_batch: bool = False) -> None:
+    """Install `mesh` (None clears it). `pod_batch`: the model runs on its
+    pod's rows of the global batch (the sharded trainer's split)."""
+    global _MESH, _POD_BATCH
+    _MESH, _POD_BATCH = mesh, pod_batch and mesh is not None
 
 
 def get_mesh():
     return _MESH
+
+
+def batch_pods() -> int:
+    """How many pods the global batch is split over: the installed mesh's
+    `pod` size under the sharded trainer, else 1."""
+    if not _POD_BATCH:
+        return 1
+    return int(_MESH.shape.get("pod", 1))
 
 
 # ---------------------------------------------------------------------------

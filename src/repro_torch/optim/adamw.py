@@ -12,6 +12,15 @@ Unlike the reference's pure function, `apply` updates the parameters and
 the moments in place: at gemma-2b width a second copy of them would cost
 25 GB of device memory. The returned parameters and moment mappings are the
 ones passed in; the step counter is a new tensor.
+
+On a model sharded by `parallel.sharded.shard_params` the moments are made
+at the blocks' shapes and the update is the same elementwise arithmetic on
+each rank's blocks. The global norm counts each distinct block once (on
+the lowest rank holding it) and sums the squares over the world. It sums
+them in fp64, each tensor's and then the tensors', and rounds the norm to
+fp32 once, so the norm does not depend on how the mesh cuts the tensors
+into blocks (an fp32 sum would round differently per cut) and a run
+re-meshed from a checkpoint continues as it would have.
 """
 from __future__ import annotations
 
@@ -21,6 +30,9 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
+
+from repro_torch.core import collectives
+from repro_torch.parallel import sharded
 
 Params = Union[nn.Module, Mapping[str, torch.Tensor]]
 
@@ -65,17 +77,44 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+# elements a time in the fp64 sum of squares (bounds its fp64 copy to
+# 128 MiB whatever the tensor; it moves as many bytes a step as an fp32
+# square and sum did)
+_NORM_CHUNK = 1 << 24
+
+
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    flat = g.detach().reshape(-1)
+    total = torch.zeros((), dtype=torch.float64, device=g.device)
+    for part in flat.split(_NORM_CHUNK):
+        norm = torch.linalg.vector_norm(part, dtype=torch.float64)
+        total += norm * norm
+    return total
+
+
+def global_norm(tree: Mapping[str, torch.Tensor], layout=None
+                ) -> torch.Tensor:
+    """The fp32 L2 norm over every tensor of `tree`; with a sharded
+    model's `layout`, over the blocks of the whole tensors its ranks
+    hold."""
     total = None
-    for g in tree.values():
-        sq = torch.sum(torch.square(g.float()))
+    for name, g in tree.items():
+        if layout is not None and not layout.placements[name].owner:
+            continue
+        sq = _sum_squares(g)
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    if total is None:
+        total = torch.zeros((), dtype=torch.float64,
+                            device=next(iter(tree.values())).device)
+    if layout is not None and layout.mesh.size > 1:
+        collectives._all_reduce(total)
+    return torch.sqrt(total).float()
 
 
-def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float
+def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float,
+                        layout=None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    norm = global_norm(tree)
+    norm = global_norm(tree, layout)
     factor = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return {k: (g.float() * factor).to(g.dtype) for k, g in tree.items()}, norm
 
@@ -99,7 +138,8 @@ def apply(cfg: AdamWConfig, params: Params,
     metrics `lr` and, when clipping, `grad_norm` (before clipping)."""
     metrics = {}
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm,
+                                           sharded.layout_of(params))
         metrics["grad_norm"] = gnorm
     step = state.step + 1
     lr = lr_at(cfg, step)

@@ -10,6 +10,14 @@ requests; `make_prefill` runs the forward without remat.
 The reference's step is a pure function that jit donates its buffers to;
 eagerly, the step updates the parameters and the optimizer moments in
 place (`optim.adamw.apply`) and returns the same objects.
+
+On a model sharded by `parallel.sharded.shard_params` the same step runs
+on every rank: each pod takes its rows of the global batch (of each
+microbatch, so the microbatches hold the reference's rows), the loss and
+the gradient blocks are averaged over the pods, and compression and AdamW
+work on the blocks (`sharded`'s docstring has the layout). The reference
+pins the logits' vocab axis to the model axis; activations are whole
+within a pod in the port, so `_constrain_logits` is the identity.
 """
 from __future__ import annotations
 
@@ -22,13 +30,15 @@ from repro_torch.models.matmul import pmm
 from repro_torch.models.model import (decode_step, forward, lm_head_weight,
                                       remat_call)
 from repro_torch.optim import adamw, compress
+from repro_torch.parallel import sharded
 
 LOSS_CHUNK = 512
 
 
 def _constrain_logits(x: torch.Tensor, vocab: int) -> torch.Tensor:
-    """The reference pins the logits' vocab axis to the model axis; on one
-    device there is nothing to pin (as `shard_ctx.constrain_tokens`)."""
+    """The reference pins the logits' vocab axis to the model axis; the
+    port's logits are whole within a pod, so there is nothing to pin (as
+    `shard_ctx.constrain_tokens`)."""
     return x
 
 
@@ -103,13 +113,19 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
     does (so they reach the optimizer in fp32)."""
 
     def train_step(params, opt_state, comp_state, batch):
+        layout = sharded.layout_of(params)
+
+        def share(b):
+            return b if layout is None else sharded.pod_batch(b, layout)
+
         if microbatches > 1:
             micro = {k: v.reshape(microbatches, v.shape[0] // microbatches,
                                   *v.shape[1:]) for k, v in batch.items()}
             loss = grads = None
             for i in range(microbatches):
                 mb_loss, mb_grads = loss_and_grads(
-                    params, {k: v[i] for k, v in micro.items()}, cfg, remat)
+                    params, share({k: v[i] for k, v in micro.items()}), cfg,
+                    remat)
                 if grads is None:
                     loss = mb_loss
                     grads = {k: g.float() for k, g in mb_grads.items()}
@@ -121,10 +137,14 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
             loss = loss / microbatches
             grads = {k: g / microbatches for k, g in grads.items()}
         else:
-            loss, grads = loss_and_grads(params, batch, cfg, remat)
+            loss, grads = loss_and_grads(params, share(batch), cfg, remat)
 
+        if layout is not None:
+            loss = sharded.mean_over_pods(loss, layout)
+            for g in grads.values():
+                sharded.mean_over_pods(g, layout)
         if compress_grads:
-            grads, comp_state = compress.apply(grads, comp_state)
+            grads, comp_state = compress.apply(grads, comp_state, layout)
 
         params, opt_state, metrics = adamw.apply(opt, params, grads, opt_state)
         metrics["loss"] = loss

@@ -65,6 +65,7 @@ from repro_torch.models import shard_ctx as tctx  # noqa: E402
 from repro_torch.obs import set_tracer as tset_tracer  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.optim import compress as tcompress  # noqa: E402
+from repro_torch.parallel import spec_rules as tspec_rules  # noqa: E402
 from repro_torch.train import steps as tsteps  # noqa: E402
 from test_torch_gpu import assert_first_adam_step  # noqa: E402
 
@@ -630,12 +631,43 @@ def test_checkpoint_rejects_mismatched_state(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_heartbeat_staleness_and_no_elastic_reshard(tmp_path):
+    """Heartbeats go stale by mtime; `elastic_reshard` of a state sharded
+    on a 1x1 mesh (a gloo world of one rank, destroyed after) onto another
+    1x1 mesh returns the same state: the same names and tensors, now
+    placed on the new mesh; onto the mesh it is on, the same tensors."""
+    import torch.distributed as dist
+    from repro_torch.parallel import sharded
+
     hb = tft.Heartbeat(str(tmp_path), host=0)
     hb.beat()
     assert tft.Heartbeat.stale_hosts(str(tmp_path), timeout=60) == []
     assert tft.Heartbeat.stale_hosts(str(tmp_path), timeout=-1) == [0]
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tft.elastic_reshard(None, None, None)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = tmesh.make_dist_mesh((1, 1), "cpu")
+        cfg = dataclasses.replace(tconfigs.smoke_config("gemma-2b"),
+                                  dtype=torch.float32)
+        gen = torch.Generator().manual_seed(0)
+        params = sharded.shard_params(tmodel.make_trainable(
+            tmodel.init_params(gen, cfg, "cpu")), mesh)
+        state = (params, tadamw.init(params), tcompress.init(params))
+        for t in state[1].mu.values():
+            t.normal_(generator=gen)
+        want = [(name, t.clone()) for name, t in _flat(state)]
+        same = tft.elastic_reshard(state, mesh)
+        assert all(a.data_ptr() == b.data_ptr() for (_, a), (_, b)
+                   in zip(_flat(same), _flat(state)))
+        other = tmesh.make_dist_mesh((1, 1), "cpu")
+        moved = tft.elastic_reshard(state, other,
+                                    tspec_rules.param_shardings)
+        assert sharded.layout_of(moved[0]).mesh is other
+        got = _flat(moved)
+        assert [n for n, _ in got] == [n for n, _ in want]
+        for (name, a), (_, b) in zip(got, want):
+            assert torch.equal(a, b), name
+    finally:
+        dist.destroy_process_group()
 
 
 def test_run_training_counter_resumes_from_checkpoint(tmp_path):
@@ -712,11 +744,12 @@ def test_train_main_on_cpu_writes_a_resolved_run_report(tmp_path, capsys):
 
 def test_train_without_a_card_raises(monkeypatch):
     """No CPU fallback: without `--device cpu` and with no card, the
-    launcher raises; `--multi-pod` waits for multi-rank training with
-    sharded parameters."""
+    launcher raises; `--multi-pod` outside a world of 512 ranks raises the
+    production mesh's error, which names the world size (no smaller mesh
+    is built in its place)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--arch", "gemma-2b", "--smoke", "--skip-plan-warmup"])
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        ttrain.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
+    with pytest.raises(ValueError, match="needs a world of 512 ranks"):
+        ttrain.main(["--arch", "gemma-2b", "--device", "cpu",
                      "--multi-pod"])

@@ -112,6 +112,7 @@ def main() -> int:
     import chip_smoke
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import shard_ctx
     from repro_torch.models.model import init_params, make_trainable
     from repro_torch.obs import set_tracer
@@ -126,7 +127,8 @@ def main() -> int:
         s = train.setup(train.parse_args(
             ["--arch", args.arch, "--device", "cuda", "--batch", str(BATCH),
              "--seq", str(SEQ), "--plan-cache",
-             str(ROOT / "build" / "grad_leaves_plans")]), cfg=cfg)
+             str(ROOT / "build" / "grad_leaves_plans")]), cfg=cfg,
+            mesh=make_host_mesh("cuda"))
         shard_ctx.set_gemm_context(None)
         set_tracer(None)
         batch = chip_smoke.launcher_batch(torch, s)

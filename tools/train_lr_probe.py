@@ -49,6 +49,7 @@ def main() -> int:
     import chip_smoke
     from repro_torch.configs import get_config
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import shard_ctx
     from repro_torch.obs import set_tracer
     from repro_torch.train import steps
@@ -67,7 +68,8 @@ def main() -> int:
         cfg = (dataclasses.replace(get_config(args.arch),
                                    n_layers=args.layers)
                if args.layers else None)
-        s = train.setup(train.parse_args(argv), cfg=cfg)
+        s = train.setup(train.parse_args(argv), cfg=cfg,
+                        mesh=make_host_mesh("cuda"))
         batch = (chip_smoke.frontend_batch if s.cfg.frontend != "none"
                  else chip_smoke.launcher_batch)(torch, s)
         run = (f"{s.cfg.name} at {s.cfg.n_layers} layers, lr {lr:g} "
