@@ -13,7 +13,11 @@ Phases (any failure exits non-zero and prints no result line):
              column `embed.T` view), a bm = 2 geometry, a non-power-of-two
              geometry, a ragged shape and a strided B; both stream kernels
              must be reached split and unsplit, and both tile kernels (the
-             SIMT one and the tensor-core one); and bf16 at the five
+             SIMT one and the tensor-core one); every instance of the SIMT
+             tile route (narrow, N up to 64: the train router's 64 and the
+             gates' 8; wide; generic: mixed dtypes, a bf16 K of 130) split
+             and unsplit, bitwise repeatable, its split counters left at
+             zero (`check_tile_route`); and bf16 at the five
              gemma-2b train shapes (M = 2048; lm_head per loss chunk, M =
              1024, on `embed.T`) and at their backward's products (da = g
              @ b.T, db = a.T @ g, on the views), which must all take the
@@ -196,6 +200,9 @@ Phases (any failure exits non-zero and prints no result line):
              their bound (the router's: its fp32 `torch.matmul` products);
              and the expert einsums per decode step (both MoE models) and
              per train step, forward and backward, beside their bounds;
+             and the SIMT tile route's record shapes, fp32 and fp8 e4m3
+             at 2048 x 2048 -> 2048, beside fp32 `torch.matmul` or
+             `torch._scaled_mm` and their bounds (`time_simt_records`);
 9. report  — per served model its tok/s, `mmad` ms per step against
              its bound and `torch.matmul`'s, and its held comparisons'
              errors; per trained model its step ms, tokens/s, model FLOP
@@ -225,6 +232,7 @@ T_START = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12          # H100 SXM data sheet: HBM3 bandwidth
 H100_BF16_FLOPS = 989.4e12          # H100 SXM data sheet: dense bf16 tensor
 H100_FP32_FLOPS = 67e12             # H100 SXM data sheet: fp32, CUDA cores
+H100_FP8_FLOPS = 1979e12            # H100 SXM data sheet: dense fp8 tensor
 BATCH, PROMPT, GEN = 4, 32, 32
 SEED = 0
 # the train phase: the longest sequence the ported attention takes without
@@ -575,7 +583,7 @@ def check_kernels(torch, mmad_mod, ref) -> float:
             b = draw((n, k)).T if tb else draw((k, n))
             variant, _, splits = mmad_mod.plan_launch(
                 m, n, k, block, n_sms, mmad_mod.b_layout(b), b.element_size(),
-                mmad_mod.wgmma_b_major(a, b))
+                mmad_mod.wgmma_b_major(a, b), mmad_mod.tile_vectors(a, b))
             reached.add((variant, splits == 1))
             outs = ((torch.float32, torch.bfloat16) if dt == torch.bfloat16
                     else (torch.float32,))
@@ -669,6 +677,171 @@ def check_kernels(torch, mmad_mod, ref) -> float:
           f"(worst err/tol so far {worst:.3f}; the forward against the IEEE "
           f"bound alone {tc_worst:.3f})", flush=True)
     return worst
+
+
+# The SIMT tile route's instances, each split and unsplit: (m, k, n, A
+# dtype, B dtype, instance). The first two are the main path's train router
+# and gates; mixed dtypes and a bf16 K of 130 (rows of 260 bytes) take the
+# generic instance.
+TILE_CASES = [
+    (2048, 2048, 64, "float32", "float32", "narrow64"),
+    (2048, 2048, 8, "float32", "float32", "narrow8"),
+    (16896, 256, 64, "float32", "float32", "narrow64"),
+    (16896, 256, 8, "float32", "float32", "narrow8"),
+    (1000, 512, 16, "float8_e4m3fn", "float8_e4m3fn", "narrow16"),
+    (16896, 256, 16, "float32", "float32", "narrow16"),
+    (300, 1024, 32, "int8", "int8", "narrow32"),
+    (16896, 256, 32, "float32", "float32", "narrow32"),
+    (2048, 2048, 2048, "float32", "float32", "wide"),
+    (256, 2048, 384, "float8_e4m3fn", "float8_e4m3fn", "wide"),
+    (200, 336, 272, "int8", "int8", "wide"),
+    (256, 130, 384, "bfloat16", "bfloat16", "generic"),
+    (4096, 130, 4096, "bfloat16", "bfloat16", "generic"),
+    (256, 512, 384, "float32", "bfloat16", "generic"),
+]
+
+
+def check_tile_route(torch, mmad_mod, ref) -> float:
+    """Every instance of the SIMT tile route, narrow, wide and generic,
+    split and unsplit, through the `mmad` wrapper against the plain
+    version (fp32 out; the router and gates in all three out dtypes): the
+    IEEE tolerance, a second launch bitwise equal, the split counters left
+    at zero. Returns the worst error over its tolerance."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    reached, worst = set(), 0.0
+    for i, (m, k, n, a_name, b_name, instance) in enumerate(TILE_CASES):
+        def draw(shape, dtype):
+            if dtype == torch.int8:
+                return torch.randint(-8, 9, shape, generator=g,
+                                     device=dev).to(dtype)
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        a = draw((m, k), getattr(torch, a_name))
+        b = draw((k, n), getattr(torch, b_name))
+        vector = mmad_mod.tile_vectors(a, b)
+        variant = mmad_mod.plan_launch(
+            m, n, k, (128, 128, 128), n_sms, mmad_mod.b_layout(b),
+            b.element_size(), mmad_mod.wgmma_b_major(a, b), vector)[0]
+        geo = mmad_mod.tile_geometry(m, n, k, a.element_size(),
+                                     b.element_size(), n_sms, vector)
+        if variant != mmad_mod.TILE or geo.instance != instance:
+            fail(f"tile case {m}x{n}x{k} {a_name} x {b_name} would take "
+                 f"variant {variant}, instance {geo.instance}, not "
+                 f"{instance}")
+        reached.add((instance, geo.splits == 1))
+        outs = ((torch.float32, torch.bfloat16, torch.float16) if i < 2
+                else (torch.float32,))
+        for out_dtype in outs:
+            got = mmad_mod.mmad(a, b, (128, 128, 128), out_dtype)
+            want = ref.mmad_ref(a, b, out_dtype)
+            torch.cuda.synchronize()
+            ratio = tolerance_ratio(torch, got, want, k, out_dtype)
+            worst = max(worst, ratio)
+            if not ratio <= 1.0:
+                fail(f"tile {instance} {m}x{n}x{k} {a_name} x {b_name} out="
+                     f"{out_dtype} splits={geo.splits}: error {ratio:.2f}x "
+                     f"its tolerance")
+            if not torch.equal(mmad_mod.mmad(a, b, (128, 128, 128),
+                                             out_dtype), got):
+                fail(f"tile {instance} {m}x{n}x{k}: two launches disagree")
+        torch.cuda.synchronize()
+        if any(int(c.abs().sum()) for c in mmad_mod._counters.values()):
+            fail(f"tile {instance} {m}x{n}x{k}: split counters left nonzero")
+        del a, b, got, want
+    need = {(name, unsplit) for name in mmad_mod.TILE_CONFIGS
+            for unsplit in (False, True)}
+    if need - reached:
+        fail(f"tile instances not reached split and unsplit: "
+             f"{sorted(need - reached)}")
+    print(f"mmad SIMT tile route vs plain: {len(TILE_CASES)} cases, every "
+          f"instance ({', '.join(sorted(mmad_mod.TILE_CONFIGS))}) split and "
+          f"unsplit, agree (worst err/tol {worst:.3f}; rtol 1e-5, atol "
+          f"1e-5*sqrt(K), +1 ulp for bf16 / fp16 out), repeated launches "
+          f"bitwise equal, counters zero", flush=True)
+    torch.cuda.empty_cache()
+    return worst
+
+
+# the SIMT tile route's record shapes: (m, n, k, dtype name), fp32 out
+SIMT_RECORDS = [(2048, 2048, 2048, "float32"),
+                (2048, 2048, 2048, "float8_e4m3fn")]
+
+
+def time_simt_records(torch, mmad_mod, ref, dev, seed: int):
+    """The SIMT tile route's record shapes, off the main path: the kernel's
+    device time (held to the plain version first) beside the plain
+    version's, one library call's (fp32 `torch.matmul`; for fp8 e4m3
+    `torch._scaled_mm` with unit scales and fp32 out, or None where this
+    torch refuses it), the bound (bytes over the HBM rate or operations
+    over the operands' peak: fp32 on the CUDA cores, fp8 on the tensor
+    cores) and the roofline share. Weights rotate past the L2."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for m, n, k, dtype_name in SIMT_RECORDS:
+        dtype = getattr(torch, dtype_name)
+        size = dtype.itemsize
+        a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+        copies = max(1, math.ceil(120e6 / (k * n * size)))
+        ws = [torch.randn((k, n), generator=g, device=dev).to(dtype)
+              for _ in range(copies)]
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % copies
+            return ws[it["i"]]
+
+        geo = mmad_mod.tile_geometry(m, n, k, size, size, n_sms,
+                                     mmad_mod.tile_vectors(a, ws[0]))
+        got = mmad_mod.mmad(a, ws[0], (128, 128, 128), torch.float32)
+        want = ref.mmad_ref(a, ws[0], torch.float32)
+        ratio = tolerance_ratio(torch, got, want, k, torch.float32)
+        if not ratio <= 1.0:
+            fail(f"SIMT record {m}x{n}x{k} {dtype_name}: error {ratio:.2f}x "
+                 f"its tolerance")
+
+        def timed(fn):
+            return device_ms(torch, fn, iters=5, warmup=1)
+
+        if dtype == torch.float8_e4m3fn:
+            one = torch.ones((), device=dev)
+            cols = [w.T.contiguous().T for w in ws]     # B column-major
+
+            def scaled():
+                it["i"] = (it["i"] + 1) % copies
+                return torch._scaled_mm(a, cols[it["i"]], one, one,
+                                        out_dtype=torch.float32)
+            try:
+                scaled()
+                library_ms = timed(scaled)
+            except (RuntimeError, TypeError):
+                library_ms = None
+            del cols
+            peak = H100_FP8_FLOPS
+        else:
+            library_ms = timed(lambda: torch.matmul(a, nxt()))
+            peak = H100_FP32_FLOPS
+        kernel_ms = timed(lambda: mmad_mod.mmad(a, nxt(), (128, 128, 128),
+                                                torch.float32))
+        t_bytes = ((m * k + k * n) * size + m * n * 4) / H100_BYTES_PER_S * 1e3
+        t_ops = 2 * m * n * k / peak * 1e3
+        row = {"shape": [m, n, k], "dtype": dtype_name,
+               "instance": geo.instance, "splits": geo.splits,
+               "kernel_ms": kernel_ms,
+               "plain_ms": timed(lambda: ref.mmad_ref(a, nxt(),
+                                                      torch.float32)),
+               "library_ms": library_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "roofline_share": max(t_bytes, t_ops) / kernel_ms,
+               "max_abs_err": float((got - want).abs().max()),
+               "err_over_tolerance": ratio}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del a, ws, got, want
+    torch.cuda.empty_cache()
+    return rows
 
 
 def shape_operands(torch, mmad_mod, ref, cfg, m, n, k, block, dtype, g, dev,
@@ -922,7 +1095,7 @@ def busy_share(torch, params, cfg, planner, prompts, dev,
     edges = edge_kernels_kept(torch, prof)
     kernels = device_kernels(torch, prof)
     busy_ms = sum(us for us, _, _ in kernels) / 1e3 / GEN
-    reduce = [name for _, _, name in kernels if "mmad_splitk_reduce" in name]
+    reduce = [name for _, _, name in kernels if SPLITK_REDUCE_KERNEL in name]
     if reduce:
         fail(f"the decode window launched {reduce}")
     mmad_calls = sum(count for _, count, name in kernels if "mmad" in name)
@@ -1965,6 +2138,8 @@ def check_fp32_trajectory(losses, norms, ref_losses, ref_norms) -> None:
 
 TENSOR_CORE_KERNEL = "mmad_wgmma_kernel"
 SIMT_TILE_KERNEL = "mmad_tile_kernel"
+# the second kernel the SIMT tile route launched for a K split before it
+# fixed splits up in the same launch: a profile that shows it fails
 SPLITK_REDUCE_KERNEL = "mmad_splitk_reduce"
 # substrings of the names of cuBLAS's and CUTLASS's GEMM kernels, and of
 # those among them that read fp32 operands: on an H100 (torch 2.11, CUDA
@@ -1992,10 +2167,10 @@ def train_profile(torch, mmad_mod, s, state, batch, dev,
     """One more step under a device-only profile: busy and wall time from
     one window; every mmad kernel must be the tensor-core kernel, as many
     as the step's launches (one per routed dispatch and two per backward
-    call; it fixes a K split up in the same launch, so no reduce kernel
-    runs), except the `simt_per_step` fp32 launches of an MoE router, which
-    run the SIMT tile kernel (each followed by at most one split-K reduce
-    kernel). The library GEMM kernels that take fp32 operands on the CUDA
+    call), except the `simt_per_step` fp32 launches of an MoE router or
+    xLSTM's gates, which run the SIMT tile kernel; both fix a K split up in
+    the same launch, so no split-K reduce kernel may run. The library GEMM
+    kernels that take fp32 operands on the CUDA
     cores must be exactly those the reference computes in fp32: the
     router's backward, two `torch.matmul` products per fp32 backward call,
     and the MoE combine weights' einsum, once per route call (one per
@@ -2028,7 +2203,7 @@ def train_profile(torch, mmad_mod, s, state, batch, dev,
     if other:
         fail(f"the train step launched other mmad kernels: {other}")
     if (tiles != launches_per_step - simt_per_step or simt != simt_per_step
-            or reduces > simt):
+            or reduces):
         fail(f"{tiles} tensor-core, {simt} SIMT tile and {reduces} reduce "
              f"kernels ran in a step of {launches_per_step} mmad launches, "
              f"{simt_per_step} of them fp32")
@@ -2057,7 +2232,8 @@ def train_profile(torch, mmad_mod, s, state, batch, dev,
               f"{name[:80]}", flush=True)
     print(f"profiled train step: device busy {busy_ms:.3f} ms ({mmad_ms:.3f} "
           f"ms in mmad: {tiles} tensor-core kernels, {simt} SIMT tile "
-          f"kernels + {reduces} reduces taking {simt_ms:.3f} ms; "
+          f"kernels taking {simt_ms:.3f} ms, {reduces} split-K reduce "
+          f"kernels; "
           f"{want_fp32} fp32 library GEMMs {fp32_ms:.3f} ms) "
           f"against {wall_ms:.3f} ms wall in the same window: busy share "
           f"{busy_ms / wall_ms:.1%}; the profile kept {edges[0]} + "
@@ -3572,6 +3748,7 @@ def main() -> int:
 
     phase("kernels vs plain")
     check_kernels(torch, mmad_mod, ref)
+    check_tile_route(torch, mmad_mod, ref)
 
     phase("serve gemma-2b")
     from repro_torch.configs import get_config
@@ -3702,6 +3879,7 @@ def main() -> int:
     moe_experts = time_expert_einsums(torch, moe_cfg, dev, SEED + 9,
                                       tokens=TRAIN_BATCH * TRAIN_SEQ,
                                       train=True)
+    simt_records = time_simt_records(torch, mmad_mod, ref, dev, SEED + 41)
     # every distinct shape of both traffic replays, once, held to the plain
     # version on random operands as the dispatch lays them out (an untied
     # (k, n) weight, lm_head too)
@@ -3792,6 +3970,15 @@ def main() -> int:
                                  f"layers, batch {TRAIN_BATCH} x seq "
                                  f"{TRAIN_SEQ}", moe_launches * TRAIN_STEPS,
                                  moe_rows)
+    moe_entry["simt_router"]["records"] = simt_records
+    for r in simt_records:
+        library = ("refused" if r["library_ms"] is None
+                   else f"{r['library_ms'] * 1e3:.1f} us")
+        print(f"SIMT tile route record {r['shape']} {r['dtype']} "
+              f"({r['instance']}): {r['kernel_ms'] * 1e3:.1f} us (bound "
+              f"{r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}, share "
+              f"{r['roofline_share']:.1%}; library {library}; plain "
+              f"{r['plain_ms'] * 1e3:.1f} us)", flush=True)
     print_train_path(f"deepseek-moe-16b ({MOE_TRAIN_LAYERS} layers)",
                      moe_launches, moe_summary, moe_entry,
                      simt_text(moe_entry["simt_router"], "router")

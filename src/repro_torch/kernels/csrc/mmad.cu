@@ -14,10 +14,9 @@
 // whose rows (row stream) or columns (column stream, embed.T) are contiguous
 // and 16-byte aligned: every decode GEMM. A tensor-core tile kernel (wgmma
 // fed by TMA) for more rows of bf16 or fp16 operands that a tensor map can
-// describe: every train GEMM. A 64 x 64 SIMT tile kernel for the rest (fp32,
-// fp8 e4m3 and int8 inputs, mixed dtypes, strides TMA cannot describe),
-// which stages fp32 tiles in shared memory, takes any strides, and sums a K
-// split in a second kernel (mmad_splitk_reduce).
+// describe: every train GEMM. A SIMT tile kernel for the rest (fp32, fp8
+// e4m3 and int8 inputs, mixed dtypes, strides TMA cannot describe): on the
+// main path the fp32 MoE router and xLSTM gates in training.
 //
 // What bounds the decode GEMMs on this card: at M = 4 the product reads the
 // weight B once and does 8 FLOPs per weight element, far below the H100's
@@ -78,9 +77,41 @@
 //     an eighth of the card (gemma-2b's k/v projection, 16 tiles: 23.5 us
 //     unsplit, 62.8 / 74.0 / 133 us at 2 / 4 / 8 splits).
 //
-// The plan's block geometry does not shape the stream kernels or the
-// tensor-core kernel; the SIMT tile kernel reads only bk, as its split-K
-// unit.
+// What bounds the SIMT tile route's main-path GEMMs: the train router (A
+// 2048 x 2048 fp32 against a 2048 x 64 weight) is 32 FLOP per byte of A,
+// above the CUDA cores' ridge (67 TFLOPS fp32 over 3.35 TB/s, 20 FLOP per
+// byte, counting A once), so operations bound it (8.0 us); the gates (N =
+// 8) are 4 FLOP per byte, bound by A's bytes (5.0 us). A is the one large
+// operand and N is narrow. What the route does about it:
+//
+//   * a CTA tile sized by N: narrow instances (N <= 64) are 64 rows tall
+//     and as wide as N rounded up to a power of two (8, 16, 32 or 64), so
+//     no column is computed to be masked and A is streamed once; a wide
+//     instance, 128 x 128, takes the rest. A CTA's 256 threads hold 8 x 8
+//     (or, narrower, 8 x TN / 8) register blocks and form K slices, each
+//     summing its share of every stage, so a narrow tile still has 256
+//     threads; the slices meet in shared memory at the end;
+//   * operands through a ring, not through registers: each stage, TILE_BK
+//     = 32 k of A's rows and B's, is copied by 16-byte cp.async (zero-fill
+//     past an edge) with STAGES - 1 stages in flight while one is summed,
+//     one barrier a stage; fp32, bf16, fp16, fp8 e4m3 and int8 are
+//     compile-time pairs of one dtype, converted to fp32 as they are read
+//     from shared memory. Mixed dtypes and strides that deny 16-byte
+//     vectors take one generic instance: scalar loads with runtime dtypes,
+//     fetched into registers while the current stage is summed;
+//   * K split from the shape and the SM count (kernels/mmad.py:
+//     tile_geometry), in whole stages, until the CTAs fill the slots the
+//     instance keeps on each SM: the router's narrow-64 instance takes up
+//     to 255 registers and runs one CTA an SM (4 splits, 128 CTAs, no
+//     spills: on an H100 23.1 us, against 27.3 us at two CTAs an SM with
+//     128 registers and 8 splits); the gates' two (8 splits, 256 CTAs). Every
+//     split writes a whole fp32 partial tile, counts its arrival on the
+//     tile's counter, and the last to arrive sums the partials in split
+//     order and writes C: one kernel a call, bitwise repeatable.
+//
+// No variant reads the plan's block geometry: the stream kernels' tiles,
+// splits and rings, the tensor-core kernel's tile and the SIMT tile route's
+// instance and split are their own.
 //
 // Numerics: every operand element converts exactly to fp32 (fp32, bf16,
 // fp16, fp8 e4m3, int8), and the output is rounded once to out_dtype. On
@@ -139,141 +170,6 @@ __device__ __forceinline__ void store_any(void* p, long long i, int dt, float v)
   } else {
     static_cast<__half*>(p)[i] = __float2half(v);
   }
-}
-
-// A thread's share of an R x C tile: element i sits at (r0 + i*dr, c0 + i*dc).
-// Threads run fastest along the operand's contiguous dim, so a warp reads
-// consecutive addresses, and each thread's addresses advance by one fixed
-// stride (one 64-bit offset per operand, not one per element).
-struct TileWalk {
-  int r0, c0, dr, dc;
-  __device__ TileWalk(int tid, int R, int C, int NT, bool col_fast) {
-    if (col_fast) {
-      r0 = tid / C; c0 = tid % C; dr = NT / C; dc = 0;
-    } else {
-      r0 = tid % R; c0 = tid / R; dr = 0; dc = NT / R;
-    }
-  }
-};
-
-// One CTA computes a BM x BN tile of C over K range [kbeg, kend).
-// Thread (ty, tx) owns rows ty + i*RY (i < TM) and cols tx + j*TX (j < TN).
-template <int BM, int BN, int BK, int TM, int TN, typename TB>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-mmad_tile_kernel(const void* __restrict__ A, const TB* __restrict__ B,
-                 void* __restrict__ C, float* __restrict__ ws, int a_dt, int c_dt,
-                 long long M, long long N, long long K, long long sam, long long sak,
-                 long long sbk, long long sbn, long long kps, int splits) {
-  constexpr int RY = BM / TM;          // thread rows
-  constexpr int TX = BN / TN;          // thread cols
-  constexpr int NT = RY * TX;
-  constexpr int A_PT = BM * BK / NT;
-  constexpr int B_PT = BK * BN / NT;
-  static_assert(BM * BK % NT == 0 && BK * BN % NT == 0, "tile / thread split");
-  static_assert(NT % BM == 0 && NT % BK == 0 && NT % BN == 0, "tile walks");
-  // +1 padding: loads that run fastest along k store down a column without
-  // bank conflicts, and row reads stay conflict-free
-  __shared__ float As[BK][BM + 1];     // A tile, k-major
-  __shared__ float Bs[BK][BN + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const long long m0 = static_cast<long long>(blockIdx.y) * BM;
-  const long long n0 = static_cast<long long>(blockIdx.x) * BN;
-  const long long kbeg = static_cast<long long>(blockIdx.z) * kps;
-  const long long kend = (kbeg + kps < K) ? kbeg + kps : K;
-
-  // A tile: rows m, cols k; B tile: rows k, cols n
-  const TileWalk wa(tid, BM, BK, NT, sak == 1 && sam != 1);
-  const TileWalk wb(tid, BK, BN, NT, !(sbk == 1 && sbn != 1));
-  const long long a_base = (m0 + wa.r0) * sam + wa.c0 * sak;
-  const long long a_step = wa.dr * sam + wa.dc * sak;
-  const long long b_base = wb.r0 * sbk + (n0 + wb.c0) * sbn;
-  const long long b_step = wb.dr * sbk + wb.dc * sbn;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  float ra[A_PT];
-  float rb[B_PT];
-
-  auto load = [&](long long k0) {
-    const long long a_off = a_base + k0 * sak;
-#pragma unroll
-    for (int i = 0; i < A_PT; ++i) {
-      const bool ok = m0 + wa.r0 + i * wa.dr < M && k0 + wa.c0 + i * wa.dc < kend;
-      ra[i] = ok ? load_any(A, a_off + i * a_step, a_dt) : 0.f;
-    }
-    const TB* bp = B + b_base + k0 * sbk;
-#pragma unroll
-    for (int i = 0; i < B_PT; ++i) {
-      const bool ok = k0 + wb.r0 + i * wb.dr < kend && n0 + wb.c0 + i * wb.dc < N;
-      rb[i] = ok ? to_f32<TB>(bp[i * b_step]) : 0.f;
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < A_PT; ++i) As[wa.c0 + i * wa.dc][wa.r0 + i * wa.dr] = ra[i];
-#pragma unroll
-    for (int i = 0; i < B_PT; ++i) Bs[wb.r0 + i * wb.dr][wb.c0 + i * wb.dc] = rb[i];
-  };
-
-  if (kbeg < kend) {
-    load(kbeg);
-    store();
-    __syncthreads();
-    for (long long k0 = kbeg; k0 < kend; k0 += BK) {
-      const bool more = k0 + BK < kend;
-      if (more) load(k0 + BK);           // next tile's loads fly during compute
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = As[kk][ty + i * RY];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx + j * TX];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-      if (more) {
-        store();
-        __syncthreads();
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty + i * RY;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const long long n = n0 + tx + j * TX;
-      if (m < M && n < N) {
-        if (splits == 1) {
-          store_any(C, m * N + n, c_dt, acc[i][j]);
-        } else {
-          ws[(static_cast<long long>(blockIdx.z) * M + m) * N + n] = acc[i][j];
-        }
-      }
-    }
-  }
-}
-
-// Sum the split-K partials in split order and cast to out_dtype.
-__global__ void mmad_splitk_reduce(const float* __restrict__ ws, void* __restrict__ C,
-                                   int c_dt, long long MN, int splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += ws[z * MN + i];
-  store_any(C, i, c_dt, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1093,26 +989,477 @@ int launch_wgmma(const StreamArgs& p, cudaStream_t stream) {
   return 0;
 }
 
-// variant 0: tile, 64 x 64, a 4 x 4 register block per thread, split K
-// summed by mmad_splitk_reduce; variant 1: row stream (B n-contiguous,
-// 16-byte aligned); variant 2: column stream (B k-contiguous, 16-byte
-// aligned); variant 3 (launch_wgmma): tensor cores, K not split. The
-// stream variants fix their split up themselves.
-template <typename TB>
-int launch_typed(int variant, const StreamArgs& p, int grid_x, cudaStream_t stream) {
-  if (variant == 1 || variant == 2) return launch_stream<TB>(variant, p, grid_x, stream);
-  constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.splits);
-  mmad_tile_kernel<BM, BN, BK, TM, TN, TB><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
-      p.A, static_cast<const TB*>(p.B), p.C, p.ws, p.a_dt, p.c_dt, p.M, p.N, p.K, p.sam,
-      p.sak, p.sbk, p.sbn, p.kps, p.splits);
-  if (p.splits > 1) {
-    const long long mn = p.M * p.N;
-    const int threads = 256;
-    mmad_splitk_reduce<<<static_cast<unsigned>((mn + threads - 1) / threads), threads, 0,
-                         stream>>>(p.ws, p.C, p.c_dt, mn, p.splits);
+// ---------------------------------------------------------------------------
+// SIMT tile route: what neither the stream kernels nor the tensor cores take
+// (fp32, fp8 e4m3 and int8 operands, mixed dtypes, strides no tensor map
+// describes), summed in IEEE fp32 FMAs on the CUDA cores. A CTA of
+// TILE_NT threads computes a BM x BN tile of C over its split's K range in
+// TILE_BK-deep stages; its threads form KS K slices, each slice summing
+// its BK / KS k of every stage into a TM x TN register block per thread,
+// and the slices meet in shared memory at the end. A K split is fixed up
+// in the same launch (arrive_last, as the stream kernels do).
+// ---------------------------------------------------------------------------
+
+constexpr int TILE_NT = 256;
+constexpr int TILE_BK = 32;
+
+// Instance codes and shapes, mirrored by kernels/mmad.py:TILE_CONFIGS.
+// min_ctas is what __launch_bounds__ asks an SM to keep resident (it caps
+// the registers: one CTA lets the 8 x 8 instances use up to 255, no spills)
+// and the slots kernels/mmad.py:_balanced_splits fills.
+enum TileInst : int { T_GENERIC = 0, T_NARROW8, T_NARROW16, T_NARROW32, T_NARROW64, T_WIDE };
+struct TileCfg {
+  int bm, bn, tm, tn, ks, stages, min_ctas;
+};
+constexpr TileCfg TILE_CFGS[] = {
+    // bm   bn  tm  tn  ks stages min_ctas
+    {64, 64, 4, 4, 1, 2, 2},      // generic: scalar loads, runtime dtypes, any strides
+    {64, 8, 1, 8, 4, 4, 2},       // narrow: N <= 8
+    {64, 16, 2, 8, 4, 4, 2},      // narrow: N <= 16
+    {64, 32, 4, 8, 4, 4, 2},      // narrow: N <= 32
+    {64, 64, 8, 8, 4, 4, 1},      // narrow: N <= 64
+    {128, 128, 8, 8, 1, 3, 1},    // wide
+};
+
+struct TileArgs {
+  const void* A;
+  const void* B;
+  void* C;
+  float* ws;          // fp32 partials of a K split: (tiles, splits, BM, BN)
+  int* counters;      // one arrival counter per output tile; zero between launches
+  int a_dt, b_dt, c_dt;
+  long long M, N, K, sam, sak, sbk, sbn;
+  long long kps;      // k per split, a whole number of TILE_BK unless unsplit
+  int splits;
+};
+
+// Shared-memory layout of one instance: a ring of stages, each an A tile
+// (BM rows of TILE_BK k, row-major, rows one 16-byte bank group apart) and
+// a B tile (TILE_BK rows of BN n); after the loop the same memory holds the
+// slices' fp32 sums, KS x BM rows of BN (+ 4) columns.
+template <int INST, typename SA, typename SB>
+struct TileSmem {
+  static constexpr TileCfg C = TILE_CFGS[INST];
+  static constexpr int A_PITCH = TILE_BK * static_cast<int>(sizeof(SA)) + 16;
+  static constexpr int B_PITCH = C.bn * static_cast<int>(sizeof(SB));
+  static constexpr int A_BYTES = C.bm * A_PITCH;
+  static constexpr int STAGE_BYTES = A_BYTES + TILE_BK * B_PITCH;
+  static constexpr int R_PITCH = C.bn + 4;                      // floats
+  static constexpr int RING = C.stages * STAGE_BYTES;
+  static constexpr int RED = C.ks * C.bm * R_PITCH * 4;
+  static constexpr int BYTES = RING > RED ? RING : RED;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Four consecutive elements of shared memory as fp32, exactly.
+template <typename T>
+__device__ __forceinline__ void ld4(const unsigned char* p, float* o);
+template <>
+__device__ __forceinline__ void ld4<float>(const unsigned char* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void ld4<__nv_bfloat16>(const unsigned char* p, float* o) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  o[0] = __uint_as_float(v.x << 16);
+  o[1] = __uint_as_float(v.x & 0xffff0000u);
+  o[2] = __uint_as_float(v.y << 16);
+  o[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+template <>
+__device__ __forceinline__ void ld4<__half>(const unsigned char* p, float* o) {
+  const __half2* h = reinterpret_cast<const __half2*>(p);
+  const float2 lo = __half22float2(h[0]);
+  const float2 hi = __half22float2(h[1]);
+  o[0] = lo.x;
+  o[1] = lo.y;
+  o[2] = hi.x;
+  o[3] = hi.y;
+}
+template <>
+__device__ __forceinline__ void ld4<__nv_fp8_e4m3>(const unsigned char* p, float* o) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {    // e4m3 -> fp16 is exact
+    const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>((v >> (16 * h)) & 0xffffu), __NV_E4M3);
+    const float2 f = __half22float2(__half2(r));
+    o[2 * h] = f.x;
+    o[2 * h + 1] = f.y;
   }
+}
+template <>
+__device__ __forceinline__ void ld4<int8_t>(const unsigned char* p, float* o) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] = static_cast<float>(static_cast<int8_t>(v >> (8 * e)));
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4& x) {
+  s.x += x.x;
+  s.y += x.y;
+  s.z += x.z;
+  s.w += x.w;
+}
+
+// Row m, columns n..n+3 of C, each rounded once to c_dt; columns past N are
+// dropped, rows past M too.
+__device__ __forceinline__ void store_quad(const TileArgs& p, long long m, long long n,
+                                           const float4& v) {
+  if (m >= p.M) return;
+  const long long i = m * p.N + n;
+  if ((p.N & 3) == 0 && n + 3 < p.N) {          // 4-aligned within an aligned C
+    if (p.c_dt == F32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(p.C) + i) = v;
+    } else {
+      store_pair(p.C, i, p.c_dt, v.x, v.y);
+      store_pair(p.C, i + 2, p.c_dt, v.z, v.w);
+    }
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (n + j < p.N) store_any(p.C, i + j, p.c_dt, e[j]);
+}
+
+// A thread's share of an R x C tile: element i sits at (r0 + i*dr, c0 + i*dc).
+// Threads run fastest along the operand's contiguous dim, so a warp reads
+// consecutive addresses (the generic instance's scalar loads).
+struct TileWalk {
+  int r0, c0, dr, dc;
+  __device__ TileWalk(int tid, int R, int C, int NT, bool col_fast) {
+    if (col_fast) {
+      r0 = tid / C; c0 = tid % C; dr = NT / C; dc = 0;
+    } else {
+      r0 = tid % R; c0 = tid / R; dr = 0; dc = NT / R;
+    }
+  }
+};
+
+// One CTA: the BM x BN tile (blockIdx.y, blockIdx.x) of C over K range
+// [z kps, min((z + 1) kps, K)), z = blockIdx.z. Vector instances (SA, SB
+// the operands' own one dtype; A K-contiguous and B N-contiguous, 16-byte
+// aligned rows) copy each stage into the ring with 16-byte cp.async,
+// STAGES - 1 stages in flight while one is summed, one barrier a stage;
+// ragged edges are zero-filled by the copies' source sizes. The generic
+// instance (SA = SB = float) loads scalars of any dtype and stride into
+// registers while the current stage is summed and stores them as fp32
+// after. Thread (slice, ty, tx) owns rows ty + i*RY (i < TM) and the
+// 4-column groups tx + j*TX (j < TN/4) of the tile.
+template <int INST, typename SA, typename SB>
+__global__ void __launch_bounds__(TILE_NT, TILE_CFGS[INST].min_ctas)
+    mmad_tile_kernel(const TileArgs p) {
+  using L = TileSmem<INST, SA, SB>;
+  constexpr TileCfg C = TILE_CFGS[INST];
+  constexpr int BM = C.bm, BN = C.bn, TM = C.tm, TN = C.tn, KS = C.ks, STAGES = C.stages;
+  constexpr int BK = TILE_BK;
+  constexpr int TX = BN / TN, RY = BM / TM, TPS = TX * RY;    // threads per K slice
+  constexpr int BKS = BK / KS;                                 // k per slice per stage
+  constexpr bool GENERIC = INST == T_GENERIC;
+  static_assert(TPS * KS == TILE_NT && BKS % 4 == 0 && TN % 4 == 0, "tile shape");
+  static_assert(!GENERIC || (std::is_same<SA, float>::value && std::is_same<SB, float>::value),
+                "the generic instance stages fp32");
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  __shared__ int last;
+
+  const int tid = threadIdx.x;
+  const int slice = tid / TPS, ts = tid % TPS, tx = ts % TX, ty = ts / TX;
+  const long long m0 = static_cast<long long>(blockIdx.y) * BM;
+  const long long n0 = static_cast<long long>(blockIdx.x) * BN;
+  const long long kbeg = static_cast<long long>(blockIdx.z) * p.kps;
+  const long long kend = (kbeg + p.kps < p.K) ? kbeg + p.kps : p.K;
+  const int nk = kbeg < kend ? static_cast<int>((kend - kbeg + BK - 1) / BK) : 0;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  // sums stage `it` of this slice's k into the register block
+  auto compute = [&](int it) {
+    const unsigned char* st = tile_smem + (it % STAGES) * L::STAGE_BYTES;
+    const unsigned char* as = st + ty * L::A_PITCH + slice * BKS * sizeof(SA);
+    const unsigned char* bs =
+        st + L::A_BYTES + slice * BKS * L::B_PITCH + tx * 4 * sizeof(SB);
+#pragma unroll
+    for (int kq = 0; kq < BKS; kq += 4) {
+      float a[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) ld4<SA>(as + i * RY * L::A_PITCH + kq * sizeof(SA), a[i]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[TN];
+#pragma unroll
+        for (int j = 0; j < TN / 4; ++j)
+          ld4<SB>(bs + (kq + kk) * L::B_PITCH + j * TX * 4 * sizeof(SB), b + 4 * j);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
+    }
+  };
+
+  if constexpr (!GENERIC) {
+    constexpr int VA = 16 / sizeof(SA), CPA = BK / VA;          // 16-byte chunks per A row
+    constexpr int VB = 16 / sizeof(SB), CPB = BN / VB;          // and per B row
+    static_assert(CPB >= 1, "a B row of the tile is at least 16 bytes");
+    const SA* A = static_cast<const SA*>(p.A);
+    const SB* B = static_cast<const SB*>(p.B);
+    // stage it's copies into its slot; a chunk past an edge copies 0..15
+    // bytes and zero-fills the rest
+    auto issue = [&](int it) {
+      unsigned char* st = tile_smem + (it % STAGES) * L::STAGE_BYTES;
+      const long long k0 = kbeg + static_cast<long long>(it) * BK;
+#pragma unroll
+      for (int u = 0; u < (BM * CPA + TILE_NT - 1) / TILE_NT; ++u) {
+        const int c = tid + u * TILE_NT;
+        if ((BM * CPA) % TILE_NT == 0 || c < BM * CPA) {
+          const int r = c / CPA, ch = c % CPA;
+          const long long m = m0 + r, k = k0 + ch * VA;
+          const long long left = kend - k;
+          const int valid = (m < p.M && left > 0) ? static_cast<int>(left < VA ? left : VA) : 0;
+          cp_async16(st + r * L::A_PITCH + ch * 16, valid ? A + m * p.sam + k : A,
+                     valid * static_cast<int>(sizeof(SA)));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < (BK * CPB + TILE_NT - 1) / TILE_NT; ++u) {
+        const int c = tid + u * TILE_NT;
+        if ((BK * CPB) % TILE_NT == 0 || c < BK * CPB) {
+          const int r = c / CPB, ch = c % CPB;
+          const long long k = k0 + r, n = n0 + ch * VB;
+          const long long left = p.N - n;
+          const int valid = (k < kend && left > 0) ? static_cast<int>(left < VB ? left : VB) : 0;
+          cp_async16(st + L::A_BYTES + r * L::B_PITCH + ch * 16, valid ? B + k * p.sbk + n : B,
+                     valid * static_cast<int>(sizeof(SB)));
+        }
+      }
+    };
+#pragma unroll 1
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nk) issue(s);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int it = 0; it < nk; ++it) {
+      cp_async_wait<STAGES - 2>();       // this thread's copies of stage it landed
+      __syncthreads();                   // everyone's; and stage it - 1 is summed
+      if (it + STAGES - 1 < nk) issue(it + STAGES - 1);   // into stage it - 1's slot
+      cp_async_commit();
+      compute(it);
+    }
+    cp_async_wait<0>();
+  } else {
+    constexpr int A_PT = BM * BK / TILE_NT, B_PT = BK * BN / TILE_NT;
+    static_assert(STAGES == 2, "the generic instance double-buffers");
+    const TileWalk wa(tid, BM, BK, TILE_NT, p.sak == 1 && p.sam != 1);
+    const TileWalk wb(tid, BK, BN, TILE_NT, !(p.sbk == 1 && p.sbn != 1));
+    const long long a_base = (m0 + wa.r0) * p.sam + wa.c0 * p.sak;
+    const long long a_step = wa.dr * p.sam + wa.dc * p.sak;
+    const long long b_base = wb.r0 * p.sbk + (n0 + wb.c0) * p.sbn;
+    const long long b_step = wb.dr * p.sbk + wb.dc * p.sbn;
+    float ra[A_PT], rb[B_PT];
+    auto fetch = [&](int it) {
+      const long long k0 = kbeg + static_cast<long long>(it) * BK;
+#pragma unroll
+      for (int i = 0; i < A_PT; ++i) {
+        const bool ok = m0 + wa.r0 + i * wa.dr < p.M && k0 + wa.c0 + i * wa.dc < kend;
+        ra[i] = ok ? load_any(p.A, a_base + k0 * p.sak + i * a_step, p.a_dt) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < B_PT; ++i) {
+        const bool ok = k0 + wb.r0 + i * wb.dr < kend && n0 + wb.c0 + i * wb.dc < p.N;
+        rb[i] = ok ? load_any(p.B, b_base + k0 * p.sbk + i * b_step, p.b_dt) : 0.f;
+      }
+    };
+    auto deposit = [&](int it) {
+      unsigned char* st = tile_smem + (it % STAGES) * L::STAGE_BYTES;
+      float* as = reinterpret_cast<float*>(st);
+      float* bs = reinterpret_cast<float*>(st + L::A_BYTES);
+#pragma unroll
+      for (int i = 0; i < A_PT; ++i)
+        as[(wa.r0 + i * wa.dr) * (L::A_PITCH / 4) + wa.c0 + i * wa.dc] = ra[i];
+#pragma unroll
+      for (int i = 0; i < B_PT; ++i) bs[(wb.r0 + i * wb.dr) * BN + wb.c0 + i * wb.dc] = rb[i];
+    };
+    if (nk > 0) {
+      fetch(0);
+      deposit(0);
+    }
+#pragma unroll 1
+    for (int it = 0; it < nk; ++it) {
+      __syncthreads();                   // stage it stored; stage it - 1 summed
+      const bool more = it + 1 < nk;
+      if (more) fetch(it + 1);           // its loads fly while stage it is summed
+      compute(it);
+      if (more) deposit(it + 1);         // into stage it - 1's slot
+    }
+  }
+  __syncthreads();                       // the ring is free for the slices' sums
+
+  float* red = reinterpret_cast<float*>(tile_smem);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN / 4; ++j)
+      *reinterpret_cast<float4*>(red + (slice * BM + ty + i * RY) * L::R_PITCH + tx * 4 +
+                                 j * TX * 4) =
+          make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+  __syncthreads();
+
+  // the tile in 4-column quads, QPT a thread: the slices' sums in slice order
+  constexpr int QPR = BN / 4, QUADS = BM * QPR, QPT = (QUADS + TILE_NT - 1) / TILE_NT;
+  float4 v[QPT];
+#pragma unroll
+  for (int q = 0; q < QPT; ++q) {
+    const int idx = tid + q * TILE_NT;
+    v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (QUADS % TILE_NT == 0 || idx < QUADS) {
+      const int r = idx / QPR, c = (idx % QPR) * 4;
+      v[q] = *reinterpret_cast<const float4*>(red + r * L::R_PITCH + c);
+#pragma unroll
+      for (int s = 1; s < KS; ++s)
+        add4(v[q], *reinterpret_cast<const float4*>(red + (s * BM + r) * L::R_PITCH + c));
+    }
+  }
+  auto in_tile = [&](int q) { return QUADS % TILE_NT == 0 || tid + q * TILE_NT < QUADS; };
+  auto row_of = [&](int q) { return m0 + (tid + q * TILE_NT) / QPR; };
+  auto col_of = [&](int q) { return n0 + ((tid + q * TILE_NT) % QPR) * 4; };
+
+  const int splits = static_cast<int>(gridDim.z);
+  if (splits == 1) {
+#pragma unroll
+    for (int q = 0; q < QPT; ++q)
+      if (in_tile(q)) store_quad(p, row_of(q), col_of(q), v[q]);
+    return;
+  }
+  // the tile's partials, (splits, BM, BN) fp32, a whole tile each
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  float* part = p.ws + static_cast<long long>(tile) * splits * (BM * BN);
+#pragma unroll
+  for (int q = 0; q < QPT; ++q)
+    if (in_tile(q))
+      __stcg(reinterpret_cast<float4*>(part + static_cast<long long>(blockIdx.z) * (BM * BN)) +
+                 tid + q * TILE_NT,
+             v[q]);
+  __syncthreads();                       // the CTA's partial is written
+  if (tid == 0) last = arrive_last(&p.counters[tile], splits);
+  __syncthreads();
+  if (!last) return;
+  // the last split to arrive sums every split's partial in split order,
+  // ZB splits' loads in flight before any is added
+  constexpr int ZB = QPT >= 16 ? 1 : 16 / QPT;
+#pragma unroll
+  for (int q = 0; q < QPT; ++q) v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int z0 = 0; z0 < splits; z0 += ZB) {
+    float4 t[ZB][QPT];
+#pragma unroll
+    for (int zz = 0; zz < ZB; ++zz)
+#pragma unroll
+      for (int q = 0; q < QPT; ++q)
+        t[zz][q] = (z0 + zz < splits && in_tile(q))
+                       ? __ldcg(reinterpret_cast<const float4*>(
+                                    part + static_cast<long long>(z0 + zz) * (BM * BN)) +
+                                tid + q * TILE_NT)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int zz = 0; zz < ZB; ++zz)
+#pragma unroll
+      for (int q = 0; q < QPT; ++q)
+        if (z0 + zz < splits) add4(v[q], t[zz][q]);
+  }
+#pragma unroll
+  for (int q = 0; q < QPT; ++q)
+    if (in_tile(q)) store_quad(p, row_of(q), col_of(q), v[q]);
+}
+
+int elem_bytes(int dt) { return dt == F32 ? 4 : (dt == BF16 || dt == F16) ? 2 : 1; }
+
+template <int INST, typename SA, typename SB>
+int launch_tile_inst(const TileArgs& p, cudaStream_t stream) {
+  constexpr TileCfg C = TILE_CFGS[INST];
+  const long long gx = (p.N + C.bn - 1) / C.bn, gy = (p.M + C.bm - 1) / C.bm;
+  if (gx > 0x7fffffffll || gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = TileSmem<INST, SA, SB>::BYTES;
+  // above the default 48 KB: raise the instance's limit once per device
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(mmad_tile_kernel<INST, SA, SB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised[dev] = true;
+  }
+  mmad_tile_kernel<INST, SA, SB>
+      <<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), p.splits), TILE_NT, smem,
+         stream>>>(p);
   return 0;
+}
+
+template <typename T>
+int launch_tile_vec(const TileArgs& p, int inst, cudaStream_t stream) {
+  switch (inst) {
+    case T_NARROW8:
+      if constexpr (sizeof(T) >= 2) return launch_tile_inst<T_NARROW8, T, T>(p, stream);
+      break;
+    case T_NARROW16: return launch_tile_inst<T_NARROW16, T, T>(p, stream);
+    case T_NARROW32: return launch_tile_inst<T_NARROW32, T, T>(p, stream);
+    case T_NARROW64: return launch_tile_inst<T_NARROW64, T, T>(p, stream);
+    case T_WIDE: return launch_tile_inst<T_WIDE, T, T>(p, stream);
+    default: break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tile route's launch, `inst` as kernels/mmad.py:tile_geometry picks it.
+// Refuses (cudaErrorInvalidValue) what that function would not send to the
+// instance: a vector instance takes one dtype, A K-contiguous and B
+// N-contiguous with 16-byte aligned bases and rows; a split needs the
+// scratch, whole TILE_BK blocks per split and no empty split. It never
+// falls back to another instance.
+int launch_tile(const TileArgs& p, int inst, cudaStream_t stream) {
+  const bool split_ok =
+      p.splits == 1 ||
+      (p.splits > 1 && p.splits <= 65535 && p.ws != nullptr && p.counters != nullptr &&
+       p.kps % TILE_BK == 0 && (p.splits - 1) * p.kps < p.K);
+  if (p.M < 1 || p.N < 1 || p.K < 0 || p.kps < 1 || p.splits * p.kps < p.K || !split_ok ||
+      (p.c_dt != F32 && p.c_dt != BF16 && p.c_dt != F16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (inst == T_GENERIC) return launch_tile_inst<T_GENERIC, float, float>(p, stream);
+  const long long eb = elem_bytes(p.a_dt);
+  if (p.a_dt != p.b_dt || p.sak != 1 || p.sbn != 1 || reinterpret_cast<uintptr_t>(p.A) % 16 ||
+      reinterpret_cast<uintptr_t>(p.B) % 16 || (p.sam * eb) % 16 || (p.sbk * eb) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (p.a_dt) {
+    case F32: return launch_tile_vec<float>(p, inst, stream);
+    case BF16: return launch_tile_vec<__nv_bfloat16>(p, inst, stream);
+    case F16: return launch_tile_vec<__half>(p, inst, stream);
+    case F8E4M3: return launch_tile_vec<__nv_fp8_e4m3>(p, inst, stream);
+    case I8: return launch_tile_vec<int8_t>(p, inst, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -1120,12 +1467,18 @@ int launch_typed(int variant, const StreamArgs& p, int grid_x, cudaStream_t stre
 extern "C" int mmad_launch(const void* a, const void* b, void* c, void* ws, void* counters,
                            int a_dt, int b_dt, int c_dt, long long M, long long N, long long K,
                            long long sam, long long sak, long long sbk, long long sbn,
-                           long long kps, int splits, int variant, int grid_x,
+                           long long kps, int splits, int variant, int sub,
                            void* stream_ptr) {
-  const StreamArgs p{a, b, c, static_cast<float*>(ws), static_cast<int*>(counters), a_dt, c_dt,
-                     M, N, K, sam, sak, sbk, sbn, kps, splits};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   int err;
+  if (variant == 0) {
+    const TileArgs p{a,   b,   c,   static_cast<float*>(ws), static_cast<int*>(counters),
+                     a_dt, b_dt, c_dt, M, N, K, sam, sak, sbk, sbn, kps, splits};
+    err = launch_tile(p, sub, stream);
+    return err ? err : static_cast<int>(cudaGetLastError());
+  }
+  const StreamArgs p{a, b, c, static_cast<float*>(ws), static_cast<int*>(counters), a_dt, c_dt,
+                     M, N, K, sam, sak, sbk, sbn, kps, splits};
   if (variant == 3) {
     if (b_dt == BF16) {
       err = launch_wgmma<__nv_bfloat16>(p, stream);
@@ -1136,12 +1489,13 @@ extern "C" int mmad_launch(const void* a, const void* b, void* c, void* ws, void
     }
     return err ? err : static_cast<int>(cudaGetLastError());
   }
+  if (variant != 1 && variant != 2) return static_cast<int>(cudaErrorInvalidValue);
   switch (b_dt) {
-    case F32: err = launch_typed<float>(variant, p, grid_x, stream); break;
-    case BF16: err = launch_typed<__nv_bfloat16>(variant, p, grid_x, stream); break;
-    case F16: err = launch_typed<__half>(variant, p, grid_x, stream); break;
-    case F8E4M3: err = launch_typed<__nv_fp8_e4m3>(variant, p, grid_x, stream); break;
-    case I8: err = launch_typed<int8_t>(variant, p, grid_x, stream); break;
+    case F32: err = launch_stream<float>(variant, p, sub, stream); break;
+    case BF16: err = launch_stream<__nv_bfloat16>(variant, p, sub, stream); break;
+    case F16: err = launch_stream<__half>(variant, p, sub, stream); break;
+    case F8E4M3: err = launch_stream<__nv_fp8_e4m3>(variant, p, sub, stream); break;
+    case I8: err = launch_stream<int8_t>(variant, p, sub, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return err ? err : static_cast<int>(cudaGetLastError());

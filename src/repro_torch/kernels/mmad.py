@@ -35,21 +35,30 @@ in place whether it is an activation or the M-contiguous `a.T` of the
 backward's weight gradient, K not split (on the card a split's fp32
 partials cost more than the SMs it fills gave back).
 `wgmma_geometry` is its pure-Python mirror. Everything else — fp32, fp8
-e4m3 and int8 inputs, mixed dtypes, strides a tensor map cannot describe —
-takes the SIMT tile kernel, which stages 64 x 64 fp32 tiles in shared
-memory and sums a K split in a second kernel. The route is chosen by
-`plan_launch` from dtypes, strides and alignment, never by a failed launch.
+e4m3 and int8 inputs, mixed dtypes, strides a tensor map cannot describe;
+on the main path the fp32 MoE router and xLSTM gates in training — takes
+the SIMT tile kernel, IEEE fp32 FMAs on the CUDA cores. A is its one large
+operand and N is narrow (64 for the router, 8 for the gates), so its
+instance is sized by N: narrow tiles 64 rows tall and as wide as N
+rounded up to a power of two (no masked columns, A streamed once), a wide
+128 x 128 tile past 64 columns; operands of one dtype whose rows are
+16-byte aligned (`tile_vectors`) are copied into a shared-memory ring by
+16-byte `cp.async` with the next stages in flight, and anything else
+(mixed dtypes, a bf16 K of 130, `embed.T` in fp32) takes a generic
+instance with scalar loads. K splits from the shape and the SM count in
+whole 32-deep stages, until the CTAs fill the slots each SM keeps for the
+instance, and the split is fixed up in the same launch as the stream
+kernels fix theirs. `tile_geometry` is its pure-Python mirror. The route is
+chosen by `plan_launch` from dtypes, strides and alignment, never by a
+failed launch.
 
 The plan's (bm, bn, bk) block geometry is accepted, power of two or not,
-but it does not shape what runs on the card. The stream kernels ignore it
-entirely (their tile, split and ring are their own), so on the decode
-path the planner's `InnerKernel` choice has no effect, and neither does
-the tensor-core variant on the train path; the SIMT tile kernel reads
-only `bk`, as its split-K granularity (each CTA's K range is a whole
-number of bk blocks). The CTA shapes are the
-kernel's own: register accumulators need compile-time shapes, and the fp32
-contract does not depend on the tiling. Honouring the geometry, or pricing
-this card without the inner-kernel term, is queued in ROADMAP.md.
+but no variant reads it: the stream kernels' tile, split and ring, the
+tensor-core kernel's tile and the SIMT tile route's instance and split
+are their own, so the planner's `InnerKernel` choice does not shape what
+runs on the card. Register accumulators need compile-time shapes, and the
+fp32 contract does not depend on the tiling. Honouring the geometry, or
+pricing this card without the inner-kernel term, is queued in ROADMAP.md.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch the
 kernel or raise; CPU tensors (which only a caller that chose the CPU holds)
@@ -79,7 +88,6 @@ OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # csrc/mmad.cu launch variants
 TILE, ROW_STREAM, COL_STREAM, WGMMA = 0, 1, 2, 3
-TILE_EDGE = 64           # the tile variant's 64 x 64 output tile
 STREAM_MAX_M = 16        # the stream variants take up to this many rows
 STREAM_ROWS = 4          # rows of A per stream CTA (SK_MT)
 STREAM_WARPS = 8         # consumer warps per stream CTA (SK_WARPS); +1 producer
@@ -103,6 +111,10 @@ WGMMA_MAX_N_TILES = 65535                  # grid.y
 # against a (K, N) weight or `embed.T`, the backward's da = g @ b.T (b.T is
 # K-contiguous; lm_head's is `embed`, N-contiguous) and db = a.T @ g
 WGMMA_MAJORS = (("k", "n"), ("k", "k"), ("m", "n"))
+# the SIMT tile route (csrc/mmad.cu TILE_*): threads a CTA, k a stage (and
+# the unit a K split is cut in)
+TILE_THREADS = 256
+TILE_BK = 32
 
 
 _launches = 0
@@ -310,33 +322,157 @@ def stream_geometry(m: int, n: int, k: int, layout: str, elem_bytes: int,
         splits * m * n if splits > 1 else 0)
 
 
+class TileConfig(NamedTuple):
+    """One instance of the SIMT tile kernel (csrc/mmad.cu TILE_CFGS): the
+    code the launcher takes, the CTA tile (bm x bn), each thread's register
+    block (tm x tn), the K slices a CTA's threads form, the ring's stages,
+    and the CTAs an SM runs at once (`__launch_bounds__`' minimum, and the
+    slots `_balanced_splits` fills)."""
+    code: int
+    bm: int
+    bn: int
+    tm: int
+    tn: int
+    k_slices: int
+    stages: int
+    min_ctas: int
+
+
+TILE_CONFIGS = {
+    "generic": TileConfig(0, 64, 64, 4, 4, 1, 2, 2),
+    "narrow8": TileConfig(1, 64, 8, 1, 8, 4, 4, 2),
+    "narrow16": TileConfig(2, 64, 16, 2, 8, 4, 4, 2),
+    "narrow32": TileConfig(3, 64, 32, 4, 8, 4, 4, 2),
+    "narrow64": TileConfig(4, 64, 64, 8, 8, 4, 4, 1),
+    "wide": TileConfig(5, 128, 128, 8, 8, 1, 3, 1),
+}
+TILE_NARROW_MAX_N = 64
+SPLIT_SLACK = 0.1        # _balanced_splits: the imbalance a split may leave
+
+
+def tile_vectors(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the SIMT tile route's vector instances can read A and B:
+    one dtype on both sides, A's rows K-contiguous and B's N-contiguous,
+    and both bases and row strides 16-byte aligned, so every stage is
+    copied in 16-byte `cp.async` chunks. Otherwise the generic instance
+    (scalar loads, runtime dtypes, any strides) runs."""
+    if a.dtype != b.dtype:
+        return False
+    size = a.element_size()
+    return (a.stride(1) == 1 and b.stride(1) == 1
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+            and a.stride(0) * size % 16 == 0
+            and b.stride(0) * size % 16 == 0)
+
+
+class TileGeometry(NamedTuple):
+    """What one SIMT tile launch runs: the instance, its CTA grid (x: N
+    tiles, y: M tiles, z: K splits), k per split, the dynamic shared
+    memory, and the scratch a split launch needs (one arrival counter and
+    `splits` fp32 partial tiles per output tile)."""
+    instance: str
+    code: int
+    grid: Tuple[int, int, int]
+    kps: int
+    splits: int
+    smem_bytes: int
+    counters: int
+    ws_floats: int
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _balanced_splits(tiles: int, k: int, unit: int, n_sms: int,
+                     per_sm: int) -> Tuple[int, int]:
+    """(k per split, splits) for `tiles` output tiles on `n_sms` SMs that
+    each run `per_sm` CTAs at once: each split a whole number of `unit`s,
+    and the fewest splits whose busiest SM, `ceil(CTAs / (n_sms *
+    per_sm))` waves of `kps` k, has at most `SPLIT_SLACK` more to do than
+    an even share of the work (or than the best split, where none comes
+    that close). More splits cost fp32 partials and a longer fix-up, and
+    a CTA past the SMs' slots a second wave, so a split that balances the
+    SMs only slightly better is not taken."""
+    n_units = math.ceil(k / unit)
+    slots = n_sms * per_sm
+    options = []                    # (load, kps, splits), splits ascending
+    for want in range(1, n_units + 1):
+        kps = math.ceil(n_units / want) * unit    # the evenest cut
+        splits = math.ceil(k / kps)
+        if not options or splits > options[-1][2]:
+            options.append((math.ceil(tiles * splits / slots) * kps, kps,
+                            splits))
+    target = max(tiles * k / slots, min(load for load, _, _ in options))
+    return next((kps, splits) for load, kps, splits in options
+                if load <= (1 + SPLIT_SLACK) * target)
+
+
+def tile_instance(n: int, b_bytes: int, vector: bool) -> str:
+    """The SIMT tile instance for N columns: narrow (N <= 64, a tile as wide
+    as N rounded up to a power of two, at least one 16-byte chunk of B) or
+    wide, when the operands allow vector loads; else generic."""
+    if not vector:
+        return "generic"
+    if n > TILE_NARROW_MAX_N:
+        return "wide"
+    bn = 8
+    while bn < max(n, 16 // b_bytes):
+        bn *= 2
+    return f"narrow{bn}"
+
+
+@functools.lru_cache(maxsize=1024)
+def tile_geometry(m: int, n: int, k: int, a_bytes: int, b_bytes: int,
+                  n_sms: int, vector: bool = True) -> TileGeometry:
+    """Instance, grid, split and buffers of the SIMT tile kernel, as
+    csrc/mmad.cu lays them out. Pure Python, so the CPU tests pin it.
+
+    `vector`: `tile_vectors(a, b)`, which implies `a_bytes == b_bytes`.
+    K splits in whole `TILE_BK` stages, from the shape and the SM count
+    alone (`_balanced_splits`); the plan's block geometry plays no part."""
+    if vector and a_bytes != b_bytes:
+        raise ValueError("the tile route's vector instances take one dtype")
+    name = tile_instance(n, b_bytes, vector)
+    cfg = TILE_CONFIGS[name]
+    sa, sb = (a_bytes, b_bytes) if vector else (4, 4)   # generic stages fp32
+    tiles_m, tiles_n = math.ceil(m / cfg.bm), math.ceil(n / cfg.bn)
+    tiles = tiles_m * tiles_n
+    kps, splits = _balanced_splits(tiles, k, TILE_BK, n_sms, cfg.min_ctas)
+    if splits == 1:
+        kps = k
+    stage = cfg.bm * (TILE_BK * sa + 16) + TILE_BK * cfg.bn * sb
+    red = cfg.k_slices * cfg.bm * (cfg.bn + 4) * 4
+    split = splits > 1
+    return TileGeometry(
+        name, cfg.code, (tiles_n, tiles_m, splits), kps, splits,
+        max(cfg.stages * stage, red), tiles if split else 0,
+        tiles * splits * cfg.bm * cfg.bn if split else 0)
+
+
 def plan_launch(m: int, n: int, k: int, block_shape: Tuple[int, int, int],
                 n_sms: int, layout: Optional[str] = None,
                 elem_bytes: int = 2,
-                wgmma_b: Optional[str] = None) -> Tuple[int, int, int]:
+                wgmma_b: Optional[str] = None,
+                tile_vector: bool = False) -> Tuple[int, int, int]:
     """(variant, k per split, splits) for one launch.
 
     Up to `STREAM_MAX_M` rows with a vector-loadable B (`layout`), a stream
     kernel runs, laid out by `stream_geometry`. Otherwise, when the
     operands can feed the tensor cores (`wgmma_b`: B's major as
     `wgmma_b_major` gives it, for a K- or M-contiguous A), the tensor-core
-    variant runs, laid out by
-    `wgmma_geometry`, K unsplit. Otherwise (and by default) the SIMT tile
-    kernel runs, with K split in whole plan-`bk` blocks until the grid
-    holds about two CTAs per SM. `bk` is the only part of the block shape
-    that is read, and only by the SIMT tile kernel."""
-    bk = block_shape[2]
+    variant runs, laid out by `wgmma_geometry`, K unsplit. Otherwise (and
+    by default) the SIMT tile kernel runs, laid out by `tile_geometry`:
+    a vector instance when `tile_vector` (`tile_vectors(a, b)`; the
+    operands' one element size is `elem_bytes`), else the generic one.
+    No variant reads `block_shape`."""
     if m <= STREAM_MAX_M and layout in ("rows", "cols"):
         geo = stream_geometry(m, n, k, layout, elem_bytes, n_sms)
         return geo.variant, geo.kps, geo.splits
     if wgmma_b is not None:
         return WGMMA, k, 1
-    tiles = math.ceil(m / TILE_EDGE) * math.ceil(n / TILE_EDGE)
-    n_kb = max(1, math.ceil(k / bk))
-    want = max(1, math.ceil(2 * n_sms / tiles))
-    per_split = math.ceil(n_kb / min(want, n_kb))
-    splits = math.ceil(n_kb / per_split)
-    return TILE, per_split * bk, splits
+    geo = tile_geometry(m, n, k, elem_bytes, elem_bytes, n_sms, tile_vector)
+    return TILE, geo.kps, geo.splits
 
 
 def _check_block(block_shape) -> Tuple[int, int, int]:
@@ -417,30 +553,33 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
         return out
     n_sms = _num_sms(a.device)
     layout = b_layout(b)
+    vector = tile_vectors(a, b)
     variant, kps, splits = plan_launch(m, n, max(k, 1), block_shape, n_sms,
                                        layout, b.element_size(),
-                                       wgmma_b_major(a, b))
-    grid_x = 0
+                                       wgmma_b_major(a, b), vector)
+    sub = 0            # the stream kernels' grid x, or the tile instance
     stream = torch.cuda.current_stream(a.device).cuda_stream
     counters = ws = None
     if variant in (ROW_STREAM, COL_STREAM):
         geo = stream_geometry(m, n, max(k, 1), layout, b.element_size(), n_sms)
-        grid_x = geo.grid[0]
-        if splits > 1:
-            counters = counter_buffer(a.device, stream, geo.counters)
-            ws = workspace(a.device, stream, geo.ws_floats)
-    elif splits > 1:
-        ws = workspace(a.device, stream, splits * m * n)
+        sub = geo.grid[0]
+    elif variant == TILE:
+        geo = tile_geometry(m, n, max(k, 1), a.element_size(),
+                            b.element_size(), n_sms, vector)
+        sub = geo.code
+    if splits > 1:
+        counters = counter_buffer(a.device, stream, geo.counters)
+        ws = workspace(a.device, stream, geo.ws_floats)
     err = _library().mmad_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None,
         counters.data_ptr() if counters is not None else None,
         DTYPE_CODES[a.dtype], DTYPE_CODES[b.dtype], DTYPE_CODES[out_dtype],
         m, n, k, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-        kps, splits, variant, grid_x, stream)
+        kps, splits, variant, sub, stream)
     if err != 0:
         raise RuntimeError(f"mmad launch failed: cudaError {err} "
                            f"(M={m} N={n} K={k} variant={variant} "
-                           f"splits={splits})")
+                           f"sub={sub} splits={splits})")
     _launches += 1
     return out

@@ -298,7 +298,8 @@ def _plan(a, b, block, dev):
     return mmad_mod.plan_launch(m, b.shape[1], k, block,
                                 mmad_mod._num_sms(dev), mmad_mod.b_layout(b),
                                 b.element_size(),
-                                mmad_mod.wgmma_b_major(a, b))
+                                mmad_mod.wgmma_b_major(a, b),
+                                mmad_mod.tile_vectors(a, b))
 
 
 @pytest.mark.parametrize("b_major", ["n", "k"])
@@ -780,10 +781,11 @@ def test_wgmma_at_the_deepseek_v2_prefill_shapes(cuda, mkn):
 
 def test_fp32_router_at_the_moe_train_shape_takes_the_simt_tile_kernel(cuda):
     """deepseek-moe-16b's router in training, fp32 x (2048, 2048) @ fp32
-    router (2048, 64): the SIMT tile kernel (fp32 never takes the tensor
-    cores, nor TF32), K split and summed by its reduce kernel, held to the
-    IEEE tolerance and bitwise repeatable; its backward is two fp32
-    `torch.matmul` products, not `mmad`."""
+    router (2048, 64): the SIMT tile kernel's 64-wide narrow instance
+    (fp32 never takes the tensor cores, nor TF32), K split and fixed up by
+    the last split in the same launch, held to the IEEE tolerance and
+    bitwise repeatable; its backward is two fp32 `torch.matmul` products,
+    not `mmad`."""
     g = torch.Generator(device=cuda).manual_seed(13)
     a = _draw((2048, 2048), torch.float32, g, cuda)
     b = _draw((2048, 64), torch.float32, g, cuda)
@@ -879,8 +881,8 @@ def test_kernel_at_the_ssm_decode_shapes(cuda, shape):
 
 def test_fp32_gates_at_the_forward_shape_take_the_simt_tile_kernel(cuda):
     """xlstm's gates in a forward of 512 tokens, fp32 x (512, 2048) @ fp32
-    w_gates (2048, 8): the SIMT tile kernel, its one 64-wide tile masked
-    past N = 8, held to the IEEE tolerance and bitwise repeatable."""
+    w_gates (2048, 8): the SIMT tile kernel's 8-wide narrow instance, held
+    to the IEEE tolerance and bitwise repeatable."""
     g = torch.Generator(device=cuda).manual_seed(14)
     a = _draw((512, 2048), torch.float32, g, cuda)
     b = _draw((2048, 8), torch.float32, g, cuda)
@@ -890,6 +892,134 @@ def test_fp32_gates_at_the_forward_shape_take_the_simt_tile_kernel(cuda):
     torch.cuda.synchronize()
     _assert_close(got, ref.mmad_ref(a, b, torch.float32), 2048)
     assert torch.equal(mmad_mod.mmad(a, b, block, torch.float32), got)
+
+
+# ---------------------------------------------------------------------------
+# the SIMT tile route: its narrow, wide and generic instances
+# ---------------------------------------------------------------------------
+
+def _tile_operands(case, g, dev):
+    """(a, b) for a TILE_CASES row: `view` cuts A to its first k columns
+    and B to its first n of rows whose width is a multiple of 16 elements
+    (so rows stay 16-byte aligned while the last 16-byte chunk before an
+    edge is cut), or reads B through `embed.T` or A through `a.T`
+    (strides no vector instance takes)."""
+    _, m, k, n, a_name, b_name, view, _ = case
+    a_dt, b_dt = getattr(torch, a_name), getattr(torch, b_name)
+    if view == "slice":
+        a = _draw((m, -(-(k + 1) // 16) * 16), a_dt, g, dev)[:, :k]
+        b = _draw((k, -(-(n + 1) // 16) * 16), b_dt, g, dev)[:, :n]
+    elif view == "embed.T":
+        a, b = _draw((m, k), a_dt, g, dev), _draw((n, k), b_dt, g, dev).T
+    elif view == "a.T":
+        a, b = _draw((k, m), a_dt, g, dev).T, _draw((k, n), b_dt, g, dev)
+    else:
+        a, b = _draw((m, k), a_dt, g, dev), _draw((k, n), b_dt, g, dev)
+    return a, b
+
+
+TILE_CASES = [
+    # (name, m, k, n, a dtype, b dtype, view, instance)
+    ("router", 2048, 2048, 64, "float32", "float32", None, "narrow64"),
+    ("gates", 2048, 2048, 8, "float32", "float32", None, "narrow8"),
+    ("gates forward", 512, 2048, 8, "float32", "float32", None, "narrow8"),
+    ("narrow64 unsplit", 16896, 256, 64, "float32", "float32", None,
+     "narrow64"),
+    ("narrow8 unsplit", 16896, 512, 8, "float32", "float32", None,
+     "narrow8"),
+    ("fp8 narrow", 1000, 512, 16, "float8_e4m3fn", "float8_e4m3fn", None,
+     "narrow16"),
+    ("int8 narrow", 300, 1024, 32, "int8", "int8", None, "narrow32"),
+    ("fp32 ragged N", 333, 1000, 20, "float32", "float32", None,
+     "narrow32"),
+    ("fp32 ragged chunks", 130, 1030, 18, "float32", "float32", "slice",
+     "narrow32"),
+    ("wide fp32", 2048, 2048, 2048, "float32", "float32", None, "wide"),
+    ("wide fp8", 2048, 2048, 2048, "float8_e4m3fn", "float8_e4m3fn", None,
+     "wide"),
+    ("wide int8 ragged", 200, 336, 272, "int8", "int8", None, "wide"),
+    ("wide fp32 ragged", 777, 520, 1000, "float32", "float32", "slice",
+     "wide"),
+    ("bf16 K = 130", 256, 130, 384, "bfloat16", "bfloat16", None, "generic"),
+    ("bf16 K = 130 unsplit", 4096, 130, 4096, "bfloat16", "bfloat16", None,
+     "generic"),
+    ("mixed fp32 x bf16", 256, 512, 384, "float32", "bfloat16", None,
+     "generic"),
+    ("mixed fp8 x int8", 100, 300, 40, "float8_e4m3fn", "int8", None,
+     "generic"),
+    ("fp32 embed.T", 200, 300, 260, "float32", "float32", "embed.T",
+     "generic"),
+    ("fp32 a.T", 512, 256, 384, "float32", "float32", "a.T", "generic"),
+]
+
+
+@pytest.mark.parametrize("out_name", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", TILE_CASES, ids=[c[0] for c in TILE_CASES])
+def test_simt_tile_route_matches_plain(cuda, case, out_name):
+    """Each instance of the SIMT tile route — narrow (N up to 64: the train
+    router's 64 and the gates' 8), wide, and generic (mixed dtypes, K =
+    130 bf16, `embed.T`, `a.T`) — at ragged M, N and K edges, split and
+    unsplit, against the plain version in each out dtype: one launch, the
+    IEEE tolerance, a second launch bitwise equal, and the split counters
+    left at zero."""
+    out_dtype = getattr(torch, out_name)
+    g = torch.Generator(device=cuda).manual_seed(sum(case[1:4]))
+    a, b = _tile_operands(case, g, cuda)
+    m, k = a.shape
+    n = b.shape[1]
+    assert _plan(a, b, (128, 128, 128), cuda)[0] == mmad_mod.TILE
+    geo = mmad_mod.tile_geometry(m, n, k, a.element_size(), b.element_size(),
+                                 mmad_mod._num_sms(cuda),
+                                 mmad_mod.tile_vectors(a, b))
+    assert geo.instance == case[7]
+    if "unsplit" in case[0]:
+        assert geo.splits == 1
+    elif case[0] in ("router", "gates", "bf16 K = 130"):
+        assert geo.splits > 1
+    before = mmad_mod.launch_count()
+    got = mmad_mod.mmad(a, b, (128, 128, 128), out_dtype)
+    torch.cuda.synchronize()
+    assert mmad_mod.launch_count() == before + 1
+    _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype)
+    assert torch.equal(mmad_mod.mmad(a, b, (128, 128, 128), out_dtype), got)
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in mmad_mod._counters.values())
+
+
+def test_simt_tile_route_is_one_kernel_a_call(cuda):
+    """A split call of the SIMT tile route (the train router) runs exactly
+    one `mmad` kernel, `mmad_tile_kernel`, and no split-K reduce kernel:
+    the last split to arrive fixes the tile up in the same launch."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    a = _draw((2048, 2048), torch.float32, g, cuda)
+    b = _draw((2048, 64), torch.float32, g, cuda)
+    assert _plan(a, b, (128, 64, 128), cuda)[2] > 1
+    mmad_mod.mmad(a, b, (128, 64, 128), torch.float32)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        mmad_mod.mmad(a, b, (128, 64, 128), torch.float32)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "mmad" in e.name]
+    assert len(names) == 1 and "mmad_tile_kernel" in names[0], names
+    assert not any("splitk" in name for name in names)
+
+
+def test_a_refused_tile_launch_raises(cuda, monkeypatch):
+    """No fallback: operands a vector instance cannot read (fp32 rows of
+    130 elements, 520 bytes, sent to one by a forced predicate) make the
+    launcher refuse and the wrapper raise, and nothing is counted."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    a = _draw((256, 130), torch.float32, g, cuda)
+    b = _draw((130, 64), torch.float32, g, cuda)
+    monkeypatch.setattr(mmad_mod, "tile_vectors", lambda *_: True)
+    before = mmad_mod.launch_count()
+    with pytest.raises(RuntimeError, match="mmad launch failed"):
+        mmad_mod.mmad(a, b, (128, 128, 128), torch.float32)
+    assert mmad_mod.launch_count() == before
 
 
 def test_wgmma_at_the_ragged_mamba_in_forward_shape(cuda):

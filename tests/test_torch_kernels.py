@@ -165,22 +165,33 @@ def test_mmad_cpu_path_does_not_count_launches():
     assert tmmad_mod.launch_count() == 0
 
 
-@pytest.mark.parametrize("m,n,k,block,expect", [
-    # gemma-2b decode shapes on 132 SMs: (variant, k per split, splits)
-    (4, 2048, 2048, (4, 128, 256), (0, 256, 8)),
-    (4, 256, 2048, (4, 256, 128), (0, 128, 16)),
-    (4, 16384, 2048, (4, 512, 256), (0, 1024, 2)),
-    (4, 2048, 16384, (4, 128, 512), (0, 2048, 8)),
-    (4, 256000, 2048, (4, 512, 256), (0, 2048, 1)),
-    (512, 512, 512, (128, 128, 128), (0, 128, 4)),
-    (2048, 2048, 2048, (128, 128, 128), (0, 2048, 1)),
-    (48, 192, 120, (24, 96, 40), (0, 40, 3)),       # non-power-of-two bk
+@pytest.mark.parametrize("m,n,k,block,vector,expect", [
+    # operands no stream kernel loads, on 132 SMs: (variant, k per split,
+    # splits), the generic instance (64 x 64 tiles) or, with 4-byte
+    # operands the vector instances read, the wide one (128 x 128)
+    (4, 2048, 2048, (4, 128, 256), False, (0, 256, 8)),
+    (4, 256, 2048, (4, 256, 128), True, (0, 32, 64)),     # a split per stage
+    (4, 16384, 2048, (4, 512, 256), False, (0, 2048, 1)),
+    (4, 2048, 16384, (4, 128, 512), True, (0, 2048, 8)),
+    (4, 256000, 2048, (4, 512, 256), True, (0, 2048, 1)),
+    (512, 512, 512, (128, 128, 128), False, (0, 128, 4)),
+    (2048, 2048, 2048, (128, 128, 128), True, (0, 2048, 1)),
+    (48, 192, 120, (24, 96, 40), False, (0, 32, 4)),      # non-power-of-two bk
 ])
-def test_plan_launch_tiles_split_k_in_whole_blocks(m, n, k, block, expect):
-    """Operands the stream kernels cannot vector-load take the tile kernel."""
-    variant, kps, splits = tmmad_mod.plan_launch(m, n, k, block, n_sms=132)
-    assert (variant, kps, splits) == expect
-    assert kps % block[2] == 0 and (splits - 1) * kps < k <= splits * kps
+def test_plan_launch_tiles_split_k_in_whole_blocks(m, n, k, block, vector,
+                                                   expect):
+    """Operands the stream kernels cannot vector-load take the tile kernel,
+    its K split in whole 32-deep stages chosen from the shape and the SM
+    count: the splits cover K exactly, none is empty, and the plan's block
+    (its bk included) changes nothing."""
+    got = tmmad_mod.plan_launch(m, n, k, block, n_sms=132, elem_bytes=4,
+                                tile_vector=vector)
+    assert got == expect
+    variant, kps, splits = got
+    assert splits == 1 or kps % tmmad_mod.TILE_BK == 0
+    assert (splits - 1) * kps < k <= splits * kps
+    assert tmmad_mod.plan_launch(m, n, k, (1, 1, 1), n_sms=132, elem_bytes=4,
+                                 tile_vector=vector) == got
 
 
 @pytest.mark.parametrize("m,n,k,layout,expect", [
@@ -194,6 +205,7 @@ def test_plan_launch_tiles_split_k_in_whole_blocks(m, n, k, block, expect):
     (4, 256, 2048, "cols", (2, 688, 3)),        # few columns: K splits
     (16, 2048, 2048, "rows", (1, 1024, 2)),     # 4 groups of 4 rows x 32 tiles
     (17, 2048, 2048, "rows", (0, 256, 8)),      # too many rows: tile kernel
+                                                # (generic: no tile_vector)
 ])
 def test_plan_launch_streams_decode_shapes(m, n, k, layout, expect):
     got = tmmad_mod.plan_launch(m, n, k, (4, 128, 256), n_sms=132,

@@ -130,12 +130,16 @@ def test_wgmma_does_not_split_k(m, n, k, bk):
     """Whatever the plan's bk and however few the tiles, the tensor-core
     variant walks all of K in one CTA per tile (a split's fp32 partials
     measured slower than the SMs it would fill), while the SIMT tile
-    kernel still splits in whole bk blocks."""
+    kernel splits by its own geometry, whatever bk is: whole 32-deep
+    stages, covering K, none empty."""
     assert mmad_mod.plan_launch(m, n, k, (128, 128, bk), N_SMS, None, 2,
                                 "k") == (mmad_mod.WGMMA, k, 1)
     variant, kps, splits = mmad_mod.plan_launch(m, n, k, (128, 128, bk),
                                                 N_SMS)
-    assert variant == mmad_mod.TILE and kps % bk == 0
+    geo = mmad_mod.tile_geometry(m, n, k, 2, 2, N_SMS, False)
+    assert (variant, kps, splits) == (mmad_mod.TILE, geo.kps, geo.splits)
+    assert splits == 1 or kps % mmad_mod.TILE_BK == 0
+    assert (splits - 1) * kps < k <= splits * kps
 
 
 # ---------------------------------------------------------------------------
@@ -149,13 +153,15 @@ ROUTES = [
     ("fp16 weight", _t((256, 512), torch.float16),
      _t((512, 384), torch.float16), mmad_mod.WGMMA),
     ("fp32", _t((256, 512), torch.float32), _t((512, 384), torch.float32),
-     mmad_mod.TILE),
+     mmad_mod.TILE, "wide"),
     ("fp8", _t((256, 512), torch.float8_e4m3fn),
-     _t((512, 384), torch.float8_e4m3fn), mmad_mod.TILE),
+     _t((512, 384), torch.float8_e4m3fn), mmad_mod.TILE, "wide"),
     ("int8", _t((256, 512), torch.int8), _t((512, 384), torch.int8),
-     mmad_mod.TILE),
-    ("mixed", _t((256, 512), torch.float32), _t((512, 384)), mmad_mod.TILE),
-    ("bf16 K = 130", _t((256, 130)), _t((130, 384)), mmad_mod.TILE),
+     mmad_mod.TILE, "wide"),
+    ("mixed", _t((256, 512), torch.float32), _t((512, 384)), mmad_mod.TILE,
+     "generic"),
+    ("bf16 K = 130", _t((256, 130)), _t((130, 384)), mmad_mod.TILE,
+     "generic"),
     # decode: a vector-loadable weight at M <= 16 keeps its stream kernel
     ("bf16 decode", _t((4, 512)), _t((512, 384)), mmad_mod.ROW_STREAM),
     ("bf16 decode embed.T", _t((4, 512)), _t((384, 512)).T,
@@ -171,21 +177,32 @@ ROUTES = [
     ("fp16 db on a.T", _t((512, 256), torch.float16).T,
      _t((512, 384), torch.float16), mmad_mod.WGMMA),
     ("bf16 a.T against a K-contiguous B", _t((512, 256)).T,
-     _t((384, 512)).T, mmad_mod.TILE),
+     _t((384, 512)).T, mmad_mod.TILE, "generic"),
     ("fp32 db on a.T", _t((512, 256), torch.float32).T,
-     _t((512, 384), torch.float32), mmad_mod.TILE),
+     _t((512, 384), torch.float32), mmad_mod.TILE, "generic"),
 ]
 
 
-@pytest.mark.parametrize("name,a,b,want", ROUTES, ids=[r[0] for r in ROUTES])
-def test_plan_launch_routes_by_dtype_and_strides(name, a, b, want):
+@pytest.mark.parametrize("route", ROUTES, ids=[r[0] for r in ROUTES])
+def test_plan_launch_routes_by_dtype_and_strides(route):
+    """The variant, and on the SIMT tile route its instance: a vector one
+    (wide here, N = 384) for one dtype with K-contiguous A and N-contiguous
+    B rows on 16-byte boundaries, the generic one for mixed dtypes and
+    strides or alignments that deny 16-byte vectors."""
+    name, a, b, want = route[:4]
     m, k = a.shape
     n = b.shape[1]
+    vector = mmad_mod.tile_vectors(a, b)
     variant, kps, splits = mmad_mod.plan_launch(
         m, n, k, (128, 128, 128), N_SMS, mmad_mod.b_layout(b),
-        b.element_size(), mmad_mod.wgmma_b_major(a, b))
+        b.element_size(), mmad_mod.wgmma_b_major(a, b), vector)
     assert variant == want
     assert (splits - 1) * kps < k <= splits * kps
+    if want == mmad_mod.TILE:
+        geo = mmad_mod.tile_geometry(m, n, k, a.element_size(),
+                                     b.element_size(), N_SMS, vector)
+        assert geo.instance == route[4]
+        assert (geo.kps, geo.splits) == (kps, splits)
 
 
 @pytest.mark.parametrize("m,n,k,block", [
@@ -193,11 +210,20 @@ def test_plan_launch_routes_by_dtype_and_strides(name, a, b, want):
     (48, 192, 120, (24, 96, 40)), (4, 2048, 2048, (4, 128, 256)),
 ])
 def test_plan_launch_defaults_to_the_simt_tile_kernel(m, n, k, block):
-    """Without the new argument a caller gets what it got before: the SIMT
-    tile kernel, laid out as before."""
+    """Without the routing arguments a caller gets the SIMT tile kernel's
+    generic instance; with `tile_vector` the same route, split by the
+    vector instance's own tiles; neither reads the block. The tensor-core
+    major still takes precedence."""
     old = mmad_mod.plan_launch(m, n, k, block, N_SMS)
-    assert old == mmad_mod.plan_launch(m, n, k, block, N_SMS, None, 2, None)
-    assert old[0] == mmad_mod.TILE
+    assert old == mmad_mod.plan_launch(m, n, k, block, N_SMS, None, 2, None,
+                                       False)
+    geo = mmad_mod.tile_geometry(m, n, k, 2, 2, N_SMS, False)
+    assert geo.instance == "generic"
+    assert old == (mmad_mod.TILE, geo.kps, geo.splits)
+    vec = mmad_mod.plan_launch(m, n, k, block, N_SMS, None, 2, None, True)
+    geo = mmad_mod.tile_geometry(m, n, k, 2, 2, N_SMS, True)
+    assert geo.instance != "generic"
+    assert vec == (mmad_mod.TILE, geo.kps, geo.splits)
     assert mmad_mod.plan_launch(m, n, k, block, N_SMS, None, 2, "n")[0] == (
         mmad_mod.WGMMA)
 
