@@ -1,5 +1,6 @@
 """CPU rehearsals of `chip_smoke.py`'s train phases of zamba2-1.2b,
-xlstm-1.3b, seamless-m4t-medium and phi-3-vision-4.2b, at smoke width.
+xlstm-1.3b, seamless-m4t-medium, phi-3-vision-4.2b and the dense families
+olmo-1b, phi4-mini-3.8b and qwen3-14b, at smoke width.
 
 Each runs `chip_smoke.train_model` as the card phase does, with CPU
 tensors and the verify skill's stubs (`ops.mmad` counted, since the CPU
@@ -75,7 +76,9 @@ def _rehearse(monkeypatch, tmp_path, arch, seq, make_batch):
 SCAN_GEMMS = 7
 
 
-def test_the_phases_are_the_four_other_families(monkeypatch):
+def test_the_phases_train_every_registered_family(monkeypatch):
+    """TRAIN_PHASES and the gemma-2b and MoE phases before them train
+    every registered architecture on the card."""
     chip_smoke = _chip_smoke(monkeypatch)
     phases = {arch: (layers, batch.__name__)
               for arch, layers, batch, _ in chip_smoke.TRAIN_PHASES}
@@ -84,9 +87,15 @@ def test_the_phases_are_the_four_other_families(monkeypatch):
         "xlstm-1.3b": (chip_smoke.XLSTM_TRAIN_LAYERS, "launcher_batch"),
         "seamless-m4t-medium": (None, "frontend_batch"),
         "phi-3-vision-4.2b": (chip_smoke.PHI3_TRAIN_LAYERS,
-                              "frontend_batch")}
+                              "frontend_batch"),
+        "olmo-1b": (None, "launcher_batch"),
+        "phi4-mini-3.8b": (None, "launcher_batch"),
+        "qwen3-14b": (chip_smoke.QWEN3_TRAIN_LAYERS, "launcher_batch")}
+    assert set(phases) | {"gemma-2b", "deepseek-moe-16b",
+                          "deepseek-v2-236b"} == set(tconfigs.list_archs())
     assert chip_smoke.PHI3_TRAIN_LAYERS in (16, 32)
     assert chip_smoke.XLSTM_TRAIN_LAYERS % 8 == 0     # whole super-layers
+    assert 4 <= chip_smoke.QWEN3_TRAIN_LAYERS < 40
     assert set(chip_smoke.FP32_HELD_TRAIN) <= set(phases)
     assert all(0 < lr <= 1e-3 for *_, lr in chip_smoke.TRAIN_PHASES)
 
@@ -104,13 +113,18 @@ def _gemms(cfg, arch):
         # frontend; encoder layers' q/k/v/o + gated MLP (gate, up, down);
         # decoder layers' self q/k/v/o, cross q/k/v/o, MLP; lm_head
         return 1 + 7 * cfg.n_encoder_layers + 11 * cfg.n_layers + 1
-    return 1 + 7 * cfg.n_layers + 1           # phi-3-vision: frontend.proj
+    if arch == "phi-3-vision-4.2b":
+        return 1 + 7 * cfg.n_layers + 1       # frontend.proj
+    return 7 * cfg.n_layers + 1               # the dense families
 
 
 CASES = [("zamba2-1.2b", 256, "launcher_batch"),
          ("xlstm-1.3b", 256, "launcher_batch"),
          ("seamless-m4t-medium", 64, "frontend_batch"),
-         ("phi-3-vision-4.2b", 64, "frontend_batch")]
+         ("phi-3-vision-4.2b", 64, "frontend_batch"),
+         ("olmo-1b", 64, "launcher_batch"),
+         ("phi4-mini-3.8b", 64, "launcher_batch"),
+         ("qwen3-14b", 64, "launcher_batch")]
 
 
 @pytest.mark.parametrize("arch,seq,make_batch", CASES,

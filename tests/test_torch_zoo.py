@@ -18,6 +18,8 @@
   and the gate and up products bitwise equal to the reference's (the
   activations as its bf16 op chains round them), the output within one
   bf16 ulp (the down product's fp32 sums are taken in another order).
+- A CPU rehearsal of `chip_smoke.py`'s serve phases of olmo-1b and
+  phi4-mini-3.8b (`serve_model` on the smoke model with CPU tensors).
 """
 import dataclasses
 
@@ -33,7 +35,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
-from test_torch_serve import (_decisions, _decode_jax,  # noqa: E402
+from test_torch_serve import (ROOT, _decisions, _decode_jax,  # noqa: E402
                               _decode_torch)
 
 PORTED = ["deepseek-moe-16b", "deepseek-v2-236b", "gemma-2b", "olmo-1b",
@@ -151,3 +153,41 @@ def test_apply_mlp_bf16_matches_reference_bitwise(act, arch, monkeypatch):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                rtol=2.0 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "phi4-mini-3.8b"])
+def test_chip_smoke_dense_serve_phase_rehearsed_on_cpu(arch, monkeypatch,
+                                                       tmp_path, capsys):
+    """`chip_smoke.serve_model` on the smoke model with CPU tensors, as its
+    card phase runs the full one: the routed first step against the
+    unrouted one, then `serve.generate` with one `mmad` launch per routed
+    dispatch (a counting wrapper stands in for the kernel's count), the
+    observed workload equal to `model_workload`'s, resolve rate 1.0. The
+    device profile is stubbed."""
+    import importlib
+    monkeypatch.syspath_prepend(str(ROOT))
+    chip_smoke = importlib.import_module("chip_smoke")
+    mmad_mod = importlib.import_module("repro_torch.kernels.mmad")
+    from repro_torch.kernels import ops
+    real = ops.mmad
+
+    def counted(a, b, *args, **kw):
+        mmad_mod._launches += 1
+        return real(a, b, *args, **kw)
+    monkeypatch.setattr(ops, "mmad", counted)
+    monkeypatch.setattr(chip_smoke, "busy_share", lambda *a, **k: {
+        "busy_ms": 1, "wall_ms": 1, "mmad_ms": 0})
+    monkeypatch.setattr(chip_smoke, "ROOT", tmp_path)
+    assert arch in chip_smoke.SERVE_DENSE
+    cfg = tconfigs.smoke_config(arch)
+    launches, per_step, summary = chip_smoke.serve_model(
+        torch, mmad_mod, cfg, torch.device("cpu"))
+    out = capsys.readouterr().out
+    gemms = 7 * cfg.n_layers + 1
+    assert launches == (chip_smoke.PROMPT + chip_smoke.GEN) * gemms
+    assert sum(r["count"] for r in per_step.values()) == gemms
+    # lm_head on `embed.T` (tied), M = BATCH at every step
+    assert per_step[(chip_smoke.BATCH, cfg.vocab, cfg.d_model,
+                     "torch.bfloat16")]["count"] == 1
+    assert summary["first_step_rel_l2"] <= chip_smoke.FIRST_STEP_REL_L2
+    assert "resolve rate 1.0" in out
