@@ -21,7 +21,23 @@ Phases (any failure exits non-zero and prints no result line):
              gemma-2b train shapes (M = 2048; lm_head per loss chunk, M =
              1024, on `embed.T`) and at their backward's products (da = g
              @ b.T, db = a.T @ g, on the views), which must all take the
-             tensor-core kernel;
+             tensor-core kernel; and the fp8 e4m3 tensor-core route
+             (`check_fp8_route`): both B majors (a (K, N) weight is
+             transposed K-major in the same call), split and unsplit,
+             ragged M, N and K, in three out dtypes, within
+             `fp8_tensor_core_atol`, bitwise repeatable, counters zero;
+   fp8 deploy — the paper's fp8 deployment (`fp8_deploy`): two DeepGEMM
+             shapes, (4096, 2112, 7168) and (64, 2112, 7168), tuned by
+             `Planner` on `softhier_gh200` at 1-byte elements, resolved on
+             the dispatch path, lowered on the card's 1x1 mesh (split-K
+             SUMMA lowers to `splitk`, the grid mismatch printed) and run
+             by `dit_gemm` on e4m3 operands with a (K, N) weight: resolve
+             rate 1.0, one `mmad` launch per dispatch, the fp8 kernels
+             seen by name in a profile, C within one e4m3 ulp of the plain
+             version rounded once; then the 18 paper shapes (M = 4096, 64,
+             128 x the six (N, K) of `DEEPGEMM_NK`) and 2048³ timed per B
+             major beside `torch._scaled_mm`, the plain version and the
+             bound (`time_fp8_shapes`);
 4. serve   — full-width, full-depth gemma-2b (random weights from a seed)
              through `repro_torch.launch.serve`: batch 4, prompt 32, gen
              32. Asserts plan-resolve rate 1.0, no silent degrade, one
@@ -218,9 +234,10 @@ Phases (any failure exits non-zero and prints no result line):
              their bound (the router's: its fp32 `torch.matmul` products);
              and the expert einsums per decode step (both MoE models) and
              per train step, forward and backward, beside their bounds;
-             and the SIMT tile route's record shapes, fp32 and fp8 e4m3
-             at 2048 x 2048 -> 2048, beside fp32 `torch.matmul` or
-             `torch._scaled_mm` and their bounds (`time_simt_records`);
+             and the SIMT tile route's record shape, fp32 at 2048 x 2048
+             -> 2048, and fp8 e4m3 at the same on its tensor-core route,
+             beside fp32 `torch.matmul` or `torch._scaled_mm` and their
+             bounds (`time_simt_records`);
 9. report  — per served model its tok/s, `mmad` ms per step against
              its bound and `torch.matmul`'s, and its held comparisons'
              errors; per trained model its step ms, tokens/s, model FLOP
@@ -575,16 +592,32 @@ def tensor_core_atol(k: int) -> float:
     return 2.0 ** -23 * (k / 16) * 4 * math.sqrt(k)
 
 
+FP8_PROMOTE_K = 128          # kernels/mmad.py: FP8_PROMOTE_STEPS x FP8_BK
+
+
+def fp8_tensor_core_atol(k: int) -> float:
+    """The fp8 tensor-core route's extra absolute error on unit-normal
+    inputs rounded to e4m3. Its products are exact, but the tensor cores
+    sum each 32-deep K slice into an accumulator that keeps about 14 bits
+    (2^-13 relative) and truncates, and the route promotes that
+    accumulator into IEEE fp32 registers every FP8_PROMOTE_K k: up to
+    2^-13 of a running partial within 4 sqrt(FP8_PROMOTE_K) at each of
+    K/32 slices. The SIMT kernels are never given it."""
+    return 2.0 ** -13 * (k / 32) * 4 * math.sqrt(min(k, FP8_PROMOTE_K))
+
+
 def tolerance_ratio(torch, got, want, k: int, out_dtype,
-                    tensor_cores: bool = False) -> float:
+                    tensor_cores: bool = False, fp8: bool = False) -> float:
     """Largest |kernel - plain| over its tolerance (fails above 1): rtol
     1e-5 and atol 1e-5*sqrt(K) for fp32 sums of fp32-exact products taken
     in another order, plus one output ulp for bf16 / fp16 out, plus
-    `tensor_core_atol` for the tensor-core variant."""
+    `tensor_core_atol` for the tensor-core variant and
+    `fp8_tensor_core_atol` for the fp8 one."""
     ulp = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(
         out_dtype, 0.0)
     err = (got.float() - want.float()).abs()
     tol = (1e-5 * math.sqrt(k) + (tensor_core_atol(k) if tensor_cores else 0)
+           + (fp8_tensor_core_atol(k) if fp8 else 0)
            + (1e-5 + ulp) * want.float().abs())
     return float((err / tol).max())
 
@@ -636,7 +669,8 @@ def check_kernels(torch, mmad_mod, ref) -> float:
                 want = ref.mmad_ref(a, b, out_dtype)
                 torch.cuda.synchronize()
                 ratio = tolerance_ratio(torch, got, want, k, out_dtype,
-                                        variant == mmad_mod.WGMMA)
+                                        variant == mmad_mod.WGMMA,
+                                        variant == mmad_mod.WGMMA_FP8)
                 worst = max(worst, ratio)
                 if not ratio <= 1.0:
                     fail(f"mmad {dt} m={m} k={k} n={n} block={block} "
@@ -724,20 +758,23 @@ def check_kernels(torch, mmad_mod, ref) -> float:
 
 
 # The SIMT tile route's instances, each split and unsplit: (m, k, n, A
-# dtype, B dtype, instance). The first two are the main path's train router
-# and gates; mixed dtypes and a bf16 K of 130 (rows of 260 bytes) take the
-# generic instance.
+# dtype, B dtype, instance[, "b_slice"]). The first two are the main path's
+# train router and gates; mixed dtypes and a bf16 K of 130 (rows of 260
+# bytes) take the generic instance. fp8 reaches its vector instances only
+# where the fp8 tensor-core route does not take it: up to 16 rows with a B
+# no stream kernel loads ("b_slice": N columns of rows padded to whole 16
+# bytes, N not a whole 16-byte vector).
 TILE_CASES = [
     (2048, 2048, 64, "float32", "float32", "narrow64"),
     (2048, 2048, 8, "float32", "float32", "narrow8"),
     (16896, 256, 64, "float32", "float32", "narrow64"),
     (16896, 256, 8, "float32", "float32", "narrow8"),
-    (1000, 512, 16, "float8_e4m3fn", "float8_e4m3fn", "narrow16"),
+    (16, 512, 8, "float8_e4m3fn", "float8_e4m3fn", "narrow16", "b_slice"),
     (16896, 256, 16, "float32", "float32", "narrow16"),
     (300, 1024, 32, "int8", "int8", "narrow32"),
     (16896, 256, 32, "float32", "float32", "narrow32"),
     (2048, 2048, 2048, "float32", "float32", "wide"),
-    (256, 2048, 384, "float8_e4m3fn", "float8_e4m3fn", "wide"),
+    (16, 2048, 376, "float8_e4m3fn", "float8_e4m3fn", "wide", "b_slice"),
     (200, 336, 272, "int8", "int8", "wide"),
     (256, 130, 384, "bfloat16", "bfloat16", "generic"),
     (4096, 130, 4096, "bfloat16", "bfloat16", "generic"),
@@ -755,14 +792,16 @@ def check_tile_route(torch, mmad_mod, ref) -> float:
     g = torch.Generator(device=dev).manual_seed(SEED + 40)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     reached, worst = set(), 0.0
-    for i, (m, k, n, a_name, b_name, instance) in enumerate(TILE_CASES):
+    for i, (m, k, n, a_name, b_name, instance, *view) in enumerate(
+            TILE_CASES):
         def draw(shape, dtype):
             if dtype == torch.int8:
                 return torch.randint(-8, 9, shape, generator=g,
                                      device=dev).to(dtype)
             return torch.randn(shape, generator=g, device=dev).to(dtype)
         a = draw((m, k), getattr(torch, a_name))
-        b = draw((k, n), getattr(torch, b_name))
+        b = (draw((k, -(-(n + 1) // 16) * 16), getattr(torch, b_name))[:, :n]
+             if view == ["b_slice"] else draw((k, n), getattr(torch, b_name)))
         vector = mmad_mod.tile_vectors(a, b)
         variant = mmad_mod.plan_launch(
             m, n, k, (128, 128, 128), n_sms, mmad_mod.b_layout(b),
@@ -807,7 +846,8 @@ def check_tile_route(torch, mmad_mod, ref) -> float:
     return worst
 
 
-# the SIMT tile route's record shapes: (m, n, k, dtype name), fp32 out
+# the SIMT tile route's record shapes: (m, n, k, dtype name), fp32 out; fp8
+# e4m3 has run on its tensor-core route since that route came
 SIMT_RECORDS = [(2048, 2048, 2048, "float32"),
                 (2048, 2048, 2048, "float8_e4m3fn")]
 
@@ -836,11 +876,18 @@ def time_simt_records(torch, mmad_mod, ref, dev, seed: int):
             it["i"] = (it["i"] + 1) % copies
             return ws[it["i"]]
 
-        geo = mmad_mod.tile_geometry(m, n, k, size, size, n_sms,
-                                     mmad_mod.tile_vectors(a, ws[0]))
+        vector = mmad_mod.tile_vectors(a, ws[0])
+        wgmma_b = mmad_mod.wgmma_b_major(a, ws[0])
+        fp8 = mmad_mod.plan_launch(
+            m, n, k, (128, 128, 128), n_sms, mmad_mod.b_layout(ws[0]), size,
+            wgmma_b, vector)[0] == mmad_mod.WGMMA_FP8
+        # fp8 e4m3 takes the fp8 tensor-core route since it has one
+        geo = (mmad_mod.fp8_geometry(m, n, k, wgmma_b, n_sms) if fp8 else
+               mmad_mod.tile_geometry(m, n, k, size, size, n_sms, vector))
+        instance = "fp8 tensor cores" if fp8 else geo.instance
         got = mmad_mod.mmad(a, ws[0], (128, 128, 128), torch.float32)
         want = ref.mmad_ref(a, ws[0], torch.float32)
-        ratio = tolerance_ratio(torch, got, want, k, torch.float32)
+        ratio = tolerance_ratio(torch, got, want, k, torch.float32, fp8=fp8)
         if not ratio <= 1.0:
             fail(f"SIMT record {m}x{n}x{k} {dtype_name}: error {ratio:.2f}x "
                  f"its tolerance")
@@ -871,7 +918,7 @@ def time_simt_records(torch, mmad_mod, ref, dev, seed: int):
         t_bytes = ((m * k + k * n) * size + m * n * 4) / H100_BYTES_PER_S * 1e3
         t_ops = 2 * m * n * k / peak * 1e3
         row = {"shape": [m, n, k], "dtype": dtype_name,
-               "instance": geo.instance, "splits": geo.splits,
+               "instance": instance, "splits": geo.splits,
                "kernel_ms": kernel_ms,
                "plain_ms": timed(lambda: ref.mmad_ref(a, nxt(),
                                                       torch.float32)),
@@ -886,6 +933,360 @@ def time_simt_records(torch, mmad_mod, ref, dev, seed: int):
         del a, ws, got, want
     torch.cuda.empty_cache()
     return rows
+
+
+# The six DeepSeek-V3 projection GEMMs (N, K) that the paper tunes at M =
+# 4096, 64 and 128 (its Figs. 9-11, after DeepGEMM), copied from the
+# reference's benchmarks/common.py:24-31 (this script imports nothing of it)
+DEEPGEMM_NK = [(2112, 7168), (24576, 1536), (32768, 512), (7168, 16384),
+               (4096, 7168), (7168, 2048)]
+# the fp8 deploy phase's path: two paper shapes (m, n, k) through the
+# planner on `softhier_gh200` at elem_bytes 1 and `dit_gemm`, and the
+# record shape timed beside the 18
+FP8_DEPLOY_SHAPES = [(4096, 2112, 7168), (64, 2112, 7168)]
+FP8_RECORD = (2048, 2048, 2048)
+FP8_TUNE_CANDIDATES = 24     # as the reference's fig9_11_gh200.py tunes
+FP8_OPERAND_SCALE = 0.5      # keeps K = 7168 sums well inside e4m3's 448
+# The fp8 tensor-core route's cases, (m, k, n, B major): both majors, split
+# and unsplit, ragged M, N and K, rows padded to whole 16 bytes where K or
+# N is not (`fp8_operands`), one row past the stream kernels (one
+# warpgroup of the CTA idle), N = 8
+FP8_CASES = [
+    (4096, 7168, 2112, "n"), (4096, 7168, 2112, "k"),     # unsplit
+    (64, 7168, 2112, "n"), (64, 7168, 2112, "k"),         # split 7 ways
+    (200, 1040, 300, "n"), (200, 1040, 300, "k"),         # ragged, split
+    (17, 512, 8, "n"), (17, 512, 8, "k"),
+    (300, 1000, 260, "n"), (300, 1000, 260, "k"),         # K % 16 != 0
+    (2048, 2064, 2048, "k"),                              # a 16-deep last step
+]
+
+
+def fp8_operands(torch, m: int, k: int, n: int, major: str, g, dev,
+                 scale: float = 1.0):
+    """e4m3 A (m, k) and B (k, n), N-major (a (K, N) weight) or K-major
+    (the `.T` of an (N, K) one), from unit normals times `scale`; rows are
+    padded to whole 16 bytes (views of wider buffers) where k or n is not,
+    so a tensor map describes them."""
+    def padded(rows, cols):
+        buf = torch.randn((rows, -(-cols // 16) * 16), generator=g,
+                          device=dev) * scale
+        return buf.to(torch.float8_e4m3fn)[:, :cols]
+    a = padded(m, k)
+    b = padded(k, n) if major == "n" else padded(n, k).T
+    return a, b
+
+
+def check_fp8_route(torch, mmad_mod, ref) -> float:
+    """The fp8 tensor-core route over `FP8_CASES` through the `mmad`
+    wrapper against the plain version in all three out dtypes: one launch
+    a call, `fp8_tensor_core_atol`, a second launch bitwise equal, the
+    split counters left at zero; both B majors reached split and unsplit.
+    Returns the worst error over its tolerance."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    reached, worst = set(), 0.0
+    for m, k, n, major in FP8_CASES:
+        a, b = fp8_operands(torch, m, k, n, major, g, dev)
+        wgmma_b = mmad_mod.wgmma_b_major(a, b)
+        variant, _, splits = mmad_mod.plan_launch(
+            m, n, k, (128, 128, 128), n_sms, mmad_mod.b_layout(b), 1, wgmma_b,
+            mmad_mod.tile_vectors(a, b))
+        if wgmma_b != major or variant != mmad_mod.WGMMA_FP8:
+            fail(f"fp8 case {m}x{n}x{k} B {major}-major would take variant "
+                 f"{variant} (B major {wgmma_b})")
+        reached.add((major, splits == 1))
+        for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
+            before = mmad_mod.launch_count()
+            got = mmad_mod.mmad(a, b, (128, 128, 128), out_dtype)
+            want = ref.mmad_ref(a, b, out_dtype)
+            torch.cuda.synchronize()
+            if mmad_mod.launch_count() != before + 1:
+                fail(f"fp8 {m}x{n}x{k}: one call counted "
+                     f"{mmad_mod.launch_count() - before} launches")
+            ratio = tolerance_ratio(torch, got, want, k, out_dtype, fp8=True)
+            worst = max(worst, ratio)
+            if not ratio <= 1.0:
+                fail(f"fp8 {m}x{n}x{k} B {major}-major out={out_dtype} "
+                     f"splits={splits}: max abs err "
+                     f"{float((got.float() - want.float()).abs().max()):.3e}"
+                     f" is {ratio:.2f}x its tolerance")
+            if not torch.equal(mmad_mod.mmad(a, b, (128, 128, 128),
+                                             out_dtype), got):
+                fail(f"fp8 {m}x{n}x{k} B {major}-major: two launches "
+                     f"disagree")
+        torch.cuda.synchronize()
+        if any(int(c.abs().sum()) for c in mmad_mod._counters.values()):
+            fail(f"fp8 {m}x{n}x{k}: split counters left nonzero")
+        del a, b, got, want
+    need = {(major, unsplit) for major in "nk" for unsplit in (False, True)}
+    if need - reached:
+        fail(f"fp8 route not reached (B major, unsplit): "
+             f"{sorted(need - reached)}")
+    print(f"mmad fp8 tensor-core route vs plain: {len(FP8_CASES)} cases, "
+          f"both B majors split and unsplit, fp32 / bf16 / fp16 out, agree "
+          f"(worst err/tol {worst:.3f}; the IEEE terms + "
+          f"fp8_tensor_core_atol), repeated launches bitwise equal, "
+          f"counters zero", flush=True)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_fp8_shapes(torch, mmad_mod, ref, dev, seed: int, shapes,
+                    repeats: int = 1) -> list:
+    """Per (m, n, k) of `shapes`, fp32 out: the route, split and grid, and
+    for an N-major B (a (K, N) weight, transposed in the call) and a
+    K-major one (`w.T`) the kernel's device time per call (median of
+    `repeats`; calls queued behind a spin kernel, weights rotated past the
+    L2), its error over the tolerance, whether three launches agree bit for
+    bit and whether the split counters are zero after; `torch._scaled_mm`
+    with unit scales and a K-major B (None where this torch refuses it),
+    the plain version, the bound (bytes over the HBM rate or operations
+    over the fp8 peak) and each major's roofline share."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    f8 = torch.float8_e4m3fn
+    one = torch.ones((), device=dev)
+    block = (128, 128, 128)
+    rows = []
+    for m, n, k in shapes:
+        a = torch.randn((m, k), generator=g, device=dev).to(f8)
+        copies = max(1, math.ceil(120e6 / (k * n)))
+        weights = [torch.randn((k, n), generator=g, device=dev).to(f8)
+                   for _ in range(copies)]
+        cols = [w.T.contiguous().T for w in weights]    # K-major B
+        it = {"i": 0}
+
+        def nxt(ws):
+            it["i"] = (it["i"] + 1) % copies
+            return ws[it["i"]]
+
+        def timed(fn, iters=20):
+            return sorted(1e3 * device_ms(torch, fn, iters=iters, warmup=2)
+                          for _ in range(repeats))[repeats // 2]
+
+        row = {"shape": [m, n, k], "dtype": "float8_e4m3fn"}
+        for major, ws in (("n", weights), ("k", cols)):
+            wgmma_b = mmad_mod.wgmma_b_major(a, ws[0])
+            variant, kps, splits = mmad_mod.plan_launch(
+                m, n, k, block, n_sms, mmad_mod.b_layout(ws[0]), 1, wgmma_b,
+                mmad_mod.tile_vectors(a, ws[0]))
+            fp8 = variant == getattr(mmad_mod, "WGMMA_FP8", None)
+            got = mmad_mod.mmad(a, ws[0], block, torch.float32)
+            want = ref.mmad_ref(a, ws[0], torch.float32)
+            repeat = all(torch.equal(mmad_mod.mmad(a, ws[0], block,
+                                                   torch.float32), got)
+                         for _ in range(2))
+            torch.cuda.synchronize()
+            info = {"variant": variant, "kps": kps, "splits": splits,
+                    "us": timed(lambda: mmad_mod.mmad(a, nxt(ws), block,
+                                                      torch.float32)),
+                    "max_abs_err": float((got - want).abs().max()),
+                    "err_over_tolerance": tolerance_ratio(
+                        torch, got, want, k, torch.float32, fp8=fp8),
+                    "three_launches_bitwise_equal": repeat,
+                    "counters_zero": not any(
+                        int(c.abs().sum())
+                        for c in mmad_mod._counters.values())}
+            if fp8:
+                info["grid"] = list(mmad_mod.fp8_geometry(
+                    m, n, k, wgmma_b, n_sms).grid)
+            row[f"b_{major}"] = info
+            del got, want
+        try:
+            row["scaled_mm_us"] = timed(lambda: torch._scaled_mm(
+                a, nxt(cols), one, one, out_dtype=torch.float32))
+        except (RuntimeError, TypeError) as err:
+            row["scaled_mm_us"] = None
+            row["scaled_mm_refused"] = str(err).splitlines()[0][:200]
+        row["plain_us"] = timed(lambda: ref.mmad_ref(a, nxt(weights),
+                                                     torch.float32), iters=3)
+        t_bytes = (m * k + k * n + m * n * 4) / H100_BYTES_PER_S
+        t_ops = 2 * m * n * k / H100_FP8_FLOPS
+        row["bound_us"] = 1e6 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        for major in "nk":
+            row[f"b_{major}"]["share"] = (row["bound_us"]
+                                          / row[f"b_{major}"]["us"])
+        rows.append(row)
+        del a, weights, cols
+    torch.cuda.empty_cache()
+    return rows
+
+
+def e4m3_ulp(torch, x):
+    """One e4m3 ulp at each |x|: 2^(e - 3) in the binade [2^e, 2^(e+1)),
+    e >= -6; the subnormals' 2^-9 below."""
+    e = torch.floor(torch.log2(x.float().abs())).clamp(min=-6)
+    return torch.exp2(e - 3)
+
+
+def fp8_deploy(torch, mmad_mod, ref, dev) -> dict:
+    """The paper's fp8 deployment through the port's entry point: the
+    `FP8_DEPLOY_SHAPES` tuned by `Planner` on `softhier_gh200` at 1-byte
+    elements, resolved on the dispatch path (`lookup_plan`, as `pmm`
+    does), lowered on the card's 1x1 mesh and run by `dit_gemm` on e4m3
+    operands with a (K, N) weight: resolve rate 1.0 (the fallbacks
+    printed), one `mmad` launch per dispatch, the fp8 route's kernels seen
+    by name in a profile, and C (e4m3, as the reference's mode bodies
+    round it) the kernel's own fp32 C rounded once, within one e4m3 ulp
+    beyond the route's fp32 tolerance of the plain version rounded once.
+    Then the 18 paper shapes and the record, timed (`time_fp8_shapes`)."""
+    from repro_torch.core.gemm import dit_gemm
+    from repro_torch.core.lower import lower_schedule
+    from repro_torch.core.schedule import GEMMShape
+    from repro_torch.deploy.cache import PlanCache
+    from repro_torch.deploy.planner import Planner
+    from repro_torch.hw.config import softhier_gh200
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.matmul import lookup_plan
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "fp8_plans"
+    shutil.rmtree(work, ignore_errors=True)
+    planner = Planner(softhier_gh200(), cache=PlanCache(str(work)),
+                      elem_bytes=1, max_candidates=FP8_TUNE_CANDIDATES)
+    shapes = [GEMMShape(*shape) for shape in FP8_DEPLOY_SHAPES]
+    for shape in shapes:                 # the warm-up's full tune
+        planner.plan(shape)
+    tune_s = time.perf_counter() - t0
+    mesh = make_host_mesh(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    calls = []
+    for shape in shapes:
+        plan, kind = lookup_plan(planner, shape)
+        if plan is None:
+            fail(f"fp8 deploy: no plan resolved for {(shape.m, shape.n, shape.k)}")
+        ep = lower_schedule(plan.schedule, mesh, "data", "model",
+                            shape=(shape.m, shape.n, shape.k))
+        if ep.mode == "auto" or ep.inner_kernel is None \
+                or ep.inner_kernel.dtype != "float8_e4m3":
+            fail(f"fp8 deploy: {(shape.m, shape.n, shape.k)} lowered to {ep.mode} with "
+                 f"inner kernel {ep.inner_kernel}")
+        a, b = fp8_operands(torch, shape.m, shape.k, shape.n, "n", g, dev,
+                            FP8_OPERAND_SCALE)
+        calls.append((shape, plan, kind, ep, a, b))
+        print(f"fp8 deploy {(shape.m, shape.n, shape.k)}: {kind} plan "
+              f"{plan.schedule.dataflow}, lowered to {ep.mode} "
+              f"(fallbacks {list(ep.reasons())}), inner kernel "
+              f"{ep.inner_kernel}",
+              flush=True)
+    for _, _, _, ep, a, b in calls:      # warm: the first launch binds
+        dit_gemm(a, b, mesh, exec_plan=ep)
+    torch.cuda.synchronize()
+    mmad_mod.reset_launch_count()
+    outs = [dit_gemm(a, b, mesh, exec_plan=ep)
+            for _, _, _, ep, a, b in calls]
+    torch.cuda.synchronize()
+    launches = mmad_mod.launch_count()
+    if launches != len(calls):
+        fail(f"fp8 deploy: mmad launched {launches} times for {len(calls)} "
+             f"dispatches")
+    with device_profile(torch, dev) as prof:
+        for _, _, _, ep, a, b in calls:
+            dit_gemm(a, b, mesh, exec_plan=ep)
+    edge_kernels_kept(torch, prof)
+    kernels = device_kernels(torch, prof)
+    fp8_calls = sum(c for _, c, name in kernels if FP8_KERNEL in name)
+    transposes = sum(c for _, c, name in kernels
+                     if FP8_TRANSPOSE_KERNEL in name)
+    other = [name for _, _, name in kernels
+             if mmad_call(name) and FP8_KERNEL not in name]
+    if fp8_calls != len(calls) or transposes != len(calls) or other:
+        fail(f"fp8 deploy: the profile holds {fp8_calls} {FP8_KERNEL} and "
+             f"{transposes} {FP8_TRANSPOSE_KERNEL} for {len(calls)} "
+             f"dispatches with a (K, N) weight, and other mmad kernels "
+             f"{other}")
+    # C is the kernel's fp32 C rounded once to e4m3, bit for bit (the mode
+    # body adds nothing on one device); against the plain version rounded
+    # once it may differ by the route's fp32 tolerance (the tensor cores'
+    # sums, scaled as the operands are) and then one e4m3 ulp of rounding:
+    # near zero that tolerance spans several of e4m3's small ulps
+    path = []
+    for (shape, _, _, _, a, b), out in zip(calls, outs):
+        dims = (shape.m, shape.n, shape.k)
+        want = ref.mmad_ref(a, b, torch.float32).to(torch.float8_e4m3fn)
+        if out.dtype != torch.float8_e4m3fn or out.shape != want.shape:
+            fail(f"fp8 deploy {dims}: C is {out.dtype} {tuple(out.shape)}")
+        kernel = mmad_mod.mmad(a, b, (128, 128, 128), torch.float32).to(
+            torch.float8_e4m3fn)
+        if not torch.equal(out.view(torch.uint8), kernel.view(torch.uint8)):
+            fail(f"fp8 deploy {dims}: C is not the kernel's fp32 C rounded "
+                 f"once")
+        got32, want32 = out.float(), want.float()
+        if not (torch.isfinite(got32).all() and torch.isfinite(want32).all()):
+            fail(f"fp8 deploy {dims}: C is not finite")
+        err = (got32 - want32).abs()
+        ulp = e4m3_ulp(torch, torch.maximum(got32.abs(), want32.abs()))
+        atol = FP8_OPERAND_SCALE ** 2 * fp8_tensor_core_atol(shape.k)
+        beyond = float(((err - atol).clamp(min=0) / ulp).max())
+        ulps = float((err / e4m3_ulp(torch, torch.minimum(
+            got32.abs(), want32.abs()))).max())
+        differ = int((got32 != want32).sum())
+        if not beyond <= 1.0:
+            fail(f"fp8 deploy {dims}: C is {beyond:.2f} e4m3 ulps beyond the "
+                 f"route's fp32 tolerance from the plain version")
+        path.append({"shape": list(dims), "ulps_beyond_tolerance": beyond,
+                     "max_ulps": ulps, "elements_differ": differ,
+                     "elements": out.numel()})
+        print(f"fp8 deploy {dims}: C is the kernel's fp32 C rounded once; "
+              f"against the plain version rounded once {differ} of "
+              f"{out.numel()} elements differ, by at most {ulps:.0f} e4m3 "
+              f"ulps ({beyond:.2f} beyond the fp32 tolerance of "
+              f"{atol:.3g})", flush=True)
+    del calls, outs
+    rows = time_fp8_shapes(
+        torch, mmad_mod, ref, dev, SEED + 54,
+        [(m, n, k) for m in (4096, 64, 128) for n, k in DEEPGEMM_NK]
+        + [FP8_RECORD])
+    for r in rows:
+        for major in "nk":
+            info = r[f"b_{major}"]
+            if info["variant"] != mmad_mod.WGMMA_FP8 or not (
+                    info["err_over_tolerance"] <= 1.0
+                    and info["three_launches_bitwise_equal"]
+                    and info["counters_zero"]):
+                fail(f"fp8 shape {r['shape']} B {major}-major: {info}")
+        library = ("refused" if r["scaled_mm_us"] is None
+                   else f"{r['scaled_mm_us']:.1f} us")
+        print(f"fp8 {r['shape']}: N-major B {r['b_n']['us']:.1f} us "
+              f"({r['b_n']['share']:.1%}), K-major B {r['b_k']['us']:.1f} us "
+              f"({r['b_k']['share']:.1%}; splits {r['b_k']['splits']}) of a "
+              f"bound of {r['bound_us']:.1f} us by {r['bound_by']}; "
+              f"torch._scaled_mm {library}; plain {r['plain_us']:.1f} us; "
+              f"err/tol {max(r['b_n']['err_over_tolerance'], r['b_k']['err_over_tolerance']):.3f}",
+              flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"fp8 deploy: resolve rate 1.0 over {len(shapes)} shapes, {launches}"
+          f" mmad launches for as many dispatches; the phase took "
+          f"{seconds:.1f} s (tuning {tune_s:.1f} s)", flush=True)
+    return {"launches": launches, "path": path, "rows": rows,
+            "seconds": seconds, "tune_s": tune_s}
+
+
+def fp8_entry(summary: dict) -> dict:
+    """The `kernels` entry of the fp8 route on the deploy path: the path
+    run's launches and its two shapes' times (N-major B, as `dit_gemm`
+    is handed a (K, N) weight), with the 19 timed shapes beside."""
+    rows = [r for r in summary["rows"]
+            if tuple(r["shape"]) in set(FP8_DEPLOY_SHAPES)]
+    library = [r["scaled_mm_us"] for r in rows]
+    return {
+        "name": "mmad/fp8-deploy", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mmad.cu",
+        "replaces": "src/repro/kernels/mmad.py:80",
+        "path": "dit_gemm under softhier-gh200 plans on the card's 1x1 "
+                "mesh, fp8 e4m3, a (K, N) weight: " + ", ".join(
+                    str(tuple(s)) for s in FP8_DEPLOY_SHAPES),
+        "launches": summary["launches"],
+        "max_abs_err": max(r["b_n"]["max_abs_err"] for r in rows),
+        "ms": sum(r["b_n"]["us"] for r in rows) / 1e3,
+        "plain_ms": sum(r["plain_us"] for r in rows) / 1e3,
+        "bound_ms": sum(r["bound_us"] for r in rows) / 1e3,
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                     else "operations"),
+        "library_ms": (None if None in library else sum(library) / 1e3),
+        "shapes": summary["rows"]}
 
 
 def shape_operands(torch, mmad_mod, ref, cfg, m, n, k, block, dtype, g, dev,
@@ -1142,7 +1543,7 @@ def busy_share(torch, params, cfg, planner, prompts, dev,
     reduce = [name for _, _, name in kernels if SPLITK_REDUCE_KERNEL in name]
     if reduce:
         fail(f"the decode window launched {reduce}")
-    mmad_calls = sum(count for _, count, name in kernels if "mmad" in name)
+    mmad_calls = sum(count for _, count, name in kernels if mmad_call(name))
     if mmad_calls != gemms_per_step * GEN:
         fail(f"{mmad_calls} mmad kernels ran in {GEN} decode steps of "
              f"{gemms_per_step} routed GEMMs")
@@ -1372,7 +1773,7 @@ def step_split(torch, params, cfg, planner, prompts, dev,
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     mmad_ms = sum(e.time_range.elapsed_us() for e in kernels
                   if "mmad" in e.name) / 1e3
-    mmad_calls = sum("mmad" in e.name for e in kernels)
+    mmad_calls = sum(mmad_call(e.name) for e in kernels)
     if mmad_calls != gemms_per_step:
         fail(f"{mmad_calls} mmad kernels ran in the traced step of "
              f"{gemms_per_step} routed GEMMs")
@@ -2182,6 +2583,10 @@ def check_fp32_trajectory(losses, norms, ref_losses, ref_norms) -> None:
 
 TENSOR_CORE_KERNEL = "mmad_wgmma_kernel"
 SIMT_TILE_KERNEL = "mmad_tile_kernel"
+FP8_KERNEL = "mmad_fp8_kernel"
+# the fp8 route's second kernel, in a call whose B is N-major: it copies B
+# K-major for the first (fp8 wgmma reads K-major operands only)
+FP8_TRANSPOSE_KERNEL = "mmad_fp8_transpose_kernel"
 # the second kernel the SIMT tile route launched for a K split before it
 # fixed splits up in the same launch: a profile that shows it fails
 SPLITK_REDUCE_KERNEL = "mmad_splitk_reduce"
@@ -2192,6 +2597,14 @@ SPLITK_REDUCE_KERNEL = "mmad_splitk_reduce"
 # are the input, compute and output types, so nvjet_s* reads fp32
 LIBRARY_GEMM = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 FP32_GEMM = ("sgemm", "simt", "f32f32_f32f32", "nvjet_s")
+
+
+def mmad_call(name: str) -> bool:
+    """Whether a kernel of that name is one `mmad` call: every `mmad`
+    kernel but the fp8 route's transpose (`FP8_TRANSPOSE_KERNEL`), which
+    runs before `FP8_KERNEL` in the same call. The profile checks that
+    count `mmad` kernels against launches count these."""
+    return "mmad" in name and FP8_TRANSPOSE_KERNEL not in name
 
 
 def library_gemms(kernels):
@@ -2233,7 +2646,7 @@ def train_profile(torch, mmad_mod, s, state, batch, dev,
     edges = edge_kernels_kept(torch, prof)
     kernels = device_kernels(torch, prof)
     mmad = [(us, count, name) for us, count, name in kernels
-            if "mmad" in name]
+            if mmad_call(name)]
 
     def calls(kernel):
         return sum(count for _, count, name in mmad if kernel in name)
@@ -3866,6 +4279,12 @@ def main() -> int:
     phase("kernels vs plain")
     check_kernels(torch, mmad_mod, ref)
     check_tile_route(torch, mmad_mod, ref)
+    check_fp8_route(torch, mmad_mod, ref)
+
+    phase("fp8 deploy")
+    dev = torch.device("cuda")
+    fp8_summary = fp8_deploy(torch, mmad_mod, ref, dev)
+    release(torch)
 
     phase("serve gemma-2b")
     from repro_torch.configs import get_config
@@ -4222,7 +4641,8 @@ def main() -> int:
                                        served[arch][2].get("prefix_launches")),
                    rows_)
         for arch, rows_ in forward_rows.items()] + [moe_entry]
-        + trained_entries + traffic_entries + [sharded_entry]}), flush=True)
+        + trained_entries + traffic_entries + [sharded_entry]
+        + [fp8_entry(fp8_summary)]}), flush=True)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - T_START:.1f}s", flush=True)
     print(smi, flush=True)

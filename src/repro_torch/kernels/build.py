@@ -24,7 +24,12 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+# --split-compile=0 runs the device compiler's optimization over the
+# source's kernels on every host core at once: csrc/mmad.cu's template
+# instances are independent, and one pass over them took most of
+# chip_smoke.py's build phase
+NVCC_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "--split-compile=0", "-shared",
+                           "-Xcompiler", "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -10,13 +10,17 @@
 // strides, so the wrapper never pads or copies (the tied lm_head weight is
 // the strided view embed.T).
 //
-// Four variants. Two stream kernels for up to 16 rows of A with a weight
+// Five variants. Two stream kernels for up to 16 rows of A with a weight
 // whose rows (row stream) or columns (column stream, embed.T) are contiguous
 // and 16-byte aligned: every decode GEMM. A tensor-core tile kernel (wgmma
 // fed by TMA) for more rows of bf16 or fp16 operands that a tensor map can
-// describe: every train GEMM. A SIMT tile kernel for the rest (fp32, fp8
-// e4m3 and int8 inputs, mixed dtypes, strides TMA cannot describe): on the
-// main path the fp32 MoE router and xLSTM gates in training.
+// describe: every train GEMM. An fp8 tensor-core kernel (wgmma on e4m3,
+// with a transpose kernel before it for an N-major B) for more rows of fp8
+// e4m3 operands that a tensor map can describe: the paper's fp8 GEMMs under
+// softhier-gh200 plans. A SIMT tile kernel for the rest (fp32 and int8
+// inputs, fp8 the fp8 kernel refuses, mixed dtypes, strides TMA cannot
+// describe): on the main path the fp32 MoE router and xLSTM gates in
+// training.
 //
 // What bounds the decode GEMMs on this card: at M = 4 the product reads the
 // weight B once and does 8 FLOPs per weight element, far below the H100's
@@ -77,6 +81,38 @@
 //     an eighth of the card (gemma-2b's k/v projection, 16 tiles: 23.5 us
 //     unsplit, 62.8 / 74.0 / 133 us at 2 / 4 / 8 splits).
 //
+// What bounds the paper's fp8 GEMMs: at M = 4096 against N = 2112-32768 and
+// K = 512-16384, ~200 FLOP a byte, operations (1979 TFLOPS fp8 dense),
+// which only wgmma on e4m3 reaches; at M = 64 or 128, B's bytes (3.35 TB/s).
+// What the fp8 kernel does about it:
+//
+//   * a 128 x 128 CTA tile, or 128 x 192 where its tiles take fewer waves
+//     (kernels/mmad.py:fp8_tile_width): two consumer warpgroups each issue
+//     wgmma.m64n{128,192}k32 into 64 or 96 fp32 accumulators a thread. A
+//     128-byte swizzle row holds 128 e4m3, so a stage is 128 deep (a
+//     32-deep slice is 32 bytes, the bf16 kernel's descriptor step); 6
+//     stages of 32 KB or 5 of 40 KB. The wider tile feeds 157 FLOP a byte
+//     of shared-memory fill, not 128: on an H100 the 128-wide tiles of the
+//     long-K shapes stalled near 7 TB/s of fill;
+//   * promotion: the tensor cores keep about 14 bits of an fp8 running sum
+//     (DeepSeek-V3, arXiv:2412.19437, 3.3.2). Each consumer adds its
+//     accumulator into fp32 registers on the CUDA cores after every 128-deep
+//     K step (wgmma_wait<0>, then the adds) and restarts it from zero. On
+//     an H100 the largest error against IEEE fp32 sums at K = 16384 was 0.090
+//     with it and 5.63 without (tools/mmad_fp8_times.py). Two accumulators
+//     alternating by step, chosen at run time, made ptxas serialize every
+//     wgmma and ran 10-45 % slower;
+//   * B K-major only: fp8 wgmma has no transpose bits, so a (K, N) weight is
+//     first copied K-major into the call's workspace by a transpose kernel
+//     that moves whole 128-byte lines both ways (4 x 4 byte blocks turned in
+//     registers); ~2.7 TB/s on an H100. embed.T-like K-major weights are
+//     read in place;
+//   * K split only where the tiles leave SMs idle (the flat shapes: one M
+//     tile), into as many splits as one wave holds; partial tiles are
+//     written fragment by fragment in coalesced float4s and the last split
+//     to arrive sums them in split order: one GEMM kernel a call, bitwise
+//     repeatable.
+//
 // What bounds the SIMT tile route's main-path GEMMs: the train router (A
 // 2048 x 2048 fp32 against a 2048 x 64 weight) is 32 FLOP per byte of A,
 // above the CUDA cores' ridge (67 TFLOPS fp32 over 3.35 TB/s, 20 FLOP per
@@ -94,9 +130,9 @@
 //   * operands through a ring, not through registers: each stage, TILE_BK
 //     = 32 k of A's rows and B's, is copied by 16-byte cp.async (zero-fill
 //     past an edge) with STAGES - 1 stages in flight while one is summed,
-//     one barrier a stage; fp32, bf16, fp16, fp8 e4m3 and int8 are
-//     compile-time pairs of one dtype, converted to fp32 as they are read
-//     from shared memory. Mixed dtypes and strides that deny 16-byte
+//     one barrier a stage; fp32, bf16, fp16, fp8 e4m3 (what the fp8 kernel
+//     refuses) and int8 are compile-time pairs of one dtype, converted to
+//     fp32 as they are read from shared memory. Mixed dtypes and strides that deny 16-byte
 //     vectors take one generic instance: scalar loads with runtime dtypes,
 //     fetched into registers while the current stage is summed;
 //   * K split from the shape and the SM count (kernels/mmad.py:
@@ -110,8 +146,8 @@
 //     order and writes C: one kernel a call, bitwise repeatable.
 //
 // No variant reads the plan's block geometry: the stream kernels' tiles,
-// splits and rings, the tensor-core kernel's tile and the SIMT tile route's
-// instance and split are their own.
+// splits and rings, the tensor-core kernels' tiles and splits and the SIMT
+// tile route's instance and split are their own.
 //
 // Numerics: every operand element converts exactly to fp32 (fp32, bf16,
 // fp16, fp8 e4m3, int8), and the output is rounded once to out_dtype. On
@@ -119,7 +155,9 @@
 // (never TF32). On the tensor-core kernel bf16 and fp16 products are exact
 // in fp32 too, but the tensor cores sum them, and their fp32 accumulation is
 // not an IEEE FMA chain: the running sum is truncated, not rounded to
-// nearest, at each 16-deep K slice.
+// nearest, at each 16-deep K slice. On the fp8 kernel e4m3 products are
+// exact, the tensor cores sum each 32-deep slice keeping about 14 bits, and
+// every 128-deep step's sum is added into IEEE fp32 registers.
 //
 // Plain C interface (bound with ctypes); launches on the caller's stream and
 // returns the launch's cudaError.
@@ -702,9 +740,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma that owns them.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define MMAD_WGMMA_M64N256K16(DT) \
@@ -768,14 +807,14 @@ __device__ __forceinline__ void store_pair(void* C, long long i, int c_dt, float
 }
 
 // A thread's accumulator d[4j + 2h + e] is C element (r0 + 8h, c0 + 8j + e)
-// of the warpgroup's 64 x 256 block (the wgmma D fragment: warp w holds rows
-// 16w..16w+15, lane l row l / 4 and columns 2 (l % 4) + {0, 1} of every
+// of the warpgroup's 64 x (R / 2) block (the wgmma D fragment: warp w holds
+// rows 16w..16w+15, lane l row l / 4 and columns 2 (l % 4) + {0, 1} of every
 // 8-column group). f(m, n, v0, v1) gets each in-range pair once.
-template <typename F>
-__device__ __forceinline__ void for_each_pair(const float (&d)[128], int r0, int c0, int M,
+template <int R, typename F>
+__device__ __forceinline__ void for_each_pair(const float (&d)[R], int r0, int c0, int M,
                                               F f) {
 #pragma unroll
-  for (int j = 0; j < 32; ++j)
+  for (int j = 0; j < R / 4; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = r0 + 8 * h;
@@ -916,9 +955,9 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 2-D tensor map of 16-bit elements with 128-byte swizzled boxes: d0
-// elements along the contiguous dimension, d1 rows `stride` bytes apart.
-// Boxes that cross an edge are zero-filled.
+// A 2-D tensor map of bf16, fp16 or (as bytes) fp8 e4m3 elements with
+// 128-byte swizzled boxes: d0 elements along the contiguous dimension, d1
+// rows `stride` bytes apart. Boxes that cross an edge are zero-filled.
 int tensor_map_2d(CUtensorMap* map, int dt, const void* base, long long d0, long long d1,
                   long long stride, int box0, int box1) {
   const EncodeTiledFn encode = encode_tiled();
@@ -928,7 +967,11 @@ int tensor_map_2d(CUtensorMap* map, int dt, const void* base, long long d0, long
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box0), static_cast<cuuint32_t>(box1)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
-      map, dt == BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2,
+      map,
+      dt == BF16  ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+      : dt == F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      2,
       const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -987,6 +1030,395 @@ int launch_wgmma(const StreamArgs& p, cudaStream_t stream) {
                   static_cast<unsigned>(n_tiles));
   kernel<<<grid, WG_NT, WG_SMEM, stream>>>(ta, tb, args);
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// fp8 e4m3 tensor-core kernel (wgmma.m64nBNk32.f32.e4m3.e4m3 fed by TMA)
+// for both operands e4m3, A K-contiguous and B K- or N-contiguous, 16-byte
+// aligned bases and row strides. fp8 wgmma reads only K-major operands from
+// shared memory (the transpose bits are for 16-bit types), so an
+// N-contiguous B, a (K, N) weight, is first transposed into a K-major copy
+// in the workspace by a second kernel of the same call. A CTA computes an
+// F8_BM x BN tile of C over its split's K range: warpgroup 0 is the
+// producer, warpgroups 1 and 2 each own 64 rows. The tensor cores keep
+// about 14 bits of the running sum of fp8 products (DeepSeek-V3, arXiv:
+// 2412.19437, 3.3.2), so each consumer adds its tensor-core accumulator
+// into fp32 registers on the CUDA cores every `promote` K steps
+// ("promotion") and restarts it from zero.
+// ---------------------------------------------------------------------------
+
+constexpr int F8_BM = 128;
+constexpr int F8_BK = 128;                             // one 128-byte swizzle row of e4m3
+constexpr int F8_A_BYTES = F8_BM * F8_BK;              // 16 KB
+// Two instances, by the N width of a tile: F8_BN_FLAT, and F8_BN, whose
+// 40 KB stages feed 157 FLOP a byte of shared-memory fill, not 128 (on the
+// card the 128-wide tile's large-M GEMMs stalled near 7 TB/s of fill).
+// kernels/mmad.py:fp8_tile_width picks one by the waves its tiles take.
+constexpr int F8_BN_FLAT = 128, F8_BN = 192;
+template <int BN>
+struct F8Cfg {
+  static constexpr int STAGE_BYTES = F8_A_BYTES + BN * F8_BK;
+  static constexpr int STAGES = BN == F8_BN_FLAT ? 6 : 5;
+  // the ring, 1 KB of alignment slack, two barriers a stage
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+  static constexpr int TILE_FLOATS = F8_BM * BN;       // one split's fp32 partial tile
+  static constexpr int FRAG = BN / 2;                  // accumulators a consumer thread
+};
+constexpr int F8_T_K = 128, F8_T_N = 128;              // transpose tile, k x n bytes
+
+struct Fp8Args {
+  void* C;
+  float* ws;          // fp32 partial tiles of a K split: (tiles, splits, F8_BM x BN)
+  int* counters;      // one arrival counter per output tile; zero between launches
+  int c_dt;
+  int M, N, K;
+  long long kps;      // k per split, whole F8_BK steps unless unsplit
+  int promote;        // K steps between promotions; 0: once, at the end
+  int stage_tx;       // bytes a stage's TMA loads bring (A's box, B's)
+};
+
+// d (64 x BN, fp32) = d * scale_d + A (64 x 32, K-major) * B (32 x BN,
+// K-major), e4m3 operands read from shared memory through descriptors.
+__device__ __forceinline__ void wgmma_e4m3(float (&d)[64], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_e4m3(float (&d)[96], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The consumer warpgroups only (the producer has left).
+__device__ __forceinline__ void fp8_consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(WG_CONSUMERS) : "memory");
+}
+
+// grid: (M tiles, N tiles, K splits). A thread of consumer warpgroup cw
+// sums its 64 x BN block's fragment (BN / 2 fp32 a thread) into `sum`; a
+// warpgroup whose rows all lie past M issues no wgmma. A split CTA writes
+// its fp32 partial tile fragment by fragment (coalesced float4s), counts
+// its arrival on the tile's counter, and the last of the tile's splits to
+// arrive sums the partials in split order and writes C.
+template <int BN>
+__global__ void __launch_bounds__(WG_NT, 1)
+    mmad_fp8_kernel(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb, const Fp8Args p) {
+  using Cfg = F8Cfg<BN>;
+  constexpr int STAGES = Cfg::STAGES, FRAG = Cfg::FRAG, Q = FRAG / 4;
+  extern __shared__ unsigned char f8_smem_raw[];
+  __shared__ int last;
+  unsigned char* smem = f8_smem_raw + ((1024 - (smem_u32(f8_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * Cfg::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int m0 = blockIdx.x * F8_BM;
+  const int n0 = blockIdx.y * BN;
+  const long long kbeg = static_cast<long long>(blockIdx.z) * p.kps;
+  const long long kend = (kbeg + p.kps < p.K) ? kbeg + p.kps : p.K;
+  const int nkb = static_cast<int>((kend - kbeg + F8_BK - 1) / F8_BK);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMERS / 32);   // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {                                 // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) {
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % STAGES;
+        mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+        // whole boxes, even past M, N or K: zero-filled, and counted
+        mbar_expect_tx(&full[s], p.stage_tx);
+        unsigned char* a_s = smem + s * Cfg::STAGE_BYTES;
+        const int k0 = static_cast<int>(kbeg) + kb * F8_BK;
+        tma_load_2d(a_s, &ta, k0, m0, &full[s]);
+        tma_load_2d(a_s + F8_A_BYTES, &tb, k0, n0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int cw = wg - 1;                         // rows 64 cw.. of the tile
+  const int t = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const bool active = m0 + 64 * cw < p.M;
+  float acc[FRAG], sum[FRAG];
+#pragma unroll
+  for (int i = 0; i < FRAG; ++i) acc[i] = sum[i] = 0.f;
+  bool fresh = true;                             // acc holds nothing yet
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int s = kb % STAGES;
+    mbar_wait(&full[s], (kb / STAGES) & 1);
+    if (active) {
+      // K-major tiles: 128-byte rows, 8-row groups 1024 bytes apart; a
+      // 32-deep K slice starts 32 bytes further along the (swizzled) row
+      const unsigned char* a_s = smem + s * Cfg::STAGE_BYTES + cw * 64 * F8_BK;
+      const unsigned char* b_s = smem + s * Cfg::STAGE_BYTES + F8_A_BYTES;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < F8_BK / 32; ++kk)
+        wgmma_e4m3(acc, sw128_desc(a_s + kk * 32, 16, 1024), sw128_desc(b_s + kk * 32, 16, 1024),
+                   kk > 0 || !fresh);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);       // the stage's slot may be refilled
+    fresh = kb + 1 == nkb || (p.promote > 0 && (kb + 1) % p.promote == 0);
+    if (fresh) {
+#pragma unroll
+      for (int i = 0; i < FRAG; ++i) sum[i] += acc[i];
+    }
+  }
+
+  const int r0 = m0 + cw * 64 + (t >> 5) * 16 + (lane >> 2);
+  const int c0 = n0 + 2 * (lane & 3);
+  const int N = p.N;
+  const bool even = (N & 1) == 0;
+  auto store = [&](const float (&v)[FRAG]) {
+    for_each_pair(v, r0, c0, p.M, [&](int m, int n, float v0, float v1) {
+      const long long i = static_cast<long long>(m) * N + n;
+      if (even && n + 1 < N) {
+        store_pair(p.C, i, p.c_dt, v0, v1);
+      } else {
+        if (n < N) store_any(p.C, i, p.c_dt, v0);
+        if (n + 1 < N) store_any(p.C, i + 1, p.c_dt, v1);
+      }
+    });
+  };
+  const int splits = static_cast<int>(gridDim.z);
+  if (splits == 1) {
+    if (active) store(sum);
+    return;
+  }
+  // the split's partial: its warpgroup's fragments, float4 q of thread t at
+  // (q * 128 + t), so a warp's stores are contiguous
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  auto part = [&](int z) {
+    return reinterpret_cast<float4*>(p.ws) +
+           (static_cast<long long>(tile) * splits + z) * (Cfg::TILE_FLOATS / 4) + cw * Q * 128 + t;
+  };
+  if (active) {
+    float4* out = part(blockIdx.z);
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      __stcg(out + q * 128, make_float4(sum[4 * q], sum[4 * q + 1], sum[4 * q + 2], sum[4 * q + 3]));
+  }
+  fp8_consumer_sync();                           // the CTA's partial is written
+  if (threadIdx.x == 128) last = arrive_last(&p.counters[tile], splits);
+  fp8_consumer_sync();
+  if (!last || !active) return;
+#pragma unroll
+  for (int i = 0; i < FRAG; ++i) sum[i] = 0.f;
+  for (int z = 0; z < splits; ++z) {             // split order: bitwise repeatable
+    const float4* in = part(z);
+    float4 v[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) v[q] = __ldcg(in + q * 128);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      sum[4 * q] += v[q].x;
+      sum[4 * q + 1] += v[q].y;
+      sum[4 * q + 2] += v[q].z;
+      sum[4 * q + 3] += v[q].w;
+    }
+  }
+  store(sum);
+}
+
+// B (K, N) e4m3, N-contiguous rows `sbk` bytes apart -> Bt (N, ldt),
+// K-contiguous, a F8_T_K x F8_T_N tile a CTA. A thread loads 4 x 4-byte
+// blocks (4 k rows of 4 n bytes; a warp reads 128 bytes of each row) and
+// transposes each in registers (__byte_perm) into 4 words of 4 k bytes,
+// one a column, into a word-pitched shared tile; then each thread writes
+// 16 k bytes of a column, a warp 128 bytes of each of 4 rows. Both sides
+// move whole 128-byte lines. k from K to ldt (a row's 16-byte padding) is
+// written as zeros.
+__global__ void __launch_bounds__(256)
+    mmad_fp8_transpose_kernel(const uint8_t* B, uint8_t* Bt, int K, int N, long long sbk,
+                              int ldt) {
+  __shared__ uint32_t tile[F8_T_N][F8_T_K / 4 + 1];     // [n][k / 4]
+  const long long k0 = static_cast<long long>(blockIdx.y) * F8_T_K;
+  const long long n0 = static_cast<long long>(blockIdx.x) * F8_T_N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n = n0 + 4 * lane;
+#pragma unroll
+  for (int u = 0; u < F8_T_K / 32; ++u) {
+    const int bk = warp + 8 * u;                 // k rows 4 bk .. 4 bk + 3
+    uint32_t x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long k = k0 + 4 * bk + i;
+      x[i] = 0;
+      if (k < K && n < N) {
+        const uint8_t* src = B + k * sbk + n;
+        if (n + 4 <= N) {
+          x[i] = __ldg(reinterpret_cast<const uint32_t*>(src));
+        } else {
+          for (int j = 0; j < 4; ++j)
+            if (n + j < N) x[i] |= static_cast<uint32_t>(src[j]) << (8 * j);
+        }
+      }
+    }
+    // x[i] byte j is (k 4 bk + i, n + j): column j's 4 k bytes
+    const uint32_t t0 = __byte_perm(x[0], x[1], 0x5140), t1 = __byte_perm(x[2], x[3], 0x5140);
+    const uint32_t t2 = __byte_perm(x[0], x[1], 0x7362), t3 = __byte_perm(x[2], x[3], 0x7362);
+    tile[4 * lane][bk] = __byte_perm(t0, t1, 0x5410);
+    tile[4 * lane + 1][bk] = __byte_perm(t0, t1, 0x7632);
+    tile[4 * lane + 2][bk] = __byte_perm(t2, t3, 0x5410);
+    tile[4 * lane + 3][bk] = __byte_perm(t2, t3, 0x7632);
+  }
+  __syncthreads();
+  const int c = threadIdx.x % 8;                 // k bytes 16 c .. 16 c + 15
+  const long long k = k0 + 16 * c;
+#pragma unroll
+  for (int u = 0; u < F8_T_N / 32; ++u) {
+    const int r = threadIdx.x / 8 + 32 * u;
+    if (n0 + r < N && k < ldt)
+      *reinterpret_cast<uint4*>(Bt + (n0 + r) * ldt + k) =
+          make_uint4(tile[r][4 * c], tile[r][4 * c + 1], tile[r][4 * c + 2], tile[r][4 * c + 3]);
+  }
+}
+
+// Float offset of the transposed B in the workspace, after the partials,
+// on a 256-byte boundary; kernels/mmad.py:fp8_geometry mirrors it.
+long long fp8_bt_offset(long long tiles, int splits, int tile_floats) {
+  const long long part = splits > 1 ? tiles * splits * tile_floats : 0;
+  return (part + 63) / 64 * 64;
+}
+
+// grid: (M tiles, N tiles, K splits), as the bf16 kernel's: consecutive
+// CTAs share a column of B. A is K-contiguous (sak == 1); B N-contiguous
+// when sbn == 1 (transposed first into the workspace), else K-contiguous
+// (sbk == 1). Refuses (cudaErrorInvalidValue) what kernels/mmad.py:
+// wgmma_b_major and fp8_geometry would not send here; it never falls back.
+template <int BN>
+int launch_fp8_inst(const StreamArgs& p, bool b_nmajor, int promote, cudaStream_t stream) {
+  using Cfg = F8Cfg<BN>;
+  const long long m_tiles = (p.M + F8_BM - 1) / F8_BM;
+  const long long n_tiles = (p.N + BN - 1) / BN;
+  if (n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // A's box: 64 rows where M fits them (warpgroup 2 then idles, and the
+  // TMA fills no rows past M), else the tile's F8_BM
+  const int a_rows = p.M <= 64 ? 64 : F8_BM;
+  CUtensorMap ta, tb;
+  int err = tensor_map_2d(&ta, F8E4M3, p.A, p.K, p.M, p.sam, F8_BK, a_rows);
+  if (err) return err;
+  if (b_nmajor) {
+    const int ldt = static_cast<int>((p.K + 15) / 16 * 16);
+    uint8_t* bt = reinterpret_cast<uint8_t*>(
+        p.ws + fp8_bt_offset(m_tiles * n_tiles, p.splits, Cfg::TILE_FLOATS));
+    const dim3 tgrid(static_cast<unsigned>((p.N + F8_T_N - 1) / F8_T_N),
+                     static_cast<unsigned>((p.K + F8_T_K - 1) / F8_T_K));
+    mmad_fp8_transpose_kernel<<<tgrid, 256, 0, stream>>>(static_cast<const uint8_t*>(p.B), bt,
+                                                         static_cast<int>(p.K),
+                                                         static_cast<int>(p.N), p.sbk, ldt);
+    const cudaError_t terr = cudaGetLastError();
+    if (terr != cudaSuccess) return static_cast<int>(terr);
+    err = tensor_map_2d(&tb, F8E4M3, bt, p.K, p.N, ldt, F8_BK, BN);
+  } else {
+    err = tensor_map_2d(&tb, F8E4M3, p.B, p.K, p.N, p.sbn, F8_BK, BN);
+  }
+  if (err) return err;
+  // the ring is above the default 48 KB: raise the limit once per device
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t cerr = cudaGetDevice(&dev);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[dev]) {
+    cerr = cudaFuncSetAttribute(mmad_fp8_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Cfg::SMEM);
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+    raised[dev] = true;
+  }
+  const Fp8Args args{p.C,
+                     p.ws,
+                     static_cast<int*>(p.counters),
+                     p.c_dt,
+                     static_cast<int>(p.M),
+                     static_cast<int>(p.N),
+                     static_cast<int>(p.K),
+                     p.kps,
+                     promote,
+                     (a_rows + BN) * F8_BK};
+  const dim3 grid(static_cast<unsigned>(m_tiles), static_cast<unsigned>(n_tiles), p.splits);
+  mmad_fp8_kernel<BN><<<grid, WG_NT, Cfg::SMEM, stream>>>(ta, tb, args);
+  return 0;
+}
+
+// `sub` is the tile width x 256 + the K steps between promotions, as
+// kernels/mmad.py:fp8_tile_width and FP8_PROMOTE_STEPS give them.
+int launch_fp8(const StreamArgs& p, int b_dt, int sub, cudaStream_t stream) {
+  const int bn = sub >> 8, promote = sub & 255;
+  const long long lim = 1ll << 31;
+  const bool b_nmajor = p.sbn == 1;
+  const bool split_ok =
+      p.splits == 1 ? p.kps >= p.K
+                    : (p.splits > 1 && p.splits <= 65535 && p.ws != nullptr &&
+                       p.counters != nullptr && p.kps % F8_BK == 0 &&
+                       (p.splits - 1) * p.kps < p.K && p.splits * p.kps >= p.K);
+  if (p.a_dt != F8E4M3 || b_dt != F8E4M3 || p.sak != 1 || p.sam % 16 || p.sam < p.K ||
+      (b_nmajor ? (p.sbk % 16 || p.sbk < p.N) : (p.sbk != 1 || p.sbn % 16 || p.sbn < p.K)) ||
+      reinterpret_cast<uintptr_t>(p.A) % 16 || reinterpret_cast<uintptr_t>(p.B) % 16 ||
+      p.M < 1 || p.N < 1 || p.K < 1 || p.M >= lim || p.N >= lim || p.K >= lim ||
+      !split_ok || (bn != F8_BN_FLAT && bn != F8_BN) ||
+      (b_nmajor && (p.ws == nullptr || (p.K + F8_T_K - 1) / F8_T_K > 65535)) ||
+      (p.c_dt != F32 && p.c_dt != BF16 && p.c_dt != F16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return bn == F8_BN_FLAT ? launch_fp8_inst<F8_BN_FLAT>(p, b_nmajor, promote, stream)
+                         : launch_fp8_inst<F8_BN>(p, b_nmajor, promote, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1487,6 +1919,10 @@ extern "C" int mmad_launch(const void* a, const void* b, void* c, void* ws, void
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    return err ? err : static_cast<int>(cudaGetLastError());
+  }
+  if (variant == 4) {
+    err = launch_fp8(p, b_dt, sub, stream);
     return err ? err : static_cast<int>(cudaGetLastError());
   }
   if (variant != 1 && variant != 2) return static_cast<int>(cudaErrorInvalidValue);

@@ -34,10 +34,24 @@ loads, B read in place whether it is a (K, N) weight or `embed.T`, A read
 in place whether it is an activation or the M-contiguous `a.T` of the
 backward's weight gradient, K not split (on the card a split's fp32
 partials cost more than the SMs it fills gave back).
-`wgmma_geometry` is its pure-Python mirror. Everything else — fp32, fp8
-e4m3 and int8 inputs, mixed dtypes, strides a tensor map cannot describe;
-on the main path the fp32 MoE router and xLSTM gates in training — takes
-the SIMT tile kernel, IEEE fp32 FMAs on the CUDA cores. A is its one large
+`wgmma_geometry` is its pure-Python mirror.
+
+The paper's fp8 GEMMs (the DeepGEMM shapes under `softhier_gh200` plans,
+M = 4096 at ~200 FLOP a byte, M = 64 or 128 bound by B's bytes): where both
+operands are fp8 e4m3, M exceeds `STREAM_MAX_M` and a tensor map can
+describe them, A K-contiguous (`wgmma_b_major`), the fp8 tensor-core
+variant runs: `wgmma` on e4m3 at twice the bf16 rate, fed by a TMA ring,
+128 x 128 tiles for one M tile and 128 x 192 ones for more where they
+take fewer waves (`fp8_tile_width`), the tensor cores' sums (about 14
+bits kept) promoted into fp32 registers every 128 k, K split for the flat
+shapes until one wave fills the SMs and summed in the same launch. fp8
+`wgmma` reads only K-major operands, so a (K, N) weight is first copied
+K-major into the call's workspace by a transpose kernel of the same call
+(`embed.T`-like K-major weights are read in place). `fp8_geometry` is its
+pure-Python mirror. Everything else — fp32 and int8 inputs, fp8 the fp8
+variant refuses, mixed dtypes, strides a tensor map cannot describe; on
+the main path the fp32 MoE router and xLSTM gates in training — takes the
+SIMT tile kernel, IEEE fp32 FMAs on the CUDA cores. A is its one large
 operand and N is narrow (64 for the router, 8 for the gates), so its
 instance is sized by N: narrow tiles 64 rows tall and as wide as N
 rounded up to a power of two (no masked columns, A streamed once), a wide
@@ -54,7 +68,7 @@ failed launch.
 
 The plan's (bm, bn, bk) block geometry is accepted, power of two or not,
 but no variant reads it: the stream kernels' tile, split and ring, the
-tensor-core kernel's tile and the SIMT tile route's instance and split
+tensor-core kernels' tiles and the SIMT tile route's instance and split
 are their own, so the planner's `InnerKernel` choice does not shape what
 runs on the card. Register accumulators need compile-time shapes, and the
 fp32 contract does not depend on the tiling. Honouring the geometry, or
@@ -87,7 +101,7 @@ DTYPE_CODES = {
 OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # csrc/mmad.cu launch variants
-TILE, ROW_STREAM, COL_STREAM, WGMMA = 0, 1, 2, 3
+TILE, ROW_STREAM, COL_STREAM, WGMMA, WGMMA_FP8 = 0, 1, 2, 3, 4
 STREAM_MAX_M = 16        # the stream variants take up to this many rows
 STREAM_ROWS = 4          # rows of A per stream CTA (SK_MT)
 STREAM_WARPS = 8         # consumer warps per stream CTA (SK_WARPS); +1 producer
@@ -111,6 +125,25 @@ WGMMA_MAX_N_TILES = 65535                  # grid.y
 # against a (K, N) weight or `embed.T`, the backward's da = g @ b.T (b.T is
 # K-contiguous; lm_head's is `embed`, N-contiguous) and db = a.T @ g
 WGMMA_MAJORS = (("k", "n"), ("k", "k"), ("m", "n"))
+# the fp8 e4m3 tensor-core variant (csrc/mmad.cu F8_*): CTA tile, K step
+# (one 128-byte swizzle row of e4m3), ring, the (A, B) majors it reads
+# (fp8 wgmma reads K-major operands only: an N-major B is transposed in the
+# call), and the transpose kernel's tile
+FP8_DTYPES = (torch.float8_e4m3fn,)
+FP8_BM, FP8_BK = 128, 128
+# the tile's N widths (csrc/mmad.cu F8Cfg), the ring's stages for each,
+# and the rate at which a CTA of each works through its tile's columns
+# (on an H100 a 128 x 192 tile's 40 KB stages fed the tensor cores ~1.2x
+# faster than a 128 x 128 tile's 32 KB: tools/mmad_fp8_times.py)
+FP8_BN_FLAT, FP8_BN = 128, 192
+FP8_STAGES = {FP8_BN_FLAT: 6, FP8_BN: 5}
+FP8_BN_RATE = {FP8_BN_FLAT: 1.0, FP8_BN: 1.2}
+FP8_MAJORS = (("k", "n"), ("k", "k"))
+FP8_T_K, FP8_T_N = 128, 128
+FP8_MAX_T_K_TILES = 65535                  # the transpose's grid.y
+# K steps between promotions of the tensor-core sums into fp32 registers
+# (0: once, at the end; below 256); csrc/mmad.cu's header note says why
+FP8_PROMOTE_STEPS = 1
 # the SIMT tile route (csrc/mmad.cu TILE_*): threads a CTA, k a stage (and
 # the unit a K split is cut in)
 TILE_THREADS = 256
@@ -196,22 +229,29 @@ def wgmma_a_major(a: torch.Tensor) -> Optional[str]:
 
 def wgmma_b_major(a: torch.Tensor, b: torch.Tensor) -> Optional[str]:
     """B's major, 'n' (a (K, N) weight, or the gradient g) or 'k'
-    (`embed.T`, or a weight's `b.T`), when A and B can feed the
-    tensor-core variant; None when they cannot: unless both are bf16 or
-    both fp16, each is contiguous along one dimension as `tma_describable`
-    says, the (A, B) majors are an instance the kernel has
-    (`WGMMA_MAJORS`), and the N tiles fit the grid."""
-    if a.dtype != b.dtype or a.dtype not in WGMMA_DTYPES:
+    (`embed.T`, or a weight's `b.T`), when A and B can feed a tensor-core
+    variant; None when they cannot: unless both are bf16 or both fp16 (the
+    `wgmma` variant) or both fp8 e4m3 with more than `STREAM_MAX_M` rows
+    (the fp8 variant; fewer rows are the stream kernels'), each is
+    contiguous along one dimension as `tma_describable` says, the (A, B)
+    majors are an instance the kernel has (`WGMMA_MAJORS`; `FP8_MAJORS`,
+    A K-contiguous), and the grids fit."""
+    fp8 = a.dtype in FP8_DTYPES
+    if a.dtype != b.dtype or not (fp8 or a.dtype in WGMMA_DTYPES):
         return None
     m, k = a.shape
     n = b.shape[1]
-    if min(m, n, k) < 1 or math.ceil(n / WGMMA_BN) > WGMMA_MAX_N_TILES:
+    bn = FP8_BN_FLAT if fp8 else WGMMA_BN     # the narrowest tile it takes
+    if min(m, n, k) < 1 or math.ceil(n / bn) > WGMMA_MAX_N_TILES:
         return None
-    if max(m, n, k) >= 2 ** 31:
+    if max(m, n, k) >= 2 ** 31 or (fp8 and m <= STREAM_MAX_M):
         return None
     b_major = ("n" if tma_describable(b, 1)
                else "k" if tma_describable(b, 0) else None)
-    if (wgmma_a_major(a), b_major) not in WGMMA_MAJORS:
+    if (wgmma_a_major(a), b_major) not in (FP8_MAJORS if fp8
+                                           else WGMMA_MAJORS):
+        return None
+    if fp8 and b_major == "n" and math.ceil(k / FP8_T_K) > FP8_MAX_T_K_TILES:
         return None
     return b_major
 
@@ -238,6 +278,92 @@ def wgmma_geometry(m: int, n: int, k: int) -> WgmmaGeometry:
     return WgmmaGeometry(
         (math.ceil(m / WGMMA_BM), math.ceil(n / WGMMA_BN)),
         math.ceil(k / WGMMA_BK), WGMMA_STAGES, WGMMA_STAGE_BYTES, WGMMA_SMEM)
+
+
+class Fp8Geometry(NamedTuple):
+    """What one fp8 tensor-core call runs: its tile's N width, its CTA
+    grid (x: M tiles, y: N tiles, z: K splits), k per split, the K steps a
+    CTA walks, the ring and its dynamic shared memory, the transpose
+    kernel's grid (None for a K-major B), and the scratch: one arrival
+    counter per output tile when K is split, and a workspace of
+    `ws_floats` fp32 holding the splits' partial tiles and, from float
+    `bt_offset` on, the K-major copy of an N-major B (rows of `bt_row`
+    bytes)."""
+    bn: int
+    grid: Tuple[int, int, int]
+    kps: int
+    splits: int
+    k_steps: int
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+    transpose_grid: Optional[Tuple[int, int]]
+    counters: int
+    bt_offset: int
+    bt_row: int
+    ws_floats: int
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def fp8_tile_width(m: int, n: int, n_sms: int) -> int:
+    """The fp8 variant's tile width: `FP8_BN_FLAT` for one M tile (M <=
+    FP8_BM: its K split keeps the partial tiles small); for more, the
+    width whose CTAs finish the tiles soonest, their waves on `n_sms` SMs
+    times the columns a CTA works through over its rate (`FP8_BN_RATE`):
+    M = 4096 x N = 2112 takes 352 128 x 192 tiles in 3 waves, not 544 in
+    5; 2048 x 2048 keeps 256 128 x 128 tiles in 2 waves."""
+    if m <= FP8_BM:
+        return FP8_BN_FLAT
+    tiles_m = math.ceil(m / FP8_BM)
+    return min((FP8_BN_FLAT, FP8_BN), key=lambda bn: math.ceil(
+        tiles_m * math.ceil(n / bn) / n_sms) * bn / FP8_BN_RATE[bn])
+
+
+@functools.lru_cache(maxsize=1024)
+def fp8_geometry(m: int, n: int, k: int, b_major: str,
+                 n_sms: int) -> Fp8Geometry:
+    """Grid, split and scratch of the fp8 tensor-core variant, as
+    csrc/mmad.cu lays them out. Pure Python, so the CPU tests pin it.
+
+    One CTA per `FP8_BM` x bn output tile (bn as `fp8_tile_width` picks
+    it) walks its K range in `FP8_BK`-deep steps through a ring of
+    `FP8_STAGES[bn]` stages. K splits only where the tiles leave
+    SMs idle (the flat GEMMs: M of 64 or 128 is one M tile), into as many
+    splits as one wave of one CTA an SM holds, each a whole number of K
+    steps; the last split to arrive at a tile sums the partials in split
+    order in the same launch. Many tiles never split: their partials would
+    cost more bytes than the idle SMs give back."""
+    if b_major not in ("n", "k"):
+        raise ValueError(f"no fp8 tensor-core instance for B major "
+                         f"{b_major!r}")
+    bn = fp8_tile_width(m, n, n_sms)
+    tiles_m, tiles_n = math.ceil(m / FP8_BM), math.ceil(n / bn)
+    tiles = tiles_m * tiles_n
+    steps = math.ceil(k / FP8_BK)
+    kps, splits = k, 1
+    if tiles < n_sms and steps > 1:
+        want = min(steps, n_sms // tiles)
+        kps = math.ceil(steps / want) * FP8_BK
+        splits = math.ceil(k / kps)
+        if splits == 1:
+            kps = k
+    part = tiles * splits * FP8_BM * bn if splits > 1 else 0
+    bt_offset = math.ceil(part / 64) * 64
+    bt_row = math.ceil(k / 16) * 16
+    transpose = (math.ceil(n / FP8_T_N), math.ceil(k / FP8_T_K))
+    nmajor = b_major == "n"
+    ws = bt_offset + math.ceil(n * bt_row / 4) if nmajor else part
+    stages, stage_bytes = FP8_STAGES[bn], (FP8_BM + bn) * FP8_BK
+    # the ring, 1 KB of slack to align it to 1024 bytes, two barriers a stage
+    smem = stages * stage_bytes + 1024 + 2 * stages * 8
+    return Fp8Geometry(
+        bn, (tiles_m, tiles_n, splits), kps, splits,
+        math.ceil(kps / FP8_BK), stages, stage_bytes, smem,
+        transpose if nmajor else None, tiles if splits > 1 else 0,
+        bt_offset if nmajor else 0, bt_row if nmajor else 0, ws)
 
 
 class StreamGeometry(NamedTuple):
@@ -460,15 +586,19 @@ def plan_launch(m: int, n: int, k: int, block_shape: Tuple[int, int, int],
     Up to `STREAM_MAX_M` rows with a vector-loadable B (`layout`), a stream
     kernel runs, laid out by `stream_geometry`. Otherwise, when the
     operands can feed the tensor cores (`wgmma_b`: B's major as
-    `wgmma_b_major` gives it, for a K- or M-contiguous A), the tensor-core
-    variant runs, laid out by `wgmma_geometry`, K unsplit. Otherwise (and
-    by default) the SIMT tile kernel runs, laid out by `tile_geometry`:
-    a vector instance when `tile_vector` (`tile_vectors(a, b)`; the
-    operands' one element size is `elem_bytes`), else the generic one.
-    No variant reads `block_shape`."""
+    `wgmma_b_major` gives it, for a K- or M-contiguous A), a tensor-core
+    variant runs: for 1-byte operands (fp8 e4m3) the fp8 one, laid out by
+    `fp8_geometry`, else the bf16 / fp16 one, laid out by
+    `wgmma_geometry`, K unsplit. Otherwise (and by default) the SIMT tile
+    kernel runs, laid out by `tile_geometry`: a vector instance when
+    `tile_vector` (`tile_vectors(a, b)`; the operands' one element size is
+    `elem_bytes`), else the generic one. No variant reads `block_shape`."""
     if m <= STREAM_MAX_M and layout in ("rows", "cols"):
         geo = stream_geometry(m, n, k, layout, elem_bytes, n_sms)
         return geo.variant, geo.kps, geo.splits
+    if wgmma_b is not None and elem_bytes == 1:
+        geo = fp8_geometry(m, n, k, wgmma_b, n_sms)
+        return WGMMA_FP8, geo.kps, geo.splits
     if wgmma_b is not None:
         return WGMMA, k, 1
     geo = tile_geometry(m, n, k, elem_bytes, elem_bytes, n_sms, tile_vector)
@@ -554,10 +684,13 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
     n_sms = _num_sms(a.device)
     layout = b_layout(b)
     vector = tile_vectors(a, b)
+    wgmma_b = wgmma_b_major(a, b)
     variant, kps, splits = plan_launch(m, n, max(k, 1), block_shape, n_sms,
-                                       layout, b.element_size(),
-                                       wgmma_b_major(a, b), vector)
-    sub = 0            # the stream kernels' grid x, or the tile instance
+                                       layout, b.element_size(), wgmma_b,
+                                       vector)
+    # the stream kernels' grid x, the tile instance, or the fp8 variant's
+    # tile width x 256 + its K steps between promotions
+    sub = 0
     stream = torch.cuda.current_stream(a.device).cuda_stream
     counters = ws = None
     if variant in (ROW_STREAM, COL_STREAM):
@@ -567,9 +700,18 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
         geo = tile_geometry(m, n, max(k, 1), a.element_size(),
                             b.element_size(), n_sms, vector)
         sub = geo.code
+    elif variant == WGMMA_FP8:
+        geo = fp8_geometry(m, n, k, wgmma_b, n_sms)
+        sub = geo.bn * 256 + FP8_PROMOTE_STEPS
+        if geo.ws_floats:
+            # partials and B's K-major copy: one call's scratch, from the
+            # stream-ordered caching allocator
+            ws = torch.empty(geo.ws_floats, dtype=torch.float32,
+                             device=a.device)
     if splits > 1:
         counters = counter_buffer(a.device, stream, geo.counters)
-        ws = workspace(a.device, stream, geo.ws_floats)
+        if ws is None:
+            ws = workspace(a.device, stream, geo.ws_floats)
     err = _library().mmad_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None,

@@ -3,8 +3,8 @@
 - every `.py` module of `src/repro_torch/` has a row naming it beside its
   counterpart in `src/repro/` (which must exist), or beside "port only"
   where the reference has none;
-- every kernel `mmad.cu` defines (`__global__`), one per route of `mmad`,
-  is named.
+- every kernel `mmad.cu` defines (`__global__`), one per route of `mmad`
+  and the fp8 route's transpose, is named.
 """
 import re
 from pathlib import Path
@@ -43,7 +43,8 @@ def test_every_port_module_is_mapped(module):
 
 def test_every_mmad_route_is_named():
     assert KERNELS == ["mmad_rows_kernel", "mmad_cols_kernel",
-                       "mmad_wgmma_kernel", "mmad_tile_kernel"]
+                       "mmad_wgmma_kernel", "mmad_fp8_kernel",
+                       "mmad_fp8_transpose_kernel", "mmad_tile_kernel"]
     text = PORT_MD.read_text()
     for kernel in KERNELS:
         assert f"`{kernel}`" in text, kernel

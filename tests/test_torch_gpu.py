@@ -16,6 +16,7 @@ This file imports neither jax nor the JAX package.
 """
 import importlib
 import math
+import time
 
 import numpy as np
 import pytest
@@ -64,11 +65,20 @@ def tensor_core_atol(k):
     return 2.0 ** -23 * (k / 16) * 4 * math.sqrt(k)
 
 
-def _assert_close(got, want, k, out_dtype=torch.float32, tensor_cores=False):
+def fp8_tensor_core_atol(k):
+    """Up to 2^-13 of a running partial within 4 sqrt(128) at each of K/32
+    fp8 tensor-core slices, promoted into fp32 every 128 k; as in
+    chip_smoke.py."""
+    return 2.0 ** -13 * (k / 32) * 4 * math.sqrt(min(k, 128))
+
+
+def _assert_close(got, want, k, out_dtype=torch.float32, tensor_cores=False,
+                  fp8=False):
     ulp = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(
         out_dtype, 0.0)
     err = (got.float() - want.float()).abs()
     tol = (1e-5 * math.sqrt(k) + (tensor_core_atol(k) if tensor_cores else 0)
+           + (fp8_tensor_core_atol(k) if fp8 else 0)
            + (1e-5 + ulp) * want.float().abs())
     assert bool((err <= tol).all()), float(err.max())
 
@@ -475,11 +485,14 @@ def test_wgmma_few_tiles_walk_all_of_k_repeatably(cuda, mkn, block, b_major):
 ])
 def test_simt_tile_kernel_keeps_what_wgmma_does_not_take(cuda, a_dtype,
                                                          b_dtype):
-    """fp32 (IEEE, never TF32), fp8, int8 and mixed dtypes stay on the
-    SIMT tile kernel at a train shape, and so does a bf16 K of 130 (a row
+    """fp32 (IEEE, never TF32), int8 and mixed dtypes stay on the SIMT
+    tile kernel at a train shape, fp8 where its tensor-core route refuses
+    the operands (an M-contiguous A), and so does a bf16 K of 130 (a row
     of 260 bytes no tensor map describes)."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    a = _draw((256, 512), getattr(torch, a_dtype), g, cuda)
+    a = (_draw((512, 256), torch.float8_e4m3fn, g, cuda).T
+         if a_dtype == "float8_e4m3fn"
+         else _draw((256, 512), getattr(torch, a_dtype), g, cuda))
     b = _draw((512, 384), getattr(torch, b_dtype), g, cuda)
     cases = [(a, b)]
     if a_dtype == "float32" and b_dtype == "float32":
@@ -927,7 +940,7 @@ TILE_CASES = [
      "narrow64"),
     ("narrow8 unsplit", 16896, 512, 8, "float32", "float32", None,
      "narrow8"),
-    ("fp8 narrow", 1000, 512, 16, "float8_e4m3fn", "float8_e4m3fn", None,
+    ("fp8 narrow", 16, 512, 8, "float8_e4m3fn", "float8_e4m3fn", "slice",
      "narrow16"),
     ("int8 narrow", 300, 1024, 32, "int8", "int8", None, "narrow32"),
     ("fp32 ragged N", 333, 1000, 20, "float32", "float32", None,
@@ -935,7 +948,7 @@ TILE_CASES = [
     ("fp32 ragged chunks", 130, 1030, 18, "float32", "float32", "slice",
      "narrow32"),
     ("wide fp32", 2048, 2048, 2048, "float32", "float32", None, "wide"),
-    ("wide fp8", 2048, 2048, 2048, "float8_e4m3fn", "float8_e4m3fn", None,
+    ("wide fp8", 16, 2048, 2040, "float8_e4m3fn", "float8_e4m3fn", "slice",
      "wide"),
     ("wide int8 ragged", 200, 336, 272, "int8", "int8", None, "wide"),
     ("wide fp32 ragged", 777, 520, 1000, "float32", "float32", "slice",
@@ -1280,3 +1293,128 @@ def test_smoke_ssm_train_step_on_the_card_has_finite_grads(cuda, arch,
     for got, want in zip(out["cuda"], out["cpu"]):
         assert abs(got - want) <= 2e-2 * abs(want)
     capsys.readouterr()
+
+
+# ---------------------------------------------------------------------------
+# fp8 e4m3 on the tensor cores (kernels/mmad.py:fp8_geometry)
+# ---------------------------------------------------------------------------
+
+FP8_CASES = [
+    # (name, m, k, n, B major, split): a paper shape both ways, ragged M,
+    # N and K, one row past the stream kernels, N = 8, rows padded to whole
+    # 16 bytes where K or N is not
+    ("paper unsplit", 4096, 7168, 2112, "n", False),
+    ("paper unsplit w.T", 4096, 7168, 2112, "k", False),
+    ("paper flat", 64, 7168, 2112, "n", True),
+    ("paper flat w.T", 64, 7168, 2112, "k", True),
+    ("ragged", 200, 1040, 300, "n", True),
+    ("ragged w.T", 200, 1040, 300, "k", True),
+    ("M = 17, N = 8", 17, 512, 8, "n", True),
+    ("M = 17, N = 8, w.T", 17, 512, 8, "k", True),
+    ("K = 1000", 300, 1000, 260, "n", True),
+    ("K = 1000, w.T", 300, 1000, 260, "k", True),
+    ("16-deep last step", 2048, 2064, 2048, "k", False),
+]
+
+
+def _fp8_operands(m, k, n, major, g, dev):
+    """e4m3 A (m, k) and B (k, n), N-major or the `.T` of an (n, k) one,
+    rows padded to whole 16 bytes where k or n is not."""
+    def padded(rows, cols):
+        return _draw((rows, -(-cols // 16) * 16), torch.float8_e4m3fn, g,
+                     dev)[:, :cols]
+    return padded(m, k), (padded(k, n) if major == "n" else padded(n, k).T)
+
+
+@pytest.mark.parametrize("out_name", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", FP8_CASES, ids=[c[0] for c in FP8_CASES])
+def test_fp8_route_matches_plain(cuda, case, out_name):
+    """The fp8 tensor-core route split and unsplit, in both B majors and
+    each out dtype: one launch a call (an N-major B's transpose is part
+    of it), the plain version within the IEEE terms plus
+    `fp8_tensor_core_atol`, a second launch bitwise equal, the split
+    counters left at zero."""
+    name, m, k, n, major, split = case
+    out_dtype = getattr(torch, out_name)
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, b = _fp8_operands(m, k, n, major, g, cuda)
+    variant, _, splits = _plan(a, b, (128, 128, 128), cuda)
+    assert variant == mmad_mod.WGMMA_FP8
+    assert mmad_mod.wgmma_b_major(a, b) == major
+    assert (splits > 1) is split
+    before = mmad_mod.launch_count()
+    got = mmad_mod.mmad(a, b, (128, 128, 128), out_dtype)
+    torch.cuda.synchronize()
+    assert mmad_mod.launch_count() == before + 1
+    _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype, fp8=True)
+    assert torch.equal(mmad_mod.mmad(a, b, (128, 128, 128), out_dtype), got)
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in mmad_mod._counters.values())
+
+
+def _refused_a_t(g, dev):
+    return (_draw((512, 256), torch.float8_e4m3fn, g, dev).T,
+            _draw((512, 384), torch.float8_e4m3fn, g, dev))
+
+
+def _refused_int8_b(g, dev):
+    return (_draw((256, 512), torch.float8_e4m3fn, g, dev),
+            _draw((512, 384), torch.int8, g, dev))
+
+
+def _refused_k_rows(g, dev):
+    return (_draw((256, 100), torch.float8_e4m3fn, g, dev),
+            _draw((100, 384), torch.float8_e4m3fn, g, dev))
+
+
+@pytest.mark.parametrize("operands", [_refused_a_t, _refused_int8_b,
+                                      _refused_k_rows],
+                         ids=["A M-contiguous", "int8 B", "100-byte A rows"])
+def test_a_refused_fp8_launch_raises(cuda, monkeypatch, operands):
+    """No fallback: operands the fp8 kernel refuses, sent to it by a forced
+    route, make the wrapper raise, and nothing is counted as launched."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a, b = operands(g, cuda)
+    monkeypatch.setattr(mmad_mod, "wgmma_b_major", lambda a, b: "n")
+    monkeypatch.setattr(mmad_mod, "plan_launch",
+                        lambda *args, **kw: (mmad_mod.WGMMA_FP8, a.shape[1],
+                                             1))
+    before = mmad_mod.launch_count()
+    with pytest.raises(RuntimeError, match="mmad launch failed"):
+        mmad_mod.mmad(a, b, (128, 128, 128), torch.float32)
+    torch.cuda.synchronize()
+    assert mmad_mod.launch_count() == before
+
+
+@pytest.mark.parametrize("major", ["n", "k"])
+def test_fp8_call_kernels(cuda, major):
+    """A call with an N-major B runs the transpose, then the fp8 kernel; a
+    K-major B the fp8 kernel alone; neither a split-K reduce kernel."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a, b = _fp8_operands(64, 7168, 2112, major, g, cuda)
+    mmad_mod.mmad(a, b, (128, 128, 128), torch.float32)
+    torch.cuda.synchronize()
+    # a profile can lose a window's first and last kernels: the call sits
+    # between a host pause and spin kernels at each edge, as
+    # chip_smoke.device_profile does, and some of each edge must be kept
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.25)
+        for _ in range(200):
+            torch.cuda._sleep(100)
+        mmad_mod.mmad(a, b, (128, 128, 128), torch.float32)
+        for _ in range(200):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    work = [i for i, name in enumerate(names) if "spin_kernel" not in name]
+    assert work and work[0] > 0 and work[-1] < len(names) - 1, names[:3]
+    names = [name for name in names if "mmad" in name]
+    want = (["mmad_fp8_transpose_kernel", "mmad_fp8_kernel<"] if major == "n"
+            else ["mmad_fp8_kernel<"])
+    assert len(names) == len(want), names
+    assert all(w in name for w, name in zip(want, names)), names

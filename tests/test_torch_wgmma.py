@@ -47,7 +47,7 @@ def _predicate_cases():
         ("fp32", _t((64, 512), torch.float32), _t((512, 384), torch.float32),
          None),
         ("fp8 e4m3", _t((64, 512), torch.float8_e4m3fn),
-         _t((512, 384), torch.float8_e4m3fn), None),
+         _t((512, 384), torch.float8_e4m3fn), "n"),
         ("int8", _t((64, 512), torch.int8), _t((512, 384), torch.int8), None),
         ("fp32 A, bf16 B", _t((64, 512), torch.float32), w, None),
         ("bf16 A, fp16 B", a, _t((512, 384), f16), None),
@@ -76,7 +76,9 @@ def test_wgmma_b_major_is_the_tma_legality_predicate(name, a, b, want):
     """bf16 or fp16 on both sides, A K- or M-contiguous, B N- or
     K-contiguous in a pair the kernel is built for ((K, N), (K, K),
     (MN, N)), 16-byte aligned bases and 16-byte whole, non-overlapping
-    rows; anything else is None (the SIMT tile kernel)."""
+    rows; fp8 e4m3 on both sides likewise, on its own tensor-core
+    variant (tests/test_torch_fp8.py); anything else is None (the SIMT
+    tile kernel)."""
     assert mmad_mod.wgmma_b_major(a, b) == want
 
 
@@ -155,7 +157,7 @@ ROUTES = [
     ("fp32", _t((256, 512), torch.float32), _t((512, 384), torch.float32),
      mmad_mod.TILE, "wide"),
     ("fp8", _t((256, 512), torch.float8_e4m3fn),
-     _t((512, 384), torch.float8_e4m3fn), mmad_mod.TILE, "wide"),
+     _t((512, 384), torch.float8_e4m3fn), mmad_mod.WGMMA_FP8),
     ("int8", _t((256, 512), torch.int8), _t((512, 384), torch.int8),
      mmad_mod.TILE, "wide"),
     ("mixed", _t((256, 512), torch.float32), _t((512, 384)), mmad_mod.TILE,
