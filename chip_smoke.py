@@ -291,14 +291,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 1024, 3, 1e-4
 STEP0_REL = 1e-3
 LATER_LOSS_REL, LATER_GNORM_REL = 3e-3, 5e-3
 # (m, k, n, block, transposed B): gemma-2b's train GEMMs at batch 2 x seq
-# 1024 and the plans' block geometry (the tensor-core kernel reads none of
-# it)
+# 1024 at the tile the card view's plans name for them (the route's own,
+# 128 x 256 x 64 with 4 stages: tests/test_torch_inner_kernel.py)
 TRAIN_CASES = [
-    (2048, 2048, 2048, (512, 512, 512), False),     # q, o
-    (2048, 2048, 256, (128, 256, 512), False),      # k, v: split K
-    (2048, 2048, 16384, (512, 512, 512), False),    # gate, up
-    (2048, 16384, 2048, (512, 512, 512), False),    # down
-    (1024, 2048, 256000, (512, 128, 512), True),    # lm_head chunk, embed.T
+    (2048, 2048, 2048, (128, 256, 64), False),      # q, o
+    (2048, 2048, 256, (128, 256, 64), False),       # k, v
+    (2048, 2048, 16384, (128, 256, 64), False),     # gate, up
+    (2048, 16384, 2048, (128, 256, 64), False),     # down
+    (1024, 2048, 256000, (128, 256, 64), True),     # lm_head chunk, embed.T
 ]
 # Routed vs unrouted first-step logits, relative L2. Both runs round each
 # of the step's 127 GEMM outputs to bf16 (2^-8 relative) from fp32 sums
@@ -388,6 +388,12 @@ FP32_HELD_TRAIN = ("xlstm-1.3b",)
 # the serve phases of the attention models without a check of their own,
 # at full width and depth: the MoE model, then the dense families
 SERVE_DENSE = ("deepseek-moe-16b", "qwen3-14b", "olmo-1b", "phi4-mini-3.8b")
+# The models whose serve and train phases are held to their plans' inner
+# kernels with none demoted: bf16 end to end, so on the card view every
+# tensor-core dispatch's plan names a compiled instance (`check_census`).
+# Other phases print their census; a plan whose kernel lowering demoted
+# (an fp32 router's, xLSTM's fp32 gates') runs the route's own geometry.
+PLAN_GEOMETRY_HELD = ("gemma-2b",)
 # deepseek-v2-236b serves at full width, SERVE_V2_LAYERS deep (1 dense + 5
 # MoE layers, 21.2 B parameters, 42.5 GB of bf16; the full 60 layers are
 # ~472 GB). MLA's naive form against its absorbed form, relative L2 of the
@@ -631,26 +637,27 @@ def check_kernels(torch, mmad_mod, ref) -> float:
     dtypes = [torch.float32, torch.bfloat16, torch.float16,
               torch.float8_e4m3fn, torch.int8]
     cases = [
-        # (m, k, n, block, transpose_b); the first five are the main path's
-        # decode GEMMs at the plan's block geometry
-        (4, 2048, 2048, (4, 128, 256), False),      # q, o
-        (4, 2048, 256, (4, 256, 128), False),       # k, v
-        (4, 2048, 16384, (4, 512, 256), False),     # gate, up
-        (4, 16384, 2048, (4, 128, 512), False),     # down
-        (4, 2048, 256000, (4, 512, 256), True),     # lm_head: embed.T, unsplit
-        (4, 2048, 256, (4, 512, 256), True),        # column stream, split K
-        (4, 512, 270336, (4, 512, 256), False),     # row stream, no fixup
-        (4, 2048, 64, (4, 256, 64), False),         # deepseek's fp32 router
-        (2, 512, 384, (2, 128, 128), False),        # bm = 2
-        (48, 120, 192, (24, 96, 40), False),        # tile: non-power-of-two
-        (5, 130, 7, (8, 128, 128), False),          # tile: ragged
-        (200, 300, 260, (128, 128, 128), True),     # tile: strided B
+        # (m, k, n, transpose_b), each at the geometry its route picks (no
+        # plan names one for these); the first five are the main path's
+        # decode GEMMs
+        (4, 2048, 2048, False),      # q, o
+        (4, 2048, 256, False),       # k, v
+        (4, 2048, 16384, False),     # gate, up
+        (4, 16384, 2048, False),     # down
+        (4, 2048, 256000, True),     # lm_head: embed.T, unsplit
+        (4, 2048, 256, True),        # column stream, split K
+        (4, 512, 270336, False),     # row stream, no fixup
+        (4, 2048, 64, False),        # deepseek's fp32 router
+        (2, 512, 384, False),        # bm = 2
+        (48, 120, 192, False),       # tile: non-power-of-two
+        (5, 130, 7, False),          # tile: ragged
+        (200, 300, 260, True),       # tile: strided B
     ]
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     reached = set()
     worst = 0.0
     for dt in dtypes:
-        for m, k, n, block, tb in cases:
+        for m, k, n, tb in cases:
             def draw(shape):
                 if dt == torch.int8:
                     return torch.randint(-8, 9, shape, generator=g,
@@ -659,13 +666,13 @@ def check_kernels(torch, mmad_mod, ref) -> float:
             a = draw((m, k))
             b = draw((n, k)).T if tb else draw((k, n))
             variant, _, splits = mmad_mod.plan_launch(
-                m, n, k, block, n_sms, mmad_mod.b_layout(b), b.element_size(),
+                m, n, k, None, n_sms, mmad_mod.b_layout(b), b.element_size(),
                 mmad_mod.wgmma_b_major(a, b), mmad_mod.tile_vectors(a, b))
             reached.add((variant, splits == 1))
             outs = ((torch.float32, torch.bfloat16) if dt == torch.bfloat16
                     else (torch.float32,))
             for out_dtype in outs:
-                got = mmad_mod.mmad(a, b, block, out_dtype)
+                got = mmad_mod.mmad(a, b, None, out_dtype)
                 want = ref.mmad_ref(a, b, out_dtype)
                 torch.cuda.synchronize()
                 ratio = tolerance_ratio(torch, got, want, k, out_dtype,
@@ -673,7 +680,7 @@ def check_kernels(torch, mmad_mod, ref) -> float:
                                         variant == mmad_mod.WGMMA_FP8)
                 worst = max(worst, ratio)
                 if not ratio <= 1.0:
-                    fail(f"mmad {dt} m={m} k={k} n={n} block={block} "
+                    fail(f"mmad {dt} m={m} k={k} n={n} "
                          f"transposed={tb} out={out_dtype} variant={variant} "
                          f"splits={splits}: max abs err "
                          f"{float((got.float() - want.float()).abs().max()):.3e}"
@@ -691,9 +698,10 @@ def check_kernels(torch, mmad_mod, ref) -> float:
           f"agree (worst err/tol {worst:.3f}; rtol 1e-5, atol 1e-5*sqrt(K), "
           f"+1 ulp for bf16 out, + the tensor-core term on that variant); "
           f"(variant, unsplit) reached: {sorted(reached)}", flush=True)
-    # the train path's GEMMs: bf16 at the plan's block geometry, all on the
+    # the train path's GEMMs: bf16 at the plan's tile, all on the
     # tensor-core kernel, each launched three times (a ring slot freed too
-    # early would show as launches that disagree)
+    # early would show as launches that disagree); the backward's products
+    # at the route's own (no plan names theirs)
     tc_worst = 0.0
     for m, k, n, block, tb in TRAIN_CASES:
         a = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -729,12 +737,12 @@ def check_kernels(torch, mmad_mod, ref) -> float:
         grad = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
         for x, y, name in ((grad, b.T, "da"), (a.T, grad, "db")):
             variant = mmad_mod.plan_launch(
-                x.shape[0], y.shape[1], x.shape[1], block, n_sms,
+                x.shape[0], y.shape[1], x.shape[1], None, n_sms,
                 mmad_mod.b_layout(y), 2, mmad_mod.wgmma_b_major(x, y))[0]
             if variant != mmad_mod.WGMMA:
                 fail(f"backward {name} of train shape {m}x{n}x{k} would not "
                      f"run the tensor-core kernel (variant {variant})")
-            got = mmad_mod.mmad(x, y, block, torch.float32)
+            got = mmad_mod.mmad(x, y, None, torch.float32)
             want = ref.mmad_ref(x, y, torch.float32)
             torch.cuda.synchronize()
             ratio = tolerance_ratio(torch, got, want, x.shape[1],
@@ -743,7 +751,7 @@ def check_kernels(torch, mmad_mod, ref) -> float:
             if not ratio <= 1.0:
                 fail(f"mmad backward {name} of train shape {m}x{n}x{k}: "
                      f"error {ratio:.2f}x its tolerance")
-            if not torch.equal(mmad_mod.mmad(x, y, block, torch.float32),
+            if not torch.equal(mmad_mod.mmad(x, y, None, torch.float32),
                                got):
                 fail(f"mmad backward {name} of train shape {m}x{n}x{k}: "
                      f"two launches disagree")
@@ -804,7 +812,7 @@ def check_tile_route(torch, mmad_mod, ref) -> float:
              if view == ["b_slice"] else draw((k, n), getattr(torch, b_name)))
         vector = mmad_mod.tile_vectors(a, b)
         variant = mmad_mod.plan_launch(
-            m, n, k, (128, 128, 128), n_sms, mmad_mod.b_layout(b),
+            m, n, k, None, n_sms, mmad_mod.b_layout(b),
             b.element_size(), mmad_mod.wgmma_b_major(a, b), vector)[0]
         geo = mmad_mod.tile_geometry(m, n, k, a.element_size(),
                                      b.element_size(), n_sms, vector)
@@ -816,7 +824,7 @@ def check_tile_route(torch, mmad_mod, ref) -> float:
         outs = ((torch.float32, torch.bfloat16, torch.float16) if i < 2
                 else (torch.float32,))
         for out_dtype in outs:
-            got = mmad_mod.mmad(a, b, (128, 128, 128), out_dtype)
+            got = mmad_mod.mmad(a, b, None, out_dtype)
             want = ref.mmad_ref(a, b, out_dtype)
             torch.cuda.synchronize()
             ratio = tolerance_ratio(torch, got, want, k, out_dtype)
@@ -825,7 +833,7 @@ def check_tile_route(torch, mmad_mod, ref) -> float:
                 fail(f"tile {instance} {m}x{n}x{k} {a_name} x {b_name} out="
                      f"{out_dtype} splits={geo.splits}: error {ratio:.2f}x "
                      f"its tolerance")
-            if not torch.equal(mmad_mod.mmad(a, b, (128, 128, 128),
+            if not torch.equal(mmad_mod.mmad(a, b, None,
                                              out_dtype), got):
                 fail(f"tile {instance} {m}x{n}x{k}: two launches disagree")
         torch.cuda.synchronize()
@@ -879,13 +887,13 @@ def time_simt_records(torch, mmad_mod, ref, dev, seed: int):
         vector = mmad_mod.tile_vectors(a, ws[0])
         wgmma_b = mmad_mod.wgmma_b_major(a, ws[0])
         fp8 = mmad_mod.plan_launch(
-            m, n, k, (128, 128, 128), n_sms, mmad_mod.b_layout(ws[0]), size,
+            m, n, k, None, n_sms, mmad_mod.b_layout(ws[0]), size,
             wgmma_b, vector)[0] == mmad_mod.WGMMA_FP8
         # fp8 e4m3 takes the fp8 tensor-core route since it has one
         geo = (mmad_mod.fp8_geometry(m, n, k, wgmma_b, n_sms) if fp8 else
                mmad_mod.tile_geometry(m, n, k, size, size, n_sms, vector))
         instance = "fp8 tensor cores" if fp8 else geo.instance
-        got = mmad_mod.mmad(a, ws[0], (128, 128, 128), torch.float32)
+        got = mmad_mod.mmad(a, ws[0], None, torch.float32)
         want = ref.mmad_ref(a, ws[0], torch.float32)
         ratio = tolerance_ratio(torch, got, want, k, torch.float32, fp8=fp8)
         if not ratio <= 1.0:
@@ -913,7 +921,7 @@ def time_simt_records(torch, mmad_mod, ref, dev, seed: int):
         else:
             library_ms = timed(lambda: torch.matmul(a, nxt()))
             peak = H100_FP32_FLOPS
-        kernel_ms = timed(lambda: mmad_mod.mmad(a, nxt(), (128, 128, 128),
+        kernel_ms = timed(lambda: mmad_mod.mmad(a, nxt(), None,
                                                 torch.float32))
         t_bytes = ((m * k + k * n) * size + m * n * 4) / H100_BYTES_PER_S * 1e3
         t_ops = 2 * m * n * k / peak * 1e3
@@ -946,6 +954,12 @@ DEEPGEMM_NK = [(2112, 7168), (24576, 1536), (32768, 512), (7168, 16384),
 FP8_DEPLOY_SHAPES = [(4096, 2112, 7168), (64, 2112, 7168)]
 FP8_RECORD = (2048, 2048, 2048)
 FP8_TUNE_CANDIDATES = 24     # as the reference's fig9_11_gh200.py tunes
+PLAN_GEOMETRY_CANDIDATES = 12  # the launchers' --plan-candidates default
+# One call's spread of a kernel's CUDA-event time over repeated timings on
+# one card: where a plan named the route's own geometry, the plan geometry
+# phase's two timings of it differed by at most 0.7 % on an H100, and
+# repeated timings of the fp8 kernel (tools/mmad_fp8_times.py) by up to 2 %
+TIMING_SPREAD = 0.02
 FP8_OPERAND_SCALE = 0.5      # keeps K = 7168 sums well inside e4m3's 448
 # The fp8 tensor-core route's cases, (m, k, n, B major): both majors, split
 # and unsplit, ragged M, N and K, rows padded to whole 16 bytes where K or
@@ -990,7 +1004,7 @@ def check_fp8_route(torch, mmad_mod, ref) -> float:
         a, b = fp8_operands(torch, m, k, n, major, g, dev)
         wgmma_b = mmad_mod.wgmma_b_major(a, b)
         variant, _, splits = mmad_mod.plan_launch(
-            m, n, k, (128, 128, 128), n_sms, mmad_mod.b_layout(b), 1, wgmma_b,
+            m, n, k, None, n_sms, mmad_mod.b_layout(b), 1, wgmma_b,
             mmad_mod.tile_vectors(a, b))
         if wgmma_b != major or variant != mmad_mod.WGMMA_FP8:
             fail(f"fp8 case {m}x{n}x{k} B {major}-major would take variant "
@@ -998,7 +1012,7 @@ def check_fp8_route(torch, mmad_mod, ref) -> float:
         reached.add((major, splits == 1))
         for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
             before = mmad_mod.launch_count()
-            got = mmad_mod.mmad(a, b, (128, 128, 128), out_dtype)
+            got = mmad_mod.mmad(a, b, None, out_dtype)
             want = ref.mmad_ref(a, b, out_dtype)
             torch.cuda.synchronize()
             if mmad_mod.launch_count() != before + 1:
@@ -1011,7 +1025,7 @@ def check_fp8_route(torch, mmad_mod, ref) -> float:
                      f"splits={splits}: max abs err "
                      f"{float((got.float() - want.float()).abs().max()):.3e}"
                      f" is {ratio:.2f}x its tolerance")
-            if not torch.equal(mmad_mod.mmad(a, b, (128, 128, 128),
+            if not torch.equal(mmad_mod.mmad(a, b, None,
                                              out_dtype), got):
                 fail(f"fp8 {m}x{n}x{k} B {major}-major: two launches "
                      f"disagree")
@@ -1032,6 +1046,272 @@ def check_fp8_route(torch, mmad_mod, ref) -> float:
     return worst
 
 
+# Every compiled tensor-core instance (the geometries a card-view plan may
+# name) is held to the plain version at INSTANCE_HOLD (m, k, n): partial
+# tiles on both edges for every tile, a K that wraps every ring, each a
+# multiple of 8 (so a tensor map describes either major). The
+# 16-bit ones in bf16 and fp16 over the (A, B) majors their kernel is built
+# for, the e4m3 ones with B in both majors (split K: few tiles). Each is
+# then timed at INSTANCE_TIME[family] (m, k, n), one shape of the main
+# path's size (gemma-2b's q / o projection; the first DeepGEMM shape), B
+# N-major.
+INSTANCE_HOLD = (296, 1000, 520)
+INSTANCE_TIME = {"16bit": (2048, 2048, 2048), "e4m3": (4096, 7168, 2112)}
+
+
+def instance_name(inst) -> str:
+    return f"{inst.family}-{inst.bm}x{inst.bn}x{inst.bk}s{inst.stages}"
+
+
+def check_tc_instances(torch, mmad_mod, ref, dev) -> list:
+    """Every instance of `mmad_mod.TC_INSTANCES` through the `mmad`
+    wrapper at its geometry: each launch recorded at that instance as
+    named by its caller, the plain version within the tensor-core
+    tolerance, a second launch bitwise equal; then timed beside the
+    route's own geometry, the plain version, one library call and the
+    bound. Returns one row an instance."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    rows = []
+    m, k, n = INSTANCE_HOLD
+    for inst in mmad_mod.TC_INSTANCES:
+        fp8 = inst.family == "e4m3"
+        block = (inst.bm, inst.bn, inst.bk)
+        variant = mmad_mod.WGMMA_FP8 if fp8 else mmad_mod.WGMMA
+        cases = []
+        if fp8:
+            cases = [fp8_operands(torch, m, k, n, major, g, dev)
+                     for major in "nk"]
+        else:
+            for dtype in (torch.bfloat16, torch.float16):
+                for a_major, b_major in mmad_mod.WGMMA_MAJORS:
+                    a = torch.randn((m, k) if a_major == "k" else (k, m),
+                                    generator=g, device=dev).to(dtype)
+                    b = torch.randn((k, n) if b_major == "n" else (n, k),
+                                    generator=g, device=dev).to(dtype)
+                    cases.append((a if a_major == "k" else a.T,
+                                  b if b_major == "n" else b.T))
+        worst = err = 0.0
+        for a, b in cases:
+            mmad_mod.reset_launch_count()
+            got = mmad_mod.mmad(a, b, block, torch.float32, inst.stages)
+            again = mmad_mod.mmad(a, b, block, torch.float32, inst.stages)
+            want = ref.mmad_ref(a, b, torch.float32)
+            torch.cuda.synchronize()
+            counts = mmad_mod.geometry_counts()
+            if counts != {(variant, (m, n, k), inst, True): 2}:
+                fail(f"instance {instance_name(inst)}: launches recorded as "
+                     f"{counts}")
+            if not torch.equal(got, again):
+                fail(f"instance {instance_name(inst)}: two launches disagree")
+            ratio = tolerance_ratio(torch, got, want, k, torch.float32,
+                                    not fp8, fp8)
+            worst = max(worst, ratio)
+            err = max(err, float((got - want).abs().max()))
+            if not ratio <= 1.0:
+                fail(f"instance {instance_name(inst)} on {a.dtype}, strides "
+                     f"{a.stride()} x {b.stride()}: error {ratio:.2f}x its "
+                     f"tolerance")
+            del a, b, got, again, want
+        tm, tk, tn = INSTANCE_TIME[inst.family]
+        if fp8:
+            a, w = fp8_operands(torch, tm, tk, tn, "n", g, dev)
+            one = torch.ones((), device=dev)
+            cols = w.T.contiguous().T
+
+            def library():
+                return torch._scaled_mm(a, cols, one, one,
+                                        out_dtype=torch.float32)
+        else:
+            a = torch.randn((tm, tk), generator=g, device=dev).bfloat16()
+            w = torch.randn((tk, tn), generator=g, device=dev).bfloat16()
+
+            def library():
+                return torch.matmul(a, w)
+        t_bytes = ((tm * tk + tk * tn) * a.element_size()
+                   + tm * tn * 4) / H100_BYTES_PER_S
+        t_ops = 2 * tm * tn * tk / (H100_FP8_FLOPS if fp8
+                                    else H100_BF16_FLOPS)
+        try:
+            library_ms = device_ms(torch, library)
+        except (RuntimeError, TypeError):
+            library_ms = None
+        row = {"name": instance_name(inst), "instance": list(inst),
+               "held_at": [m, n, k], "cases": len(cases),
+               "max_abs_err": err, "err_over_tolerance": worst,
+               "timed_at": [tm, tn, tk],
+               "ms": device_ms(torch, lambda: mmad_mod.mmad(
+                   a, w, block, torch.float32, inst.stages)),
+               "route_ms": device_ms(torch, lambda: mmad_mod.mmad(
+                   a, w, None, torch.float32)),
+               "plain_ms": device_ms(torch, lambda: ref.mmad_ref(
+                   a, w, torch.float32), iters=3),
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": library_ms}
+        rows.append(row)
+        print(f"tensor-core instance {row['name']}: {row['cases']} cases at "
+              f"{m}x{n}x{k} agree (worst err/tol {worst:.3f}); at "
+              f"{tm}x{tn}x{tk} {row['ms'] * 1e3:.1f} us (the route's own "
+              f"{row['route_ms'] * 1e3:.1f} us, bound "
+              f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']}, "
+              f"library " + ("refused" if library_ms is None
+                             else f"{library_ms * 1e3:.1f} us")
+              + f", plain {row['plain_ms'] * 1e3:.1f} us)", flush=True)
+        del a, w
+    mmad_mod.reset_launch_count()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def plan_geometry(torch, mmad_mod, ref, dev) -> list:
+    """The card view's plans against the route's own geometry. gemma-2b's
+    train shapes (bf16) and the 18 DeepGEMM shapes (e4m3) are each tuned
+    in full on `h100_as_accelerator` by `Planner`, as the launchers'
+    warm-up tunes on a CUDA mesh, lowered for their operands on the card's 1x1 mesh
+    (`lower_for`, which must demote nothing) and run once through
+    `dit_gemm`, which must launch `mmad` once, at the plan's geometry (the
+    route's own for a plan with no inner kernel); C is held to `mmad` at
+    that geometry and that to the plain version. Then, B N-major as
+    `dit_gemm` is handed it (gemma-2b's tied lm_head `embed.T`), per
+    shape: the plan's (bm, bn, bk, stages), its predicted time (the plan's
+    report: in all, and the engine's from `_engine_time`), the measured
+    time at the plan's geometry and at the route's own, `torch.matmul`
+    (bf16) or `torch._scaled_mm` (e4m3, K-major B), and the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import dit_gemm, lower_for
+    from repro_torch.core.schedule import GEMMShape, tensor_core_instance
+    from repro_torch.deploy import model_workload
+    from repro_torch.deploy.cache import PlanCache
+    from repro_torch.deploy.planner import Planner
+    from repro_torch.hw.config import h100_as_accelerator
+    from repro_torch.kernels.ops import block_for
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "card_plans"
+    shutil.rmtree(work, ignore_errors=True)
+    hw = h100_as_accelerator()
+    cfg = get_config("gemma-2b")
+    groups = [(2, torch.bfloat16, model_workload(cfg, TRAIN_BATCH,
+                                                 TRAIN_SEQ, kind="train")),
+              (1, torch.float8_e4m3fn,
+               [GEMMShape(m, n, k) for m in (4096, 64, 128)
+                for n, k in DEEPGEMM_NK])]
+    mesh = make_host_mesh(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    one = torch.ones((), device=dev)
+    rows = []
+    for eb, dtype, shapes in groups:
+        planner = Planner(hw, cache=PlanCache(str(work)), elem_bytes=eb,
+                          max_candidates=PLAN_GEOMETRY_CANDIDATES)
+        fp8 = eb == 1
+        for shape in shapes:
+            # a full tune of each shape, not a neighbour's plan adapted
+            plan = planner.plan(shape, allow_bucketed=False)
+            m, n, k = shape.m, shape.n, shape.k
+            cols = None
+            if fp8:
+                a, w = fp8_operands(torch, m, k, n, "n", g, dev,
+                                    FP8_OPERAND_SCALE)
+                cols = w.T.contiguous().T
+            elif cfg.tie_embeddings and n == cfg.vocab:
+                a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+                w = torch.randn((n, k), generator=g, device=dev).to(dtype).T
+            else:
+                a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+                w = torch.randn((k, n), generator=g, device=dev).to(dtype)
+            ep = lower_for(plan.schedule, mesh, a, w)
+            ik = plan.schedule.inner_kernel
+            if ep.mode == "auto" or ep.inner_kernel != ik:
+                fail(f"plan geometry {(m, n, k)}: the card view's plan "
+                     f"{plan.schedule.describe()} lowered to {ep.mode}, "
+                     f"inner kernel {ep.inner_kernel} {ep.reasons()}")
+            block, stages = block_for(ik)
+            mmad_mod.reset_launch_count()
+            out = dit_gemm(a, w, mesh, exec_plan=ep)
+            torch.cuda.synchronize()
+            counts = mmad_mod.geometry_counts()
+            want_key = (mmad_mod.WGMMA_FP8 if fp8 else mmad_mod.WGMMA,
+                        (m, n, k),
+                        None if ik is None else tensor_core_instance(ik),
+                        ik is not None)
+            if ik is None:
+                counts = {key[:2] + key[3:]: c for key, c in counts.items()}
+                want_key = want_key[:2] + want_key[3:]
+            if counts != {want_key: 1}:
+                fail(f"plan geometry {(m, n, k)}: dit_gemm launched "
+                     f"{counts} under inner kernel {ik}")
+            got = mmad_mod.mmad(a, w, block, torch.float32, stages)
+            if not torch.equal(out, got.to(out.dtype)):
+                fail(f"plan geometry {(m, n, k)}: dit_gemm's C is not mmad's "
+                     f"at the plan's geometry")
+            want = ref.mmad_ref(a, w, torch.float32)
+            # e4m3 operands are scaled: so are the tensor cores' sums
+            ratio = tolerance_ratio(
+                torch, got / (FP8_OPERAND_SCALE ** 2 if fp8 else 1.0),
+                want / (FP8_OPERAND_SCALE ** 2 if fp8 else 1.0), k,
+                torch.float32, not fp8, fp8)
+            if not ratio <= 1.0:
+                fail(f"plan geometry {(m, n, k)}: error {ratio:.2f}x the "
+                     f"tolerance")
+            iters = 5 if m * n * k > 1e11 else 20
+            t_bytes = ((m * k + k * n) * eb + m * n * 4) / H100_BYTES_PER_S
+            t_ops = 2 * m * n * k / (H100_FP8_FLOPS if fp8
+                                     else H100_BF16_FLOPS)
+            route = mmad_mod.plan_launch(
+                m, n, k, None, mmad_mod._num_sms(dev), mmad_mod.b_layout(w),
+                eb, mmad_mod.wgmma_b_major(a, w), mmad_mod.tile_vectors(a, w))
+            row = {
+                "shape": [m, n, k], "dtype": str(dtype).split(".")[-1],
+                "plan": ik and [ik.bm, ik.bn, ik.bk, ik.depth],
+                "route": route.instance and list(route.instance)[1:],
+                "schedule": plan.schedule.describe(),
+                "predicted_us": plan.report.total_time * 1e6,
+                "predicted_engine_us": plan.report.compute_time * 1e6,
+                "plan_us": 1e3 * device_ms(torch, lambda: mmad_mod.mmad(
+                    a, w, block, torch.float32, stages), iters=iters),
+                "route_us": 1e3 * device_ms(torch, lambda: mmad_mod.mmad(
+                    a, w, None, torch.float32), iters=iters),
+                "bound_us": 1e6 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "err_over_tolerance": ratio}
+            try:
+                row["library_us"] = 1e3 * device_ms(
+                    torch, (lambda: torch._scaled_mm(
+                        a, cols, one, one, out_dtype=torch.float32))
+                    if fp8 else (lambda: torch.matmul(a, w)), iters=iters)
+            except (RuntimeError, TypeError):
+                row["library_us"] = None
+            rows.append(row)
+            print(f"plan geometry {(m, n, k)} {row['dtype']}: plan "
+                  f"{row['plan'] or 'none'} (route's own {row['route']}); "
+                  f"predicted {row['predicted_us']:.1f} us (engine "
+                  f"{row['predicted_engine_us']:.1f}); measured at the "
+                  f"plan's {row['plan_us']:.1f} us, at the route's "
+                  f"{row['route_us']:.1f} us; library " + (
+                      "refused" if row["library_us"] is None
+                      else f"{row['library_us']:.1f} us")
+                  + f"; bound {row['bound_us']:.1f} us by {row['bound_by']}",
+                  flush=True)
+            del a, w, cols, out, got, want
+    mmad_mod.reset_launch_count()
+    torch.cuda.empty_cache()
+    named = [r for r in rows if r["plan"] and r["plan"] != r["route"]]
+    lost = [r for r in named
+            if r["plan_us"] > (1 + TIMING_SPREAD) * r["route_us"]]
+    won = [r for r in named
+           if r["route_us"] > (1 + TIMING_SPREAD) * r["plan_us"]]
+    print(json.dumps({"plan_geometry": rows}), flush=True)
+    print(f"plan geometry: {len(rows)} shapes on {hw.name}, "
+          f"{sum(1 for r in rows if r['plan'])} with an inner kernel, "
+          f"{len(named)} of them another geometry than the route's own: "
+          f"{len(lost)} slower by more than {TIMING_SPREAD:.0%} "
+          f"({[r['shape'] for r in lost]}), {len(won)} faster by more "
+          f"({[r['shape'] for r in won]}); the phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
 def time_fp8_shapes(torch, mmad_mod, ref, dev, seed: int, shapes,
                     repeats: int = 1) -> list:
     """Per (m, n, k) of `shapes`, fp32 out: the route, split and grid, and
@@ -1047,7 +1327,7 @@ def time_fp8_shapes(torch, mmad_mod, ref, dev, seed: int, shapes,
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     f8 = torch.float8_e4m3fn
     one = torch.ones((), device=dev)
-    block = (128, 128, 128)
+    block = None                    # the route's own tile
     rows = []
     for m, n, k in shapes:
         a = torch.randn((m, k), generator=g, device=dev).to(f8)
@@ -1131,9 +1411,12 @@ def fp8_deploy(torch, mmad_mod, ref, dev) -> dict:
     by name in a profile, and C (e4m3, as the reference's mode bodies
     round it) the kernel's own fp32 C rounded once, within one e4m3 ulp
     beyond the route's fp32 tolerance of the plain version rounded once.
-    Then the 18 paper shapes and the record, timed (`time_fp8_shapes`)."""
+    The plans' inner kernels are softhier-gh200's, which no card instance
+    runs: lowering demotes every one (`inner_kernel_no_instance`) and the
+    route picks its own tile. Then the 18 paper shapes and the record,
+    timed (`time_fp8_shapes`)."""
     from repro_torch.core.gemm import dit_gemm
-    from repro_torch.core.lower import lower_schedule
+    from repro_torch.core.lower import INNER_KERNEL_NO_INSTANCE, lower_schedule
     from repro_torch.core.schedule import GEMMShape
     from repro_torch.deploy.cache import PlanCache
     from repro_torch.deploy.planner import Planner
@@ -1153,16 +1436,21 @@ def fp8_deploy(torch, mmad_mod, ref, dev) -> dict:
     mesh = make_host_mesh(dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 53)
     calls = []
+    demoted = kernels_planned = 0
     for shape in shapes:
         plan, kind = lookup_plan(planner, shape)
         if plan is None:
             fail(f"fp8 deploy: no plan resolved for {(shape.m, shape.n, shape.k)}")
         ep = lower_schedule(plan.schedule, mesh, "data", "model",
                             shape=(shape.m, shape.n, shape.k))
-        if ep.mode == "auto" or ep.inner_kernel is None \
-                or ep.inner_kernel.dtype != "float8_e4m3":
-            fail(f"fp8 deploy: {(shape.m, shape.n, shape.k)} lowered to {ep.mode} with "
-                 f"inner kernel {ep.inner_kernel}")
+        ik = plan.schedule.inner_kernel
+        kernels_planned += ik is not None
+        demoted += INNER_KERNEL_NO_INSTANCE in ep.reasons()
+        if ep.mode == "auto" or ep.inner_kernel is not None \
+                or ik is None or ik.dtype != "float8_e4m3":
+            fail(f"fp8 deploy: {(shape.m, shape.n, shape.k)} lowered to "
+                 f"{ep.mode} with inner kernel {ep.inner_kernel} (planned "
+                 f"{ik})")
         a, b = fp8_operands(torch, shape.m, shape.k, shape.n, "n", g, dev,
                             FP8_OPERAND_SCALE)
         calls.append((shape, plan, kind, ep, a, b))
@@ -1171,6 +1459,13 @@ def fp8_deploy(torch, mmad_mod, ref, dev) -> dict:
               f"(fallbacks {list(ep.reasons())}), inner kernel "
               f"{ep.inner_kernel}",
               flush=True)
+    if demoted != kernels_planned or demoted != len(shapes):
+        fail(f"fp8 deploy: lowering demoted {demoted} of the "
+             f"{kernels_planned} softhier-gh200 inner kernels planned for "
+             f"{len(shapes)} shapes")
+    print(f"fp8 deploy: lowering on the card demoted all {demoted} "
+          f"softhier-gh200 inner kernels ({INNER_KERNEL_NO_INSTANCE}); the "
+          f"route picks its own tile", flush=True)
     for _, _, _, ep, a, b in calls:      # warm: the first launch binds
         dit_gemm(a, b, mesh, exec_plan=ep)
     torch.cuda.synchronize()
@@ -1208,7 +1503,7 @@ def fp8_deploy(torch, mmad_mod, ref, dev) -> dict:
         want = ref.mmad_ref(a, b, torch.float32).to(torch.float8_e4m3fn)
         if out.dtype != torch.float8_e4m3fn or out.shape != want.shape:
             fail(f"fp8 deploy {dims}: C is {out.dtype} {tuple(out.shape)}")
-        kernel = mmad_mod.mmad(a, b, (128, 128, 128), torch.float32).to(
+        kernel = mmad_mod.mmad(a, b, None, torch.float32).to(
             torch.float8_e4m3fn)
         if not torch.equal(out.view(torch.uint8), kernel.view(torch.uint8)):
             fail(f"fp8 deploy {dims}: C is not the kernel's fp32 C rounded "
@@ -1261,7 +1556,7 @@ def fp8_deploy(torch, mmad_mod, ref, dev) -> dict:
           f" mmad launches for as many dispatches; the phase took "
           f"{seconds:.1f} s (tuning {tune_s:.1f} s)", flush=True)
     return {"launches": launches, "path": path, "rows": rows,
-            "seconds": seconds, "tune_s": tune_s}
+            "seconds": seconds, "tune_s": tune_s, "demoted": demoted}
 
 
 def fp8_entry(summary: dict) -> dict:
@@ -1290,13 +1585,13 @@ def fp8_entry(summary: dict) -> dict:
 
 
 def shape_operands(torch, mmad_mod, ref, cfg, m, n, k, block, dtype, g, dev,
-                   copies: int = 1):
+                   copies: int = 1, stages=None):
     """A GEMM shape's operands as its path lays them out (an activation
     (m, k); `copies` weights (k, n), N-contiguous, or lm_head's embed.T
     when the embeddings are tied), and the kernel held to its plain
-    version on the first at the plan's `block`, at the tolerance of the
-    variant `plan_launch` picks. Returns (a, weights, variant, max abs
-    err, err over tolerance)."""
+    version on the first at the plan's `block` and `stages` (None: the
+    route's own), at the tolerance of the variant `plan_launch` picks.
+    Returns (a, weights, variant, max abs err, err over tolerance)."""
     size = torch.finfo(dtype).bits // 8
     a = torch.randn((m, k), generator=g, device=dev).to(dtype)
     if cfg.tie_embeddings and n == cfg.vocab:       # lm_head: embed.T, a view
@@ -1308,8 +1603,9 @@ def shape_operands(torch, mmad_mod, ref, cfg, m, n, k, block, dtype, g, dev,
     variant = mmad_mod.plan_launch(
         m, n, k, block,
         torch.cuda.get_device_properties(dev).multi_processor_count,
-        mmad_mod.b_layout(ws[0]), size, mmad_mod.wgmma_b_major(a, ws[0]))[0]
-    got = mmad_mod.mmad(a, ws[0], block, torch.float32)
+        mmad_mod.b_layout(ws[0]), size, mmad_mod.wgmma_b_major(a, ws[0]),
+        mmad_mod.tile_vectors(a, ws[0]), stages)[0]
+    got = mmad_mod.mmad(a, ws[0], block, torch.float32, stages)
     want = ref.mmad_ref(a, ws[0], torch.float32)
     ratio = tolerance_ratio(torch, got, want, k, torch.float32,
                             variant == mmad_mod.WGMMA)
@@ -1328,7 +1624,7 @@ def hold_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int) -> float:
     for (m, n, k, _), info in sorted(table.items()):
         a, ws, _, _, ratio = shape_operands(torch, mmad_mod, ref, cfg, m, n,
                                             k, info["block"], info["dtype"],
-                                            g, dev)
+                                            g, dev, stages=info["stages"])
         worst = max(worst, ratio)
         del a, ws
     torch.cuda.empty_cache()
@@ -1348,18 +1644,22 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
     b.T and db = a.T @ g on the views `backward_products` passes, run once
     per forward dispatch: the table's `backward_calls`), held to their
     tolerance, beside their plain version, bf16 `torch.matmul` and their
-    bound. `kind` ("decode", "train" or "forward") names the path in each
-    row; "train" adds the backward."""
+    bound. A shape whose plan names another geometry than the route's own
+    is timed at the route's own too (`route`, `route_ms`). `kind`
+    ("decode", "train" or "forward") names the path in each row; "train"
+    adds the backward."""
     g = torch.Generator(device=dev).manual_seed(seed)
     train = kind == "train"
     rows = []
     for key, info in sorted(table.items()):
         (m, n, k), block, count = key[:3], info["block"], info["count"]
+        stages = info["stages"]
         dtype = info.get("dtype", torch.bfloat16)   # the router's is fp32
         size = torch.finfo(dtype).bits // 8
         copies = max(1, math.ceil(120e6 / (k * n * size)))
         a, ws, variant, err, ratio = shape_operands(
-            torch, mmad_mod, ref, cfg, m, n, k, block, dtype, g, dev, copies)
+            torch, mmad_mod, ref, cfg, m, n, k, block, dtype, g, dev, copies,
+            stages)
         it = {"i": 0}
 
         def nxt():
@@ -1372,14 +1672,14 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
             return device_ms(torch, fn, iters=iters, warmup=warmup)
 
         kernel_ms = timed(lambda: mmad_mod.mmad(a, nxt(), block,
-                                                torch.float32))
+                                                torch.float32, stages))
         flops = 2 * m * n * k
         t_bytes = ((m * k + k * n) * size + m * n * 4) / H100_BYTES_PER_S * 1e3
         t_ops = flops / (H100_FP32_FLOPS if dtype == torch.float32
                          else H100_BF16_FLOPS) * 1e3
         row = {"path": f"{cfg.name} {kind}",
                "shape": [m, n, k], "dtype": str(dtype).split(".")[-1],
-               "block": list(block), "variant": variant,
+               "block": block and [*block, stages], "variant": variant,
                "launches_per_step": count,
                "kernel_ms": kernel_ms,
                "plain_ms": timed(lambda: ref.mmad_ref(a, nxt(),
@@ -1389,6 +1689,17 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "roofline_share": max(t_bytes, t_ops) / kernel_ms,
                "max_abs_err": err, "err_over_tolerance": ratio}
+        route = mmad_mod.plan_launch(
+            m, n, k, None,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            mmad_mod.b_layout(ws[0]), size, mmad_mod.wgmma_b_major(a, ws[0]),
+            mmad_mod.tile_vectors(a, ws[0])).instance
+        if block is not None and [*block, stages] != (route and
+                                                      list(route)[1:]):
+            # the plan named another geometry than the route's own
+            row["route"] = route and list(route)[1:]
+            row["route_ms"] = timed(lambda: mmad_mod.mmad(
+                a, nxt(), None, torch.float32))
         if train:
             row["kernel_tflops"] = flops / kernel_ms / 1e9
             row["backward_calls_per_step"] = info["backward_calls"]
@@ -1398,10 +1709,11 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
                     "fp32_backward_calls"]
             else:
                 row.update(time_backward(torch, mmad_mod, ref, a, ws[0], nxt,
-                                         block, g, timed))
+                                         g, timed))
         else:
             row["kernel_call_wall_ms"] = wall_ms(
-                torch, lambda: mmad_mod.mmad(a, nxt(), block, torch.float32))
+                torch, lambda: mmad_mod.mmad(a, nxt(), block, torch.float32,
+                                             stages))
         print(json.dumps(row), flush=True)
         rows.append(row)
         del a, ws
@@ -1409,9 +1721,46 @@ def time_shapes(torch, mmad_mod, ref, cfg, table, dev, seed: int,
     return rows
 
 
-def time_backward(torch, mmad_mod, ref, a, w, nxt, block, g, timed):
+def plan_vs_route(tables) -> list:
+    """Every timed main-path shape whose card-view plan named another
+    geometry than the route's own (`time_shapes`' `route_ms`), from every
+    path: the two geometries, their device times, and what the plan's
+    choice adds to a step over its forward launches, (plan - route) x
+    launches. A line each, then one JSON line; returns the rows."""
+    rows = []
+    for table in tables:
+        for r in table:
+            if "route_ms" not in r:
+                continue
+            delta = (r["kernel_ms"] - r["route_ms"]) * r["launches_per_step"]
+            rows.append({"path": r["path"], "shape": r["shape"],
+                         "plan": r["block"], "route": r["route"],
+                         "plan_us": r["kernel_ms"] * 1e3,
+                         "route_us": r["route_ms"] * 1e3,
+                         "bound_us": r["bound_ms"] * 1e3,
+                         "launches_per_step": r["launches_per_step"],
+                         "step_delta_ms": delta})
+            print(f"plan vs route, {r['path']} {r['shape']}: the plan's "
+                  f"{r['block']} {r['kernel_ms'] * 1e3:.1f} us, the route's "
+                  f"{r['route']} {r['route_ms'] * 1e3:.1f} us (bound "
+                  f"{r['bound_ms'] * 1e3:.1f} us); x "
+                  f"{r['launches_per_step']} launches a step: "
+                  f"{delta:+.3f} ms", flush=True)
+    lost = sum(1 for r in rows
+               if r["plan_us"] > (1 + TIMING_SPREAD) * r["route_us"])
+    won = sum(1 for r in rows
+              if r["route_us"] > (1 + TIMING_SPREAD) * r["plan_us"])
+    print(json.dumps({"plan_vs_route": rows}), flush=True)
+    print(f"plan vs route: {len(rows)} main-path shapes at another geometry "
+          f"than the route's own, {lost} slower by more than "
+          f"{TIMING_SPREAD:.0%}, {won} faster by more", flush=True)
+    return rows
+
+
+def time_backward(torch, mmad_mod, ref, a, w, nxt, g, timed):
     """The backward of one train GEMM (a @ w) as `backward_products` runs
-    it: da = grad @ w.T and db = a.T @ grad on `mmad`, on views, with a
+    it, at the route's own geometry: da = grad @ w.T and db = a.T @ grad on
+    `mmad`, on views, with a
     bf16 gradient; its error against the plain version at `w`, then the
     device time of both products (weights rotating through `nxt`) beside
     the plain version's, bf16 `torch.matmul`'s and their bound."""
@@ -1426,10 +1775,10 @@ def time_backward(torch, mmad_mod, ref, a, w, nxt, block, g, timed):
     err = ratio = 0.0
     for x, y in ((grad, w.T), (a.T, grad)):
         variant = mmad_mod.plan_launch(
-            x.shape[0], y.shape[1], x.shape[1], block,
+            x.shape[0], y.shape[1], x.shape[1], None,
             torch.cuda.get_device_properties(a.device).multi_processor_count,
             mmad_mod.b_layout(y), 2, mmad_mod.wgmma_b_major(x, y))[0]
-        got = mmad_mod.mmad(x, y, block, torch.float32)
+        got = mmad_mod.mmad(x, y, None, torch.float32)
         want = ref.mmad_ref(x, y, torch.float32)
         ratio = max(ratio, tolerance_ratio(torch, got, want, x.shape[1],
                                            torch.float32,
@@ -1454,7 +1803,7 @@ def time_backward(torch, mmad_mod, ref, a, w, nxt, block, g, timed):
         by_bytes = by_bytes and t_bytes >= t_ops
     out = {
         "backward_ms": timed(products(lambda x, y: mmad_mod.mmad(
-            x, y, block, torch.float32))),
+            x, y, None, torch.float32))),
         "backward_plain_ms": timed(products(lambda x, y: ref.mmad_ref(
             x, y, torch.float32))),
         "backward_library_ms": timed(products(torch.matmul)),
@@ -1590,13 +1939,13 @@ class OperandCheck:
         torch, mmad_mod = self.torch, self.mmad_mod
         real = ops.mmad
 
-        def checked(a, b, block_shape=(128, 128, 128), out_dtype=None):
-            out = real(a, b, block_shape, out_dtype)
+        def checked(a, b, block_shape=None, out_dtype=None, stages=None):
+            out = real(a, b, block_shape, out_dtype, stages)
             tensor_cores = a.is_cuda and mmad_mod.plan_launch(
                 a.shape[0], b.shape[1], a.shape[1], block_shape,
                 mmad_mod._num_sms(a.device), mmad_mod.b_layout(b),
-                b.element_size(),
-                mmad_mod.wgmma_b_major(a, b))[0] == mmad_mod.WGMMA
+                b.element_size(), mmad_mod.wgmma_b_major(a, b),
+                mmad_mod.tile_vectors(a, b), stages)[0] == mmad_mod.WGMMA
             want = ref.mmad_ref(a, b, out_dtype or a.dtype)
             self.worst = max(self.worst, tolerance_ratio(
                 torch, out, want, a.shape[1], out_dtype or a.dtype,
@@ -1803,34 +2152,96 @@ def step_split(torch, params, cfg, planner, prompts, dev,
 FP32_TAGS = ("moe.router", "mlstm.gates")
 
 
-def plan_block(planner, ctx, shape, elem_bytes: int):
-    """The block geometry `mmad` runs `shape` at under its plan: the inner
-    kernel's, or for a plan without one the block `local_matmul` picks
-    (`block_for`, the one rule for both)."""
-    from repro_torch.core.lower import lower_schedule
+def plan_block(ctx, shape) -> tuple:
+    """(block, stages) `mmad` runs `shape` at on `ctx`'s dispatch: the
+    inner kernel its lowered plan kept (`block_for`), or (None, None) for
+    the route's own geometry. On a CPU mesh (a rehearsal), whose plans
+    price the TPU view, the plain version reads no geometry: (None, None)."""
+    from repro_torch.core.lower import on_cuda
     from repro_torch.kernels.ops import block_for
 
-    ep = lower_schedule(planner.plan_cached(shape).schedule, ctx.mesh,
-                        shape=shape)
-    return block_for(ep.inner_kernel, shape.m, shape.n, shape.k, elem_bytes)
+    if not on_cuda(ctx.mesh):
+        return None, None
+    eps = [ep for (_, s), ep in ctx.resolved.items() if s == shape]
+    return block_for(getattr(eps[0], "inner_kernel", None))
+
+
+def geometry_census(mmad_mod, ctx, forward: dict) -> dict:
+    """What the main path's tensor-core launches ran, from `mmad`'s record
+    since the counts were reset (`geometry_counts`): `named`, launches at
+    a geometry their caller named, and `off_plan`, those of them whose
+    instance is not the inner kernel their shape's lowered plan kept;
+    `expected`, the forward dispatches (`forward`: (m, n, k) -> calls)
+    whose plan kept an inner kernel, each of which must be a named launch;
+    `route`, tensor-core launches at the route's own geometry (the
+    backward's products, and products whose plan kept none); `demoted`,
+    the plans lowering demoted (`inner_kernel_no_instance`); and per
+    instance the named launches."""
+    from repro_torch.core.lower import INNER_KERNEL_NO_INSTANCE
+    from repro_torch.core.schedule import tensor_core_instance
+
+    plans = {}
+    for (_, shape), ep in ctx.resolved.items():
+        ik = getattr(ep, "inner_kernel", None)
+        if hasattr(shape, "m") and ik is not None:
+            plans[(shape.m, shape.n, shape.k)] = tensor_core_instance(ik)
+    census = {"named": 0, "route": 0, "off_plan": [],
+              "expected": sum(n for mnk, n in forward.items()
+                              if mnk in plans),
+              "demoted": ctx.stats.degrades.get(INNER_KERNEL_NO_INSTANCE, 0),
+              "by_instance": {}}
+    for (variant, mnk, inst, named), n in mmad_mod.geometry_counts().items():
+        if variant not in (mmad_mod.WGMMA, mmad_mod.WGMMA_FP8):
+            continue
+        if not named:
+            census["route"] += n
+            continue
+        census["named"] += n
+        key = f"{inst.family}-{inst.bm}x{inst.bn}x{inst.bk}s{inst.stages}"
+        census["by_instance"][key] = census["by_instance"].get(key, 0) + n
+        if plans.get(mnk) != inst:
+            census["off_plan"].append([list(mnk), key])
+    return census
+
+
+def check_census(census: dict, where: str, dev, demotions: int = 0) -> None:
+    """Fails unless every tensor-core dispatch under a plan that kept an
+    inner kernel ran that kernel's geometry (named launches equal those
+    dispatches, none off its plan) and lowering demoted `demotions` plans;
+    prints the census. On the CPU (a rehearsal) nothing launches: only the
+    demotions are held."""
+    print(f"{where} plan geometry census: {census['named']} tensor-core "
+          f"launches at the plan's geometry for {census['expected']} "
+          f"dispatches whose plan kept an inner kernel "
+          f"({census['by_instance']}), {census['route']} at the route's own "
+          f"(backward products and plans without one), {census['demoted']} "
+          f"demoted at lowering", flush=True)
+    if census["demoted"] != demotions:
+        fail(f"{where}: lowering demoted {census['demoted']} inner kernels, "
+             f"not {demotions}")
+    if dev.type == "cuda" and (census["named"] != census["expected"]
+                               or census["off_plan"]):
+        fail(f"{where}: {census['named']} tensor-core launches at a named "
+             f"geometry for {census['expected']} dispatches whose plan kept "
+             f"an inner kernel; off their plan: {census['off_plan']}")
 
 
 def launch_table(torch, cfg, planner, ctx) -> dict:
     """What one decode step, or one forward, of `ctx`'s run launches, per
-    shape, at the plan's block geometry: (m, n, k, dtype) -> the block, the
-    launches (each routed GEMM once per layer that has it, lm_head once)
-    and the operand dtype (the router's and the mLSTM gates' fp32). The
-    expert einsums are recorded, not dispatched, and attention is not a
-    GEMM here."""
+    shape, at the plan's geometry: (m, n, k, dtype) -> the block and
+    stages (`plan_block`), the launches (each routed GEMM once per layer
+    that has it, lm_head once) and the operand dtype (the router's and the
+    mLSTM gates' fp32). The expert einsums are recorded, not dispatched,
+    and attention is not a GEMM here."""
     table = {}
     for tag, shape in ctx.resolved:
         if not hasattr(shape, "m"):             # attention
             continue
         dtype = torch.float32 if tag in FP32_TAGS else cfg.dtype
         key = (shape.m, shape.n, shape.k, str(dtype))
-        rec = table.setdefault(key, {
-            "block": plan_block(planner, ctx, shape, dtype.itemsize),
-            "count": 0, "dtype": dtype})
+        block, stages = plan_block(ctx, shape)
+        rec = table.setdefault(key, {"block": block, "stages": stages,
+                                     "count": 0, "dtype": dtype})
         rec["count"] += tag_layers(cfg, tag)
     return table
 
@@ -1838,12 +2249,14 @@ def launch_table(torch, cfg, planner, ctx) -> dict:
 def calls_table(planner, ctx, calls) -> dict:
     """What a run watched by an `OperandCheck` launched, per shape (its
     `shapes`), laid out as `launch_table`'s, each shape at its plan's
-    block geometry."""
+    geometry."""
     shapes = {(s.m, s.n, s.k): s for _, s in ctx.resolved if hasattr(s, "m")}
-    return {key: {"block": plan_block(planner, ctx, shapes[key[:3]],
-                                      rec["dtype"].itemsize),
-                  "count": rec["calls"], "dtype": rec["dtype"]}
-            for key, rec in calls.items()}
+    table = {}
+    for key, rec in calls.items():
+        block, stages = plan_block(ctx, shapes[key[:3]])
+        table[key] = {"block": block, "stages": stages,
+                      "count": rec["calls"], "dtype": rec["dtype"]}
+    return table
 
 
 def serve_model(torch, mmad_mod, cfg, dev, after=None):
@@ -1875,7 +2288,7 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     shutil.rmtree(plan_dir, ignore_errors=True)
     t0 = time.perf_counter()
     planner = serve.warm_plan_cache(cfg, BATCH, PROMPT, PROMPT + GEN,
-                                    str(plan_dir), (4, 4), 12)
+                                    str(plan_dir), (4, 4), 12, device=dev)
     warm_s = time.perf_counter() - t0
     print(f"plan warm-up for {cfg.name}: {warm_s:.2f}s", flush=True)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -1952,6 +2365,10 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     out = serve.generate(params, cfg, prompts, GEN, encoder_out=encoder_out)
     launches = mmad_mod.launch_count()
     stats = ctx.stats
+    steps = PROMPT + GEN
+    per_step = launch_table(torch, cfg, planner, ctx)
+    census = geometry_census(mmad_mod, ctx, {
+        key[:3]: r["count"] * steps for key, r in per_step.items()})
     report = serve.build_serve_report(ctx, cfg, BATCH, PROMPT + GEN)
     for line in render_run_report(report):
         print(line, flush=True)
@@ -1969,11 +2386,13 @@ def serve_model(torch, mmad_mod, cfg, dev, after=None):
     if launches == 0 or launches != stats.executed_gemm:
         fail(f"mmad launched {launches} times for "
              f"{stats.executed_gemm} routed GEMM dispatches")
+    check_census(census, f"serve {cfg.name}", dev,
+                 census["demoted"] if cfg.name not in PLAN_GEOMETRY_HELD
+                 else 0)
+    summary["census"] = census
     workload = report["workload"]
     if workload["covered"] != 1.0 or workload["extra"] or workload["missing"]:
         fail(f"the observed workload is not model_workload's: {workload}")
-    steps = PROMPT + GEN
-    per_step = launch_table(torch, cfg, planner, ctx)
     if sum(r["count"] for r in per_step.values()) * steps != launches:
         fail("per-step launch table does not add up to the launches")
     # past the stream kernels' rows, a bf16 GEMM takes the tensor cores:
@@ -2377,7 +2796,8 @@ def traffic_routes(torch, mmad_mod, table, dev, mode: str) -> dict:
         w = torch.empty((k, n), dtype=info["dtype"], device=dev)
         routes[key] = mmad_mod.plan_launch(
             m, n, k, info["block"], sms, mmad_mod.b_layout(w),
-            info["dtype"].itemsize, mmad_mod.wgmma_b_major(a, w))[0]
+            info["dtype"].itemsize, mmad_mod.wgmma_b_major(a, w),
+            mmad_mod.tile_vectors(a, w), info["stages"])[0]
         del a, w
     streams = (mmad_mod.ROW_STREAM, mmad_mod.COL_STREAM)
     off = [key for key, variant in routes.items()
@@ -2484,9 +2904,9 @@ def serve_traffic(torch, mmad_mod, dev, mode: str, smoke: bool = False,
         if not tag.startswith("traffic."):
             fail(f"traffic [{mode}] dispatched {tag}")
         key = (shape.m, shape.n, shape.k, str(cfg.dtype))
-        table[key] = {"block": plan_block(seen["planner"], ctx, shape,
-                                          cfg.dtype.itemsize),
-                      "count": 1, "dtype": cfg.dtype}
+        block, stages = plan_block(ctx, shape)
+        table[key] = {"block": block, "stages": stages, "count": 1,
+                      "dtype": cfg.dtype}
     if len(table) != distinct:
         fail(f"traffic [{mode}]: {len(table)} shapes in the launch table for "
              f"{distinct} distinct shapes")
@@ -3283,6 +3703,7 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
         ops._LocalMatmul.backward = staticmethod(real_backward)
         ops.tensor_core_backward = real_choice
     launches = mmad_mod.launch_count()
+    census = geometry_census(mmad_mod, ctx, tally)
     if keep is not None:
         # on the host, so neither phase's peak holds the copy
         keep.update(losses=list(losses), norms=list(norms),
@@ -3336,6 +3757,9 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
     if launches != executed + 2 * bwd_calls or launches % TRAIN_STEPS:
         fail(f"mmad launched {launches} times for {executed} routed GEMM "
              f"dispatches and {bwd_calls} backward calls in training")
+    check_census(census, f"train {cfg.name}", dev,
+                 census["demoted"] if cfg.name not in PLAN_GEOMETRY_HELD
+                 else 0)
     if bwd_tally.keys() | fp32_bwd.keys() != tally.keys():
         fail(f"backward shapes {sorted(bwd_tally)} + {sorted(fp32_bwd)} are "
              f"not the forward's {sorted(tally)}")
@@ -3360,13 +3784,14 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
     bwd_per_step = 2 * bwd_calls // TRAIN_STEPS
     shapes = {(sh.m, sh.n, sh.k): sh for _, sh in ctx.resolved
               if hasattr(sh, "m")}
-    table = {key: {"block": plan_block(s.planner, ctx, shapes[key],
-                                       dtypes[key].itemsize),
-                   "count": n // TRAIN_STEPS,
-                   "dtype": dtypes[key],
-                   "backward_calls": bwd_tally.get(key, 0) // TRAIN_STEPS,
-                   "fp32_backward_calls": fp32_bwd.get(key, 0) // TRAIN_STEPS}
-             for key, n in tally.items()}
+    table = {}
+    for key, n in tally.items():
+        block, stages = plan_block(ctx, shapes[key])
+        table[key] = {
+            "block": block, "stages": stages, "count": n // TRAIN_STEPS,
+            "dtype": dtypes[key],
+            "backward_calls": bwd_tally.get(key, 0) // TRAIN_STEPS,
+            "fp32_backward_calls": fp32_bwd.get(key, 0) // TRAIN_STEPS}
     simt_per_step = sum(r["count"] for r in table.values()
                         if r["dtype"] == torch.float32)
     print(f"train launch census: {executed} routed dispatches (forward + "
@@ -3384,7 +3809,7 @@ def train_model(torch, mmad_mod, dev, arch_args, cfg=None,
     prof = train_profile(torch, mmad_mod, s, state, batch, dev, per_step,
                          simt_per_step, fp32_calls // TRAIN_STEPS,
                          **scan_fp32)
-    summary = {}
+    summary = {"census": census}
     if cfg.block_pattern == "xlstm":
         release(torch)      # the profile's events, before the timed step
         state, split = slstm_split(torch, s, state, batch, dev)
@@ -4277,20 +4702,26 @@ def main() -> int:
           f"(phase {time.perf_counter() - t0:.1f}s)", flush=True)
 
     phase("kernels vs plain")
+    dev = torch.device("cuda")
     check_kernels(torch, mmad_mod, ref)
     check_tile_route(torch, mmad_mod, ref)
     check_fp8_route(torch, mmad_mod, ref)
+    instance_rows = check_tc_instances(torch, mmad_mod, ref, dev)
 
     phase("fp8 deploy")
-    dev = torch.device("cuda")
     fp8_summary = fp8_deploy(torch, mmad_mod, ref, dev)
+    release(torch)
+
+    phase("plan geometry")
+    plan_geometry(torch, mmad_mod, ref, dev)
     release(torch)
 
     phase("serve gemma-2b")
     from repro_torch.configs import get_config
     cfg = get_config("gemma-2b")
     dev = torch.device("cuda")
-    launches, per_step, _ = serve_model(torch, mmad_mod, cfg, dev)
+    launches, per_step, serve_summary = serve_model(torch, mmad_mod, cfg, dev)
+    serve_census = serve_summary["census"]
     release(torch)
 
     phase("train")
@@ -4428,6 +4859,10 @@ def main() -> int:
     traffic_rows = time_shapes(
         torch, mmad_mod, ref, dataclasses.replace(cfg, tie_embeddings=False),
         traffic_table, dev, SEED + 31, kind="traffic")
+
+    plan_vs_route([rows, train_rows, *path_rows.values(),
+                   *forward_rows.values(), moe_rows, *trained_rows.values(),
+                   traffic_rows])
 
     def per_step_ms(key, rows=rows):
         return sum(r[key] * r["launches_per_step"] for r in rows)
@@ -4630,6 +5065,19 @@ def main() -> int:
         "train_backward_library_ms": backward_library,
         "train_backward_max_abs_err": max(r["backward_max_abs_err"]
                                           for r in train_rows),
+        # every compiled tensor-core instance: its launches at a plan's
+        # geometry on gemma-2b's serve and train paths, its numbers at its
+        # held and timed shapes (`check_tc_instances`)
+        "instances": [{
+            "name": f"mmad/{r['name']}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mmad.cu",
+            "replaces": "src/repro/kernels/mmad.py:80",
+            "launches": sum(c["by_instance"].get(r["name"], 0)
+                            for c in (serve_census, train_summary["census"])),
+            **{key: r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "route_ms", "timed_at", "held_at")}}
+            for r in instance_rows],
     }] + [path_entry(f"mmad/{arch}", f"{arch} decode, batch {BATCH}"
                      + (f", {served_cfgs[arch].n_layers} layers"
                         if served_cfgs[arch] != get_config(arch) else ""),

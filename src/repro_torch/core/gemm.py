@@ -47,7 +47,7 @@ from repro_torch.core.collectives import (all_gather, axis_index,
                                           axis_size as _axis_size, pick,
                                           ppermute, ppermute_start, psum,
                                           psum_scatter, shard, unshard)
-from repro_torch.core.lower import ExecPlan, lower_schedule
+from repro_torch.core.lower import ExecPlan, lower_schedule, on_cuda
 from repro_torch.core.schedule import InnerKernel
 
 MODES = ("auto", "summa", "cannon", "splitk", "allgather")
@@ -56,13 +56,15 @@ MODES = ("auto", "summa", "cannon", "splitk", "allgather")
 def _tile_dot(a: torch.Tensor, b: torch.Tensor,
               kernel: Optional[InnerKernel]) -> torch.Tensor:
     """The per-device contraction every mode body accumulates with, fp32 out:
-    `kernels.ops.local_matmul`, the `mmad` kernel on the card, at the
-    plan-resolved `InnerKernel`'s block geometry and compute dtype. With
-    `kernel=None` (a plan without an inner kernel, or one demoted for its
-    working set) the reference lets XLA pick the local GEMM; here `mmad`
-    still runs it, at a block picked from the shape (the CUDA kernel masks
-    the ragged edges that kept the planner from a Pallas block), and CPU
-    tensors take the same fp32 product as the reference's `jnp.dot`."""
+    `kernels.ops.local_matmul`, the `mmad` kernel on the card, in the
+    plan-resolved `InnerKernel`'s compute dtype and at its CTA tile, K step
+    and ring depth (a tensor-core instance: lowering on a CUDA mesh demotes
+    any other kernel, `inner_kernel_no_instance`). With `kernel=None` (a
+    plan without an inner kernel, or one demoted) the reference lets XLA
+    pick the local GEMM; here `mmad` still runs it, at the geometry its
+    route picks (the tensor cores' own tile, a stream kernel or the SIMT
+    tile route), and CPU tensors take the same fp32 product as the
+    reference's `jnp.dot`."""
     from repro_torch.kernels.ops import local_matmul
     return local_matmul(a, b, kernel)
 
@@ -432,6 +434,24 @@ def exec_plan_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
     raise KeyError(f"ExecPlan resolved to unknown mode {mode!r}")
 
 
+def lower_for(sched, mesh, a: torch.Tensor, b: torch.Tensor,
+              row_axis: str = "data", col_axis: str = "model",
+              overrides=None) -> ExecPlan:
+    """`lower_schedule` for the product of a (M, K) and b (K, N) as the
+    dispatch will run it: on a CUDA mesh with the dtype of the tensor-core
+    launch it would take under the schedule's inner kernel
+    (`kernels.ops.tensor_core_dtype`), so a kernel the card cannot run on
+    these operands is demoted here, by name."""
+    operand_dtype = None
+    if on_cuda(mesh):
+        from repro_torch.kernels.ops import tensor_core_dtype
+        operand_dtype = tensor_core_dtype(
+            getattr(sched, "inner_kernel", None), a, b)
+    return lower_schedule(sched, mesh, row_axis, col_axis,
+                          shape=(a.shape[0], b.shape[1], a.shape[1]),
+                          overrides=overrides, operand_dtype=operand_dtype)
+
+
 def dit_gemm(a: torch.Tensor, b: torch.Tensor, mesh, mode: str = "auto",
              row_axis: str = "data", col_axis: str = "model",
              plan=None, planner=None, exec_plan: Optional[ExecPlan] = None,
@@ -456,10 +476,8 @@ def dit_gemm(a: torch.Tensor, b: torch.Tensor, mesh, mode: str = "auto",
         from repro_torch.core.schedule import GEMMShape
         plan = planner.plan(GEMMShape(a.shape[0], b.shape[1], a.shape[1]))
     if exec_plan is None and plan is not None:
-        sched = getattr(plan, "schedule", plan)
-        exec_plan = lower_schedule(sched, mesh, row_axis, col_axis,
-                                   shape=(a.shape[0], b.shape[1], a.shape[1]),
-                                   overrides=kw)
+        exec_plan = lower_for(getattr(plan, "schedule", plan), mesh, a, b,
+                              row_axis, col_axis, overrides=kw)
     if exec_plan is not None:
         out = exec_plan_gemm(a, b, mesh, exec_plan)
     elif mode not in MODES:

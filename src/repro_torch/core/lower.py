@@ -35,6 +35,12 @@ Three layers of resolution:
    bucketed transfers serve neighbours). Every miss appends a `Fallback`
    with a machine-readable reason and moves down the chain
    (e.g. `hierarchical → summa → auto`); nothing degrades silently.
+   The inner kernel is held to the device the mesh is on: on a CPU mesh
+   (and any mesh with no CUDA device) to the reference's VMEM budget,
+   exactly as the reference lowers; on a CUDA mesh to the card's compiled
+   tensor-core instances (`inner_kernel_no_instance`), so a plan priced on
+   another view (`tpu-v5e-pod`, `softhier-gh200`) is demoted here, by
+   name, and never reaches a launch that would have to swap its geometry.
 
 `repro_torch.core.gemm.dit_gemm` consumes the ExecPlan; `models.matmul.pmm`
 records it in `GemmContext.stats` so launchers report *why* routing
@@ -49,7 +55,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
-from repro_torch.core.schedule import INNER_VMEM_BUDGET
+from repro_torch.core.schedule import INNER_VMEM_BUDGET, tensor_core_instance
+from repro_torch.hw.config import (H100_STREAM_MAX_M, H100_TC_INSTANCES,
+                                   TENSOR_CORE_FAMILY)
 
 # -- machine-readable fallback reasons --------------------------------------
 # mode changes
@@ -67,6 +75,7 @@ K_NOT_DIVISIBLE = "k_not_divisible"           # -> auto
 # kwarg demotion (mode unchanged)
 SCATTER_M_INDIVISIBLE = "scatter_m_indivisible"  # psum_scatter -> psum
 INNER_KERNEL_TOO_LARGE = "inner_kernel_too_large"  # ik working set > VMEM -> XLA inner
+INNER_KERNEL_NO_INSTANCE = "inner_kernel_no_instance"  # CUDA mesh: no tensor-core instance runs it -> the route's own
 # fused-attention lowering (lower_attention)
 ATTN_SEQ_NOT_DIVISIBLE = "attn_seq_not_divisible"    # ring needs sq % dm -> flat_merge
 ATTN_KV_NOT_DIVISIBLE = "attn_kv_not_divisible"      # skv % dm -> unfused_attn
@@ -77,7 +86,7 @@ REASONS = (NON_SQUARE_SYSTOLIC, NON_SQUARE_INNER, INNER_GRID_MISMATCH,
            NON_SQUARE_OUTER, OUTER_RING_TOO_SMALL, GRID_MISMATCH, GK_IS_ONE,
            UNKNOWN_DATAFLOW, M_NOT_DIVISIBLE, N_NOT_DIVISIBLE,
            K_NOT_DIVISIBLE, SCATTER_M_INDIVISIBLE, INNER_KERNEL_TOO_LARGE,
-           ATTN_SEQ_NOT_DIVISIBLE, ATTN_KV_NOT_DIVISIBLE,
+           INNER_KERNEL_NO_INSTANCE, ATTN_SEQ_NOT_DIVISIBLE, ATTN_KV_NOT_DIVISIBLE,
            ATTN_HEADS_REPLICATED, ATTN_UNKNOWN_COMPOSITION)
 
 # modes an ExecPlan can resolve to (superset of gemm.MODES: the 3-D split-K
@@ -240,9 +249,29 @@ def _shape3(shape) -> Tuple[int, int, int]:
     return int(m), int(n), int(k)
 
 
+def on_cuda(mesh) -> bool:
+    """Whether the mesh's tensors live on a CUDA device (`HostMesh` and
+    `DistMesh` carry `.device`; a bare namespace or a jax mesh does not)."""
+    return getattr(getattr(mesh, "device", None), "type", None) == "cuda"
+
+
+def card_runs(ik, rows: int, operand_dtype: Optional[str] = None) -> bool:
+    """Whether the card runs inner kernel `ik` on a device's block of
+    `rows` rows: it names a compiled tensor-core instance
+    (`H100_TC_INSTANCES`), the block has more rows than the stream kernels
+    take, and, when the caller knows it, `operand_dtype` (the dtype the
+    product is launched in, "" when its operands would not feed the
+    tensor cores) is of the kernel's family."""
+    inst = tensor_core_instance(ik)
+    return (inst in H100_TC_INSTANCES and rows > H100_STREAM_MAX_M
+            and (operand_dtype is None
+                 or TENSOR_CORE_FAMILY.get(operand_dtype) == inst.family))
+
+
 def lower_schedule(schedule, mesh, row_axis: str = "data",
                    col_axis: str = "model", shape=None,
-                   overrides: Optional[Mapping[str, Any]] = None) -> ExecPlan:
+                   overrides: Optional[Mapping[str, Any]] = None,
+                   operand_dtype: Optional[str] = None) -> ExecPlan:
     """Resolve a tuned `Schedule` into an `ExecPlan` for `mesh`.
 
     `schedule` is duck-typed (dataflow / tiling / inner / reduce_owner /
@@ -256,6 +285,9 @@ def lower_schedule(schedule, mesh, row_axis: str = "data",
     dispatch will use (the scatter/M drift bug). Geometry is never
     overridable — the mesh view is the schedule's alone, so a caller knob
     cannot diverge from the view it is validated against.
+    `operand_dtype` is read on a CUDA mesh only (`card_runs`): the dtype
+    the dispatch will launch the product in under the schedule's inner
+    kernel (`kernels.ops.tensor_core_dtype`).
     """
     df = getattr(schedule, "dataflow", "summa")
     tiling = getattr(schedule, "tiling", None)
@@ -415,6 +447,12 @@ def lower_schedule(schedule, mesh, row_axis: str = "data",
         # XLA owns the whole einsum — no inner kernel or ring to overlap;
         # the auto fallback reason above already covers the degradation
         ik, ov = None, False
+    elif ik is not None and on_cuda(mesh):
+        # the card runs a compiled instance or the route's own geometry,
+        # never a geometry swapped at launch
+        if not card_runs(ik, m // dm, operand_dtype):
+            fall(INNER_KERNEL_NO_INSTANCE, mode, mode)
+            ik = None
     elif ik is not None and ik.working_set_bytes() > INNER_VMEM_BUDGET:
         # kwarg-style demotion (mode unchanged): drop to the XLA-picked
         # local GEMM rather than dispatch a kernel that cannot fit VMEM

@@ -19,14 +19,28 @@ from typing import Dict, Optional, Tuple
 from repro_torch.core import layout as layout_lib
 from repro_torch.core.ir import ELEM_BYTES_OF_DTYPE, Program
 from repro_torch.core.remap import ClusterRemap
-from repro_torch.hw.config import AcceleratorConfig
+from repro_torch.hw.config import (H100_NATIVE_DTYPES, H100_STREAM_MAX_M,
+                                   H100_TC_INSTANCES, AcceleratorConfig,
+                                   CardViewConfig, TENSOR_CORE_FAMILY,
+                                   TensorCoreInstance)
 
 # Dispatch-time working-set budget for an inner kernel (bytes). A v5e has
 # ~128 MB VMEM but Pallas double-buffers every operand block, so the planner
-# and `kernels/ops.pick_block_shape` share this much tighter cap; lowering
-# demotes (reason `inner_kernel_too_large`) any persisted kernel that
-# exceeds it instead of letting the dispatch OOM VMEM.
+# and the reference's `kernels/ops.pick_block_shape` share this much tighter
+# cap; lowering demotes (reason `inner_kernel_too_large`) any persisted
+# kernel that exceeds it instead of letting the dispatch OOM VMEM.
 INNER_VMEM_BUDGET = 8 * 1024 * 1024
+# The card view's counterpart: the dynamic shared memory one CTA may hold
+# on compute capability 9.0, 227 KB (CUDA C++ Programming Guide, "Technical
+# Specifications per Compute Capability": maximum amount of shared memory
+# per thread block). A tensor-core instance's ring is held to it
+# (`ring_bytes`); its fp32 accumulator lives in the consumer warpgroups'
+# registers, held to `CONSUMER_ACC_REGS` instead.
+INNER_SMEM_BUDGET = 232_448
+# fp32 registers a tensor-core consumer thread may give its accumulators:
+# `setmaxnreg` raises each consumer thread to 232 (csrc/mmad.cu), of which
+# 40 stay for addresses, loop state and the epilogue.
+CONSUMER_ACC_REGS = 192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +210,9 @@ class InnerKernel:
         return (self.bm, self.bn, self.bk)
 
     def working_set_bytes(self, default_elem_bytes: int = 4) -> int:
-        """Pipelined A/B blocks + the fp32 accumulator block."""
+        """Pipelined A/B blocks + the fp32 accumulator block (the reference
+        views' VMEM rule; the card view holds its kernels to `ring_bytes`
+        and `accumulator_regs` instead)."""
         eb = self.elem_bytes(default_elem_bytes)
         depth = max(1, self.depth)
         return ((self.bm * self.bk + self.bk * self.bn) * eb * depth
@@ -291,6 +307,27 @@ class Schedule:
 DTYPE_OF_BYTES = {1: "int8", 2: "float16", 4: "float32"}
 
 
+def _native_dtypes(hw: Optional[AcceleratorConfig]) -> Tuple[str, ...]:
+    """The dtypes the hardware's engine computes natively: on a card view
+    `H100_NATIVE_DTYPES`, else the tile's one `elem_dtype` (none when it
+    is "")."""
+    if isinstance(hw, CardViewConfig):
+        return H100_NATIVE_DTYPES
+    hw_dt = getattr(getattr(hw, "tile", None), "elem_dtype", "")
+    return (hw_dt,) if hw_dt else ()
+
+
+def default_elem_dtype(elem_bytes: int,
+                       hw: Optional[AcceleratorConfig] = None) -> str:
+    """`elem_dtype_name` for candidate generators that only have the byte
+    width: the hardware's native dtype of that width (the card view has
+    one for 2 bytes and one for 1), else the legacy byte-width default."""
+    for hw_dt in _native_dtypes(hw):
+        if ELEM_BYTES_OF_DTYPE.get(hw_dt) == elem_bytes:
+            return hw_dt
+    return DTYPE_OF_BYTES[elem_bytes]
+
+
 def elem_dtype_name(sched: Schedule,
                     hw: Optional[AcceleratorConfig] = None) -> str:
     """The element dtype a schedule deploys under.
@@ -301,21 +338,7 @@ def elem_dtype_name(sched: Schedule,
     """
     if sched.elem_dtype:
         return sched.elem_dtype
-    hw_dt = getattr(getattr(hw, "tile", None), "elem_dtype", "")
-    if hw_dt and ELEM_BYTES_OF_DTYPE.get(hw_dt) == sched.elem_bytes:
-        return hw_dt
-    return DTYPE_OF_BYTES[sched.elem_bytes]
-
-
-def default_elem_dtype(elem_bytes: int,
-                       hw: Optional[AcceleratorConfig] = None) -> str:
-    """`elem_dtype_name` for candidate generators that only have the byte
-    width: the hardware's native dtype when the widths agree, else the
-    legacy byte-width default."""
-    hw_dt = getattr(getattr(hw, "tile", None), "elem_dtype", "")
-    if hw_dt and ELEM_BYTES_OF_DTYPE.get(hw_dt) == elem_bytes:
-        return hw_dt
-    return DTYPE_OF_BYTES[elem_bytes]
+    return default_elem_dtype(sched.elem_bytes, hw)
 
 
 def _aligned_block(dim: int, unit: int) -> int:
@@ -328,9 +351,67 @@ def _aligned_block(dim: int, unit: int) -> int:
     return dim
 
 
+def ring_bytes(inst: TensorCoreInstance) -> int:
+    """Dynamic shared memory a tensor-core instance launches with
+    (csrc/mmad.cu): its ring of stages, each A's bm x bk box and B's
+    bk x bn box (for e4m3 the box of B's K-major copy: the same bytes),
+    1 KB of slack to align the ring for the 128-byte swizzle, and a full
+    and an empty 8-byte barrier a stage."""
+    eb = 1 if inst.family == "e4m3" else 2
+    return (inst.stages * (inst.bm * inst.bk + inst.bk * inst.bn) * eb
+            + 1024 + 2 * inst.stages * 8)
+
+
+def accumulator_regs(inst: TensorCoreInstance) -> int:
+    """fp32 accumulator registers a consumer thread holds: its warpgroup's
+    64 x bn block over 128 threads, and for e4m3 a second copy the
+    tensor cores' sums are promoted into."""
+    return inst.bn // 2 * (2 if inst.family == "e4m3" else 1)
+
+
+def instance_legal(inst: TensorCoreInstance) -> bool:
+    """The card view's legality rule: the ring fits `INNER_SMEM_BUDGET`
+    and the accumulators `CONSUMER_ACC_REGS`."""
+    return (ring_bytes(inst) <= INNER_SMEM_BUDGET
+            and accumulator_regs(inst) <= CONSUMER_ACC_REGS)
+
+
+def tensor_core_instance(ik: InnerKernel) -> TensorCoreInstance:
+    """The tensor-core instance an inner kernel names: its dtype's family,
+    its block and its depth as the ring's stages."""
+    return TensorCoreInstance(TENSOR_CORE_FAMILY.get(ik.dtype, ""), ik.bm,
+                              ik.bn, ik.bk, ik.depth)
+
+
+def card_kernel_candidates(sched: Schedule, hw: CardViewConfig
+                           ) -> Tuple[InnerKernel, ...]:
+    """The card view's inner-kernel candidates for one outer schedule: the
+    legal instances (`H100_TC_INSTANCES`, in its order) of the schedule
+    dtype's tensor-core family whose tile fits the device's block
+    (M / gm x N / gn x K / gk). None for a block of at most
+    `H100_STREAM_MAX_M` rows (the stream kernels take it) or a dtype no
+    tensor-core kernel takes (fp32, int8): the plan then carries no inner
+    kernel and the route picks. `core.lower.card_runs` reads the same
+    constants."""
+    shape, t = sched.shape, sched.tiling
+    m, n, k = shape.m // t.gm, shape.n // t.gn, shape.k // t.gk
+    if m <= H100_STREAM_MAX_M:
+        return ()
+    dtype = elem_dtype_name(sched, hw)
+    family = TENSOR_CORE_FAMILY.get(dtype)
+    return tuple(InnerKernel(i.bm, i.bn, i.bk, depth=i.stages, dtype=dtype)
+                 for i in H100_TC_INSTANCES
+                 if i.family == family and i.bm <= m and i.bn <= n
+                 and i.bk <= k and instance_legal(i))
+
+
 def inner_kernel_candidates(sched: Schedule, hw: AcceleratorConfig,
                             max_candidates: int = 3) -> Tuple[InnerKernel, ...]:
     """Closed-form inner-kernel shortlist for one outer schedule.
+
+    On a card view (`CardViewConfig`) the shortlist is
+    `card_kernel_candidates`, every one of them; the rest of this note is
+    the reference views' rule.
 
     Mirrors the analytic shortlist's derivation style at the second tiling
     level: block edges are the largest engine-aligned divisors of the tile
@@ -342,6 +423,8 @@ def inner_kernel_candidates(sched: Schedule, hw: AcceleratorConfig,
     minimum wins) prefers the planner-visible kernel over the opaque
     XLA-default path at equal predicted cost.
     """
+    if isinstance(hw, CardViewConfig):
+        return card_kernel_candidates(sched, hw)
     tm, tn, k_local = sched.tiling.tile_dims(sched.shape)
     tk = min(sched.tiling.tk, k_local)
     if min(tm, tn, tk) < 1:

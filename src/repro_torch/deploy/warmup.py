@@ -4,6 +4,7 @@ entry points cannot drift apart.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import List, Sequence
 
@@ -20,7 +21,9 @@ def add_plan_args(ap) -> None:
                     help="directory for persisted deployment plans")
     ap.add_argument("--plan-grid", type=int, nargs=2, default=(4, 4),
                     metavar=("R", "C"),
-                    help="pod grid the plans are tuned for")
+                    help="TPU pod grid the plans are tuned for on a CPU "
+                         "mesh (a CUDA mesh prices the H100 card view at "
+                         "its card count)")
     ap.add_argument("--plan-candidates", type=int, default=12,
                     help="autotuner search width during warm-up")
     ap.add_argument("--skip-plan-warmup", action="store_true")
@@ -30,10 +33,39 @@ def add_plan_args(ap) -> None:
                          "auto dataflow instead")
 
 
+def plan_view(grid, device=None, mesh=None):
+    """The accelerator the planner prices plans on: the view of the device
+    the GEMMs run on. On a CUDA device, the card view
+    (`h100_as_accelerator`) at the card count: `mesh`'s rows x its `model`
+    columns, or with no mesh the host mesh `make_host_mesh` lays out (the
+    process group's world x 1). Elsewhere (a CPU mesh), the reference's
+    TPU pod view at `grid` (`--plan-grid`), so a CPU run plans exactly as
+    the reference does. The two views' fingerprints differ, so their plans
+    never share a cache entry."""
+    import torch
+    from repro_torch.hw.config import (h100_as_accelerator,
+                                       tpu_pod_as_accelerator)
+    if mesh is not None:
+        device = mesh.device
+    if device is None or torch.device(device).type != "cuda":
+        return tpu_pod_as_accelerator(tuple(grid))
+    if mesh is not None:
+        cols = int(mesh.shape.get("model", 1))
+        return h100_as_accelerator((math.prod(mesh.shape.values()) // cols,
+                                    cols))
+    import torch.distributed as dist
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    return h100_as_accelerator((world, 1))
+
+
 def build_planner(cache_dir: str, grid, max_candidates: int,
                   dataflows=None, calibration=None,
-                  online_tune: bool = True) -> Planner:
-    """A Planner on the pod-view accelerator with a persistent cache.
+                  online_tune: bool = True, device=None,
+                  mesh=None) -> Planner:
+    """A Planner on the view of `device` (or `mesh`'s device; `plan_view`)
+    with a persistent cache: the H100 card view on a CUDA device, the
+    reference's TPU pod view at `grid` otherwise.
 
     `dataflows` restricts the candidate search (the restricted plans live
     under their own cache variant) — `dryrun --route-dataflows` uses it to
@@ -49,9 +81,8 @@ def build_planner(cache_dir: str, grid, max_candidates: int,
     shortlist on `plan_cached` misses, restoring the pre-online behaviour
     where cold shapes degrade to the auto dataflow.
     """
-    from repro_torch.hw.config import tpu_pod_as_accelerator
     from repro_torch.sim.calibrate import load_profile
-    hw = tpu_pod_as_accelerator(tuple(grid))
+    hw = plan_view(grid, device, mesh)
     if calibration is None:
         calibration = load_profile(cache_dir, hw)
     elif calibration is False:

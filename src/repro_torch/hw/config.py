@@ -1,6 +1,7 @@
 """Hardware configuration for tile-based many-PE accelerators (SoftHier template),
-the TPU pod view the planner prices plans on, and the H100 the dry run's
-roofline reports against.
+the TPU pod view the planner prices plans on over a CPU mesh, and the H100:
+the data sheet the dry run's roofline reports against, and the card view
+the planner prices plans on over a CUDA mesh.
 
 The paper (Table 1) instantiates SoftHier to match an NVIDIA GH200:
   32x32 tiles, 4096-bit NoC links, 32x2 HBM channels on west/south edges,
@@ -13,7 +14,7 @@ can parameterize the cost model, the simulator, and schedule legality checks.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,9 +126,9 @@ def softhier_a100() -> AcceleratorConfig:
 
 
 # ---------------------------------------------------------------------------
-# TPU pod view: the grid the planner prices and tunes plans on (the
-# reference's deployment target; its constants stay the TPU's so a plan
-# cache is shared with the reference package).
+# TPU pod view: the grid the planner prices and tunes plans on over a CPU
+# mesh (the reference's deployment target; its constants stay the TPU's so
+# a plan cache is shared with the reference package).
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -165,14 +166,14 @@ def tpu_pod_as_accelerator(grid: Tuple[int, int] = (16, 16)) -> AcceleratorConfi
 
 
 # ---------------------------------------------------------------------------
-# GPU deployment target: the machine the dry run's roofline reports against.
+# GPU deployment target: the card the port runs on.
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class GPUChipConfig:
-    """Data-sheet constants of one card, for the dry run's roofline terms
-    (compute, memory and collective seconds). Nothing here prices a plan:
-    the planner stays on the TPU pod view above."""
+    """Data-sheet constants of one card: the dry run's roofline terms
+    (compute, memory and collective seconds), and the constants
+    `h100_as_accelerator` prices plans with on a CUDA mesh."""
     name: str
     peak_flops_bf16: float       # dense (no sparsity), FLOP/s
     hbm_bw: float                # bytes/s
@@ -197,10 +198,101 @@ H100_SXM = GPUChipConfig(
 )
 
 
+# ---------------------------------------------------------------------------
+# H100 card view: the grid the planner prices plans on over a CUDA mesh,
+# the reference's `tpu_pod_as_accelerator` with the card's constants, and
+# the inner kernels the card's tensor-core kernels are compiled for.
+# ---------------------------------------------------------------------------
+
+class TensorCoreInstance(NamedTuple):
+    """One geometry `mmad`'s tensor-core kernels are compiled for
+    (csrc/mmad.cu): the operand family ("16bit": bf16 and fp16 share one
+    kernel; "e4m3": fp8), the CTA tile (bm x bn), the K step (bk: one
+    128-byte swizzle row) and the depth of the shared-memory ring."""
+    family: str
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+
+
+# schedule dtype names -> the tensor-core family that multiplies them
+TENSOR_CORE_FAMILY = {"bfloat16": "16bit", "float16": "16bit",
+                      "float8_e4m3": "e4m3"}
+
+# What csrc/mmad.cu compiles, in the order of its TC_INSTANCES table
+# (kernels/mmad.py launches by this list and holds the built library's
+# table to it when it loads). Each tile takes the most stages whose ring,
+# 1 KB of alignment slack and two barriers a stage fit
+# `core.schedule.INNER_SMEM_BUDGET`, at most six: six 64-deep steps (or
+# 128-deep for e4m3) keep loads in flight as far ahead as the fp8 route's
+# 128-wide ring did since it was measured (tools/mmad_fp8_times.py); a
+# deeper ring only holds more shared memory.
+# A family's tiles come largest first, so a pricing sweep that ties keeps
+# the largest (the route's own bf16 tile, 128 x 256 x 64 with 4 stages).
+H100_TC_INSTANCES = (
+    TensorCoreInstance("16bit", 128, 256, 64, 4),
+    TensorCoreInstance("16bit", 128, 128, 64, 6),
+    TensorCoreInstance("16bit", 128, 64, 64, 6),
+    TensorCoreInstance("16bit", 64, 256, 64, 5),
+    TensorCoreInstance("16bit", 64, 128, 64, 6),
+    TensorCoreInstance("16bit", 64, 64, 64, 6),
+    TensorCoreInstance("e4m3", 128, 192, 128, 5),
+    TensorCoreInstance("e4m3", 128, 128, 128, 6),
+)
+# rows up to which `mmad`'s stream kernels take a product whose B they can
+# vector-load (kernels/mmad.py:STREAM_MAX_M): no tensor-core instance
+H100_STREAM_MAX_M = 16
+# the schedule dtypes the card's tensor cores take natively: a 1-byte
+# schedule on the card view is e4m3, not int8
+H100_NATIVE_DTYPES = ("bfloat16", "float8_e4m3")
+
+
+@dataclasses.dataclass(frozen=True)
+class CardViewConfig(AcceleratorConfig):
+    """An `AcceleratorConfig` whose tiles are whole cards. The planner
+    (`core.schedule`) and lowering (`core.lower`) read what the card's
+    kernels are compiled for from the `H100_*` constants above; the one
+    field added here, not settable, spells the instance list out so that
+    it enters `hw_fingerprint`: a plan persisted under another list is a
+    cache miss, not a kernel lowering would demote."""
+    tc_instances: str = dataclasses.field(
+        default=" ".join(f"{i.family}:{i.bm}x{i.bn}x{i.bk}s{i.stages}"
+                         for i in H100_TC_INSTANCES), init=False)
+
+
+def h100_as_accelerator(grid: Tuple[int, int] = (1, 1)) -> CardViewConfig:
+    """View H100 cards through the SoftHier template, as
+    `tpu_pod_as_accelerator` views a TPU pod: cards are the tiles, NVLink 4
+    is the NoC, each card's HBM3 is one channel. A tile's engine is the
+    card's tensor cores at their dense bf16 peak, fed from HBM (the TPU
+    view feeds its `l1_bw` from HBM too), its L1 the card's HBM (where the
+    outer schedule's panels live; the inner kernel's shared memory is
+    `core.schedule.INNER_SMEM_BUDGET`), its CE array 64 x 64 (the M of one
+    `wgmma` instruction, and its narrowest N here). NVSwitch joins the
+    cards all to all, so each mesh link is priced at a card's NVLink rate
+    one way, 450 GB/s, with its in-switch reductions as hardware
+    collectives."""
+    c = H100_SXM
+    link_bw = c.nvlink_bw / 2
+    return CardViewConfig(
+        name=f"h100-sxm-{grid[0]}x{grid[1]}",
+        grid=grid,
+        tile=TileConfig(ce_rows=64, ce_cols=64, peak_flops=c.peak_flops_bf16,
+                        l1_bytes=c.hbm_bytes, l1_bw=c.hbm_bw, elem_bytes=2,
+                        elem_dtype="bfloat16"),
+        noc=NoCConfig(link_bits=8 * int(link_bw / 1e9), link_bw=link_bw,
+                      hw_collectives=True),
+        hbm=HBMConfig(n_channels=grid[0] * grid[1], channel_bw=c.hbm_bw,
+                      edges=("local",)),
+    )
+
+
 PRESETS = {
     "softhier-gh200": softhier_gh200,
     "softhier-a100": softhier_a100,
     "tpu-v5e-pod": tpu_pod_as_accelerator,
+    "h100-sxm": h100_as_accelerator,
 }
 
 

@@ -53,25 +53,28 @@
 // the tensor cores' rate; CUDA cores top out at 67 TFLOPS fp32. What the
 // tensor-core kernel does about it:
 //
-//   * a 128 x 256 CTA tile: two consumer warpgroups each issue
-//     wgmma.m64n256k16 with 64 x 256 fp32 accumulators in registers (128 a
+//   * the plan's CTA tile, or the route's own 128 x 256: one consumer
+//     warpgroup per 64 rows, each issuing wgmma.m64n{64,128,256}k16 with
+//     its 64 x BN fp32 accumulators in registers. At 128 x 256 (128 a
 //     thread; setmaxnreg gives the consumers 232 registers and the producer
-//     40), so every byte staged in shared memory feeds 85 FLOPs;
+//     40) every byte staged in shared memory feeds 85 FLOPs. The tiles,
+//     K steps and ring depths compiled are TC_INSTANCES: the instances a
+//     plan priced on the card view (core/schedule.py) may name;
 //   * operands never pass through registers: one producer thread keeps a
-//     4-stage ring of 64-deep K steps (48 KB a stage: one 128-byte swizzle
-//     row of bf16 per row of A and per row or column of B) filled with TMA
+//     ring of 64-deep K steps (at 128 x 256, 4 stages of 48 KB: one
+//     128-byte swizzle row of bf16 per row of A and per row or column of B) filled with TMA
 //     tensor-map loads, counted in bytes on a full mbarrier per stage; a
 //     consumer warp frees a stage on its empty mbarrier once the wgmma
 //     group that read it has completed (one group kept in flight);
 //   * B in either major, read in place: a (K, N) weight is N-contiguous
-//     (four 64-column boxes a stage, wgmma transposes B), embed.T is
-//     K-contiguous (one 256-row box, no transpose); the tensor maps
+//     (BN / 64 64-column boxes a stage, wgmma transposes B), embed.T is
+//     K-contiguous (one BN-row box, no transpose); the tensor maps
 //     zero-fill every box that crosses the M, N or K edge, so nothing is
 //     padded, and the epilogue masks its stores;
 //   * A in either major, read in place too: an activation is K-contiguous,
 //     but the backward's weight gradient db = a.T @ g reads a.T, which is
-//     M-contiguous. That A loads as two 64-row boxes a stage, one per
-//     consumer warpgroup, laid out as the N-contiguous B is, and wgmma's
+//     M-contiguous. That A loads as one 64-row box a stage per consumer
+//     warpgroup, laid out as the N-contiguous B is, and wgmma's
 //     transpose-A bit (bf16 and fp16 operands in shared memory) reads it.
 //     Only the (A, B) majors the train path uses are built: (K, N) and
 //     (K, K) for the forward and for da = g @ b.T, (MN, N) for every db;
@@ -86,7 +89,8 @@
 // which only wgmma on e4m3 reaches; at M = 64 or 128, B's bytes (3.35 TB/s).
 // What the fp8 kernel does about it:
 //
-//   * a 128 x 128 CTA tile, or 128 x 192 where its tiles take fewer waves
+//   * the plan's CTA tile, or where the plan names none a 128 x 128 tile,
+//     or 128 x 192 where its tiles take fewer waves
 //     (kernels/mmad.py:fp8_tile_width): two consumer warpgroups each issue
 //     wgmma.m64n{128,192}k32 into 64 or 96 fp32 accumulators a thread. A
 //     128-byte swizzle row holds 128 e4m3, so a stage is 128 deep (a
@@ -145,9 +149,13 @@
 //     tile's counter, and the last to arrive sums the partials in split
 //     order and writes C: one kernel a call, bitwise repeatable.
 //
-// No variant reads the plan's block geometry: the stream kernels' tiles,
-// splits and rings, the tensor-core kernels' tiles and splits and the SIMT
-// tile route's instance and split are their own.
+// The plan's inner kernel reaches the tensor-core kernels only: a launch
+// given a geometry runs that TC_INSTANCES row (the wrapper refuses any
+// other, and any geometry for operands the tensor cores do not take), and
+// one given none runs the route's own. The stream kernels' tiles, splits
+// and rings and the SIMT tile route's instance and split are their own:
+// lowering on a CUDA mesh leaves no inner kernel on the products they take
+// (core/lower.py, `inner_kernel_no_instance`).
 //
 // Numerics: every operand element converts exactly to fp32 (fp32, bf16,
 // fp16, fp8 e4m3, int8), and the output is rounded once to out_dtype. On
@@ -682,24 +690,52 @@ int launch_stream(int variant, const StreamArgs& p, int grid_x, cudaStream_t str
 // Tensor-core tile kernel (wgmma fed by TMA) for bf16 / fp16 operands that a
 // tensor map can describe: A K- or M-contiguous, B N- or K-contiguous (an
 // M-contiguous A only with an N-contiguous B), 16-byte aligned bases and
-// row strides. A CTA computes a WG_BM x WG_BN tile of C
-// over all of K; warpgroup 0 is the producer (one thread issues the TMA
-// loads), warpgroups 1 and 2 each own 64 rows of the tile.
+// row strides. A CTA computes a BM x BN tile of C over all of K;
+// warpgroup 0 is the producer (one thread issues the TMA loads), each of
+// the BM / 64 consumer warpgroups owns 64 rows of the tile.
 // ---------------------------------------------------------------------------
 
-constexpr int WG_BM = 128, WG_BN = 256;
+// The tensor-core instances this file compiles, the only geometries the
+// two tensor-core kernels run: family (TC_16BIT: bf16 and fp16; TC_E4M3:
+// fp8), CTA tile bm x bn, K step bk, ring stages. hw/config.py:
+// H100_TC_INSTANCES is the card view's copy, which kernels/mmad.py holds
+// this table to when it loads the library (mmad_instances); a launch
+// names an instance by its index here and is refused for any other (it
+// never falls back). The route's own: 16-bit
+// index 0, fp8 6 and 7 by fp8_tile_width.
+enum TcFamily : int { TC_16BIT = 0, TC_E4M3 = 1 };
+struct TcInstance {
+  int family, bm, bn, bk, stages;
+};
+constexpr TcInstance TC_INSTANCES[] = {
+    {TC_16BIT, 128, 256, 64, 4}, {TC_16BIT, 128, 128, 64, 6}, {TC_16BIT, 128, 64, 64, 6},
+    {TC_16BIT, 64, 256, 64, 5},  {TC_16BIT, 64, 128, 64, 6},  {TC_16BIT, 64, 64, 64, 6},
+    {TC_E4M3, 128, 192, 128, 5}, {TC_E4M3, 128, 128, 128, 6},
+};
+constexpr int N_TC_INSTANCES = sizeof(TC_INSTANCES) / sizeof(TC_INSTANCES[0]);
+
 constexpr int WG_BK = 64;                              // one 128-byte swizzle row of 16-bit
-constexpr int WG_STAGES = 4;
-constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;          // 16 KB
-constexpr int WG_B_BYTES = WG_BK * WG_BN * 2;          // 32 KB
-constexpr int WG_B_BOX_BYTES = WG_BK * 64 * 2;         // an N-contiguous B box: 64 n x 64 k
-constexpr int WG_A_BOX_BYTES = WG_BK * 64 * 2;         // an M-contiguous A box: 64 m x 64 k
-constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_B_BYTES;
-constexpr int WG_CONSUMERS = 256;                      // two consumer warpgroups
-constexpr int WG_NT = WG_CONSUMERS + 128;              // + the producer warpgroup
-// the ring (1024-byte aligned for the 128-byte swizzle: 1 KB of slack) and
-// a full and an empty barrier per stage; kernels/mmad.py:WGMMA_SMEM mirrors it
-constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024 + 2 * WG_STAGES * 8;
+constexpr int WG_BOX_BYTES = WG_BK * 64 * 2;           // a 64 x 64 box: 64 n (or m) x 64 k
+template <int BM, int BN, int STAGES>
+struct WgCfg {
+  static constexpr int A_BYTES = BM * WG_BK * 2;       // 16 KB at BM = 128
+  static constexpr int B_BYTES = WG_BK * BN * 2;       // 32 KB at BN = 256
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int CONSUMERS = BM / 64 * 128;      // a consumer warpgroup per 64 rows
+  static constexpr int NT = CONSUMERS + 128;           // + the producer warpgroup
+  static constexpr int FRAG = BN / 2;                  // accumulators a consumer thread
+  // the ring (1024-byte aligned for the 128-byte swizzle: 1 KB of slack)
+  // and a full and an empty barrier per stage; kernels/mmad.py:
+  // wgmma_geometry and core/schedule.py:ring_bytes mirror it
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+  // A 384-thread CTA launches with at most 168 registers a thread; only the
+  // 128 x 256 tile's 128 accumulators need more, so only it moves
+  // registers from the producer to the consumers (setmaxnreg 40 / 232).
+  // Its ring also keeps it alone on its SM, which setmaxnreg needs.
+  static constexpr bool MOVE_REGS = BM == 128 && BN == 256;
+  static_assert(BM % 64 == 0 && BN % 64 == 0 && BN <= 256, "a wgmma tile");
+  static_assert(SMEM <= 232448, "a CTA holds at most 227 KB of shared memory");
+};
 
 struct WgmmaArgs {
   void* C;
@@ -780,17 +816,61 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
       : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B))
 
-// d (64 x 256, fp32) += A (64 x 16; M-major when TRANS_A, else K-major) *
-// B (16 x 256; N-major when TRANS_B, else K-major), both read from shared
-// memory through descriptors.
-template <typename T, int TRANS_A, int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    MMAD_WGMMA_M64N256K16("bf16");
+#define MMAD_WGMMA_M64N64K16(DT) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." DT "." DT " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, %35, %36;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B))
+
+#define MMAD_WGMMA_M64N128K16(DT) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." DT "." DT " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "%64, %65, p, 1, 1, %67, %68;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B))
+
+// d (64 x N, fp32; N = 2 R) += A (64 x 16; M-major when TRANS_A, else
+// K-major) * B (16 x N; N-major when TRANS_B, else K-major), both read from
+// shared memory through descriptors.
+template <typename T, int TRANS_A, int TRANS_B, int R>
+__device__ __forceinline__ void wgmma_16bit(float (&d)[R], uint64_t da, uint64_t db) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (R == 128) {
+    if constexpr (bf16) MMAD_WGMMA_M64N256K16("bf16"); else MMAD_WGMMA_M64N256K16("f16");
+  } else if constexpr (R == 64) {
+    if constexpr (bf16) MMAD_WGMMA_M64N128K16("bf16"); else MMAD_WGMMA_M64N128K16("f16");
   } else {
-    MMAD_WGMMA_M64N256K16("f16");
+    static_assert(R == 32, "wgmma N of 64, 128 or 256");
+    if constexpr (bf16) MMAD_WGMMA_M64N64K16("bf16"); else MMAD_WGMMA_M64N64K16("f16");
   }
 }
+#undef MMAD_WGMMA_M64N64K16
+#undef MMAD_WGMMA_M64N128K16
 #undef MMAD_WGMMA_M64N256K16
 
 // Two adjacent outputs of a row, i and i + 1 (i even, so a pair is aligned
@@ -822,21 +902,22 @@ __device__ __forceinline__ void for_each_pair(const float (&d)[R], int r0, int c
     }
 }
 
-template <typename T, bool A_KMAJOR, bool B_KMAJOR>
-__global__ void __launch_bounds__(WG_NT, 1)
+template <typename T, bool A_KMAJOR, bool B_KMAJOR, int BM, int BN, int STAGES>
+__global__ void __launch_bounds__(WgCfg<BM, BN, STAGES>::NT, 1)
     mmad_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                       const __grid_constant__ CUtensorMap tb, const WgmmaArgs p) {
+  using Cfg = WgCfg<BM, BN, STAGES>;
   extern __shared__ unsigned char wg_smem_raw[];
   unsigned char* smem = wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE_BYTES);
-  uint64_t* empty = full + WG_STAGES;
-  const int m0 = blockIdx.x * WG_BM;
-  const int n0 = blockIdx.y * WG_BN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * Cfg::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
   const int nkb = (p.K + WG_BK - 1) / WG_BK;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < WG_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], WG_CONSUMERS / 32);   // lane 0 of every consumer warp
+      mbar_init(&empty[s], Cfg::CONSUMERS / 32);   // lane 0 of every consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -844,53 +925,53 @@ __global__ void __launch_bounds__(WG_NT, 1)
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {                                 // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if constexpr (Cfg::MOVE_REGS) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x == 0) {
       // N-contiguous B: boxes wholly past N are not loaded (they would
       // only feed columns the epilogue masks)
-      const int boxes = B_KMAJOR ? 0 : min(WG_BN / 64, (p.N - n0 + 63) / 64);
+      const int boxes = B_KMAJOR ? 0 : min(BN / 64, (p.N - n0 + 63) / 64);
       const uint32_t bytes =
-          B_KMAJOR ? WG_STAGE_BYTES : WG_A_BYTES + boxes * WG_B_BOX_BYTES;
+          B_KMAJOR ? Cfg::STAGE_BYTES : Cfg::A_BYTES + boxes * WG_BOX_BYTES;
       for (int kb = 0; kb < nkb; ++kb) {
-        const int s = kb % WG_STAGES;
-        mbar_wait(&empty[s], ((kb / WG_STAGES) & 1) ^ 1);
+        const int s = kb % STAGES;
+        mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
         mbar_expect_tx(&full[s], bytes);
-        unsigned char* a_s = smem + s * WG_STAGE_BYTES;
-        unsigned char* b_s = a_s + WG_A_BYTES;
+        unsigned char* a_s = smem + s * Cfg::STAGE_BYTES;
+        unsigned char* b_s = a_s + Cfg::A_BYTES;
         const int k0 = kb * WG_BK;
         if (A_KMAJOR) {
           tma_load_2d(a_s, &ta, k0, m0, &full[s]);
         } else {
-          // both boxes, even past M: zero-filled, they only feed rows the
+          // every box, even past M: zero-filled, they only feed rows the
           // epilogue masks
-          for (int j = 0; j < WG_BM / 64; ++j)
-            tma_load_2d(a_s + j * WG_A_BOX_BYTES, &ta, m0 + 64 * j, k0, &full[s]);
+          for (int j = 0; j < BM / 64; ++j)
+            tma_load_2d(a_s + j * WG_BOX_BYTES, &ta, m0 + 64 * j, k0, &full[s]);
         }
         if (B_KMAJOR) {
           tma_load_2d(b_s, &tb, k0, n0, &full[s]);
         } else {
           for (int j = 0; j < boxes; ++j)
-            tma_load_2d(b_s + j * WG_B_BOX_BYTES, &tb, n0 + 64 * j, k0, &full[s]);
+            tma_load_2d(b_s + j * WG_BOX_BYTES, &tb, n0 + 64 * j, k0, &full[s]);
         }
       }
     }
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  if constexpr (Cfg::MOVE_REGS) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
   const int cw = wg - 1;                         // rows 64 cw.. of the tile
   const int lane = threadIdx.x & 31;
-  float d[128];
+  float d[Cfg::FRAG];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  for (int i = 0; i < Cfg::FRAG; ++i) d[i] = 0.f;
   for (int kb = 0; kb < nkb; ++kb) {
-    const int s = kb % WG_STAGES;
-    mbar_wait(&full[s], (kb / WG_STAGES) & 1);
+    const int s = kb % STAGES;
+    mbar_wait(&full[s], (kb / STAGES) & 1);
     // K-major A: 64 rows of 128 bytes per warpgroup; M-contiguous A: one
     // 64-row box per warpgroup
     const unsigned char* a_s =
-        smem + s * WG_STAGE_BYTES + cw * (A_KMAJOR ? 64 * 128 : WG_A_BOX_BYTES);
-    const unsigned char* b_s = smem + s * WG_STAGE_BYTES + WG_A_BYTES;
+        smem + s * Cfg::STAGE_BYTES + cw * (A_KMAJOR ? 64 * 128 : WG_BOX_BYTES);
+    const unsigned char* b_s = smem + s * Cfg::STAGE_BYTES + Cfg::A_BYTES;
     fence_acc(d);
     wgmma_fence();
 #pragma unroll
@@ -901,16 +982,16 @@ __global__ void __launch_bounds__(WG_NT, 1)
       // groups 1024 bytes apart (stride offset); a K slice is 16 rows on.
       // An M-contiguous A is one such box (its 64 rows are one swizzle row).
       const uint64_t da = A_KMAJOR ? sw128_desc(a_s + kk * 32, 16, 1024)
-                                   : sw128_desc(a_s + kk * 16 * 128, WG_A_BOX_BYTES, 1024);
+                                   : sw128_desc(a_s + kk * 16 * 128, WG_BOX_BYTES, 1024);
       const uint64_t db = B_KMAJOR ? sw128_desc(b_s + kk * 32, 16, 1024)
-                                   : sw128_desc(b_s + kk * 16 * 128, WG_B_BOX_BYTES, 1024);
-      wgmma_m64n256k16<T, A_KMAJOR ? 0 : 1, B_KMAJOR ? 0 : 1>(d, da, db);
+                                   : sw128_desc(b_s + kk * 16 * 128, WG_BOX_BYTES, 1024);
+      wgmma_16bit<T, A_KMAJOR ? 0 : 1, B_KMAJOR ? 0 : 1>(d, da, db);
     }
     wgmma_commit();
     fence_acc(d);
     // the previous stage's group has completed: its slot may be refilled
     wgmma_wait<1>();
-    if (kb > 0 && lane == 0) mbar_arrive(&empty[(kb - 1) % WG_STAGES]);
+    if (kb > 0 && lane == 0) mbar_arrive(&empty[(kb - 1) % STAGES]);
   }
   wgmma_wait<0>();
   fence_acc(d);
@@ -978,22 +1059,39 @@ int tensor_map_2d(CUtensorMap* map, int dt, const void* base, long long d0, long
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Raises a kernel's dynamic shared-memory limit above the default 48 KB,
+// once per device; `raised` is the kernel's own flags.
+template <typename K>
+int raise_smem(K kernel, int bytes, bool (&raised)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised[dev] = true;
+  }
+  return 0;
+}
+
 // grid: (M tiles, N tiles): consecutive CTAs share a column of B, so a
 // wave reads a few N tiles of B against all of A (which L2 keeps). K is
 // not split. A is K-contiguous when sak == 1, else M-contiguous; B is
 // N-contiguous when sbn == 1, else K-contiguous. Refuses
-// (cudaErrorInvalidValue) what kernels/mmad.py:wgmma_b_major would not send
-// here, an M-contiguous A with a K-contiguous B among it; it never falls
-// back.
-template <typename T>
-int launch_wgmma(const StreamArgs& p, cudaStream_t stream) {
+// (cudaErrorInvalidValue) what kernels/mmad.py:wgmma_b_major and
+// plan_launch would not send here, an M-contiguous A with a K-contiguous B
+// among it; it never falls back.
+template <typename T, int BM, int BN, int STAGES>
+int launch_wgmma_inst(const StreamArgs& p, cudaStream_t stream) {
+  using Cfg = WgCfg<BM, BN, STAGES>;
   const int dt = std::is_same<T, __nv_bfloat16>::value ? BF16 : F16;
   const long long lim = 1ll << 31;
   const bool a_kmajor = p.sak == 1;
   const bool b_nmajor = p.sbn == 1;
   const long long a_row = a_kmajor ? p.sam : p.sak;
   const long long b_row = b_nmajor ? p.sbk : p.sbn;
-  const long long n_tiles = (p.N + WG_BN - 1) / WG_BN;
+  const long long n_tiles = (p.N + BN - 1) / BN;
   if (p.a_dt != dt || (!a_kmajor && (p.sam != 1 || !b_nmajor)) || (!b_nmajor && p.sbk != 1) ||
       reinterpret_cast<uintptr_t>(p.A) % 16 || reinterpret_cast<uintptr_t>(p.B) % 16 ||
       (a_row * 2) % 16 || (b_row * 2) % 16 || p.M < 1 || p.N < 1 || p.K < 1 || p.M >= lim ||
@@ -1001,35 +1099,41 @@ int launch_wgmma(const StreamArgs& p, cudaStream_t stream) {
       (p.c_dt != F32 && p.c_dt != BF16 && p.c_dt != F16))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, tb;
-  int err = a_kmajor ? tensor_map_2d(&ta, dt, p.A, p.K, p.M, p.sam * 2, WG_BK, WG_BM)
+  int err = a_kmajor ? tensor_map_2d(&ta, dt, p.A, p.K, p.M, p.sam * 2, WG_BK, BM)
                      : tensor_map_2d(&ta, dt, p.A, p.M, p.K, p.sak * 2, 64, WG_BK);
   if (err) return err;
   err = b_nmajor ? tensor_map_2d(&tb, dt, p.B, p.N, p.K, p.sbk * 2, 64, WG_BK)
-                 : tensor_map_2d(&tb, dt, p.B, p.K, p.N, p.sbn * 2, WG_BK, WG_BN);
+                 : tensor_map_2d(&tb, dt, p.B, p.K, p.N, p.sbn * 2, WG_BK, BN);
   if (err) return err;
-  // instances: 0 = (K, N), 1 = (K, K), 2 = (MN, N)
-  const int inst = a_kmajor ? (b_nmajor ? 0 : 1) : 2;
-  auto kernel = inst == 0   ? mmad_wgmma_kernel<T, true, false>
-                : inst == 1 ? mmad_wgmma_kernel<T, true, true>
-                            : mmad_wgmma_kernel<T, false, false>;
-  // the ring is above the default 48 KB: raise each instance's limit once
-  // per device
+  // the (A, B) majors: 0 = (K, N), 1 = (K, K), 2 = (MN, N)
+  const int majors = a_kmajor ? (b_nmajor ? 0 : 1) : 2;
+  auto kernel = majors == 0   ? mmad_wgmma_kernel<T, true, false, BM, BN, STAGES>
+                : majors == 1 ? mmad_wgmma_kernel<T, true, true, BM, BN, STAGES>
+                              : mmad_wgmma_kernel<T, false, false, BM, BN, STAGES>;
   static bool raised[3][64] = {};
-  int dev = 0;
-  cudaError_t cerr = cudaGetDevice(&dev);
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!raised[inst][dev]) {
-    cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-    if (cerr != cudaSuccess) return static_cast<int>(cerr);
-    raised[inst][dev] = true;
-  }
+  err = raise_smem(kernel, Cfg::SMEM, raised[majors]);
+  if (err) return err;
   const WgmmaArgs args{p.C, p.c_dt, static_cast<int>(p.M), static_cast<int>(p.N),
                        static_cast<int>(p.K)};
-  const dim3 grid(static_cast<unsigned>((p.M + WG_BM - 1) / WG_BM),
-                  static_cast<unsigned>(n_tiles));
-  kernel<<<grid, WG_NT, WG_SMEM, stream>>>(ta, tb, args);
+  const dim3 grid(static_cast<unsigned>((p.M + BM - 1) / BM), static_cast<unsigned>(n_tiles));
+  kernel<<<grid, Cfg::NT, Cfg::SMEM, stream>>>(ta, tb, args);
   return 0;
+}
+
+// The 16-bit instance `inst` (an index into TC_INSTANCES); refused when it
+// names no 16-bit instance.
+template <typename T, int I = 0>
+int launch_wgmma(const StreamArgs& p, int inst, cudaStream_t stream) {
+  if constexpr (I == N_TC_INSTANCES) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    constexpr TcInstance c = TC_INSTANCES[I];
+    if constexpr (c.family == TC_16BIT) {
+      static_assert(c.bk == WG_BK, "the 16-bit K step is one swizzle row");
+      if (inst == I) return launch_wgmma_inst<T, c.bm, c.bn, c.stages>(p, stream);
+    }
+    return launch_wgmma<T, I + 1>(p, inst, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1050,19 +1154,21 @@ int launch_wgmma(const StreamArgs& p, cudaStream_t stream) {
 constexpr int F8_BM = 128;
 constexpr int F8_BK = 128;                             // one 128-byte swizzle row of e4m3
 constexpr int F8_A_BYTES = F8_BM * F8_BK;              // 16 KB
-// Two instances, by the N width of a tile: F8_BN_FLAT, and F8_BN, whose
-// 40 KB stages feed 157 FLOP a byte of shared-memory fill, not 128 (on the
-// card the 128-wide tile's large-M GEMMs stalled near 7 TB/s of fill).
-// kernels/mmad.py:fp8_tile_width picks one by the waves its tiles take.
-constexpr int F8_BN_FLAT = 128, F8_BN = 192;
-template <int BN>
+constexpr int F8_CONSUMERS = 256;                      // two consumer warpgroups
+constexpr int F8_NT = F8_CONSUMERS + 128;              // + the producer warpgroup
+// The instances are TC_INSTANCES' TC_E4M3 rows, by the N width of a tile:
+// 128, and 192, whose 40 KB stages feed 157 FLOP a byte of shared-memory
+// fill, not 128 (on the card the 128-wide tile's large-M GEMMs stalled
+// near 7 TB/s of fill). kernels/mmad.py:fp8_tile_width picks one by the
+// waves its tiles take where the plan names none.
+template <int BN, int STAGES>
 struct F8Cfg {
   static constexpr int STAGE_BYTES = F8_A_BYTES + BN * F8_BK;
-  static constexpr int STAGES = BN == F8_BN_FLAT ? 6 : 5;
   // the ring, 1 KB of alignment slack, two barriers a stage
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
   static constexpr int TILE_FLOATS = F8_BM * BN;       // one split's fp32 partial tile
   static constexpr int FRAG = BN / 2;                  // accumulators a consumer thread
+  static_assert(SMEM <= 232448, "a CTA holds at most 227 KB of shared memory");
 };
 constexpr int F8_T_K = 128, F8_T_N = 128;              // transpose tile, k x n bytes
 
@@ -1134,7 +1240,7 @@ __device__ __forceinline__ void wgmma_e4m3(float (&d)[96], uint64_t da, uint64_t
 
 // The consumer warpgroups only (the producer has left).
 __device__ __forceinline__ void fp8_consumer_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(WG_CONSUMERS) : "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(F8_CONSUMERS) : "memory");
 }
 
 // grid: (M tiles, N tiles, K splits). A thread of consumer warpgroup cw
@@ -1143,12 +1249,12 @@ __device__ __forceinline__ void fp8_consumer_sync() {
 // its fp32 partial tile fragment by fragment (coalesced float4s), counts
 // its arrival on the tile's counter, and the last of the tile's splits to
 // arrive sums the partials in split order and writes C.
-template <int BN>
-__global__ void __launch_bounds__(WG_NT, 1)
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(F8_NT, 1)
     mmad_fp8_kernel(const __grid_constant__ CUtensorMap ta,
                     const __grid_constant__ CUtensorMap tb, const Fp8Args p) {
-  using Cfg = F8Cfg<BN>;
-  constexpr int STAGES = Cfg::STAGES, FRAG = Cfg::FRAG, Q = FRAG / 4;
+  using Cfg = F8Cfg<BN, STAGES>;
+  constexpr int FRAG = Cfg::FRAG, Q = FRAG / 4;
   extern __shared__ unsigned char f8_smem_raw[];
   __shared__ int last;
   unsigned char* smem = f8_smem_raw + ((1024 - (smem_u32(f8_smem_raw) & 1023)) & 1023);
@@ -1162,7 +1268,7 @@ __global__ void __launch_bounds__(WG_NT, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], WG_CONSUMERS / 32);   // lane 0 of every consumer warp
+      mbar_init(&empty[s], F8_CONSUMERS / 32);   // lane 0 of every consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -1343,9 +1449,9 @@ long long fp8_bt_offset(long long tiles, int splits, int tile_floats) {
 // when sbn == 1 (transposed first into the workspace), else K-contiguous
 // (sbk == 1). Refuses (cudaErrorInvalidValue) what kernels/mmad.py:
 // wgmma_b_major and fp8_geometry would not send here; it never falls back.
-template <int BN>
+template <int BN, int STAGES>
 int launch_fp8_inst(const StreamArgs& p, bool b_nmajor, int promote, cudaStream_t stream) {
-  using Cfg = F8Cfg<BN>;
+  using Cfg = F8Cfg<BN, STAGES>;
   const long long m_tiles = (p.M + F8_BM - 1) / F8_BM;
   const long long n_tiles = (p.N + BN - 1) / BN;
   if (n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -1371,18 +1477,9 @@ int launch_fp8_inst(const StreamArgs& p, bool b_nmajor, int promote, cudaStream_
     err = tensor_map_2d(&tb, F8E4M3, p.B, p.K, p.N, p.sbn, F8_BK, BN);
   }
   if (err) return err;
-  // the ring is above the default 48 KB: raise the limit once per device
   static bool raised[64] = {};
-  int dev = 0;
-  cudaError_t cerr = cudaGetDevice(&dev);
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!raised[dev]) {
-    cerr = cudaFuncSetAttribute(mmad_fp8_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                Cfg::SMEM);
-    if (cerr != cudaSuccess) return static_cast<int>(cerr);
-    raised[dev] = true;
-  }
+  err = raise_smem(mmad_fp8_kernel<BN, STAGES>, Cfg::SMEM, raised);
+  if (err) return err;
   const Fp8Args args{p.C,
                      p.ws,
                      static_cast<int*>(p.counters),
@@ -1394,14 +1491,32 @@ int launch_fp8_inst(const StreamArgs& p, bool b_nmajor, int promote, cudaStream_
                      promote,
                      (a_rows + BN) * F8_BK};
   const dim3 grid(static_cast<unsigned>(m_tiles), static_cast<unsigned>(n_tiles), p.splits);
-  mmad_fp8_kernel<BN><<<grid, WG_NT, Cfg::SMEM, stream>>>(ta, tb, args);
+  mmad_fp8_kernel<BN, STAGES><<<grid, F8_NT, Cfg::SMEM, stream>>>(ta, tb, args);
   return 0;
 }
 
-// `sub` is the tile width x 256 + the K steps between promotions, as
-// kernels/mmad.py:fp8_tile_width and FP8_PROMOTE_STEPS give them.
+// The e4m3 instance `inst` (an index into TC_INSTANCES); refused when it
+// names no e4m3 instance.
+template <int I = 0>
+int launch_fp8_at(const StreamArgs& p, bool b_nmajor, int inst, int promote,
+                  cudaStream_t stream) {
+  if constexpr (I == N_TC_INSTANCES) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    constexpr TcInstance c = TC_INSTANCES[I];
+    if constexpr (c.family == TC_E4M3) {
+      static_assert(c.bm == F8_BM && c.bk == F8_BK, "the fp8 tile is 128 rows, 128 k a step");
+      if (inst == I) return launch_fp8_inst<c.bn, c.stages>(p, b_nmajor, promote, stream);
+    }
+    return launch_fp8_at<I + 1>(p, b_nmajor, inst, promote, stream);
+  }
+}
+
+// `sub` is the instance's index in TC_INSTANCES x 256 + the K steps between
+// promotions, as kernels/mmad.py:plan_launch and FP8_PROMOTE_STEPS give
+// them.
 int launch_fp8(const StreamArgs& p, int b_dt, int sub, cudaStream_t stream) {
-  const int bn = sub >> 8, promote = sub & 255;
+  const int inst = sub >> 8, promote = sub & 255;
   const long long lim = 1ll << 31;
   const bool b_nmajor = p.sbn == 1;
   const bool split_ok =
@@ -1413,12 +1528,11 @@ int launch_fp8(const StreamArgs& p, int b_dt, int sub, cudaStream_t stream) {
       (b_nmajor ? (p.sbk % 16 || p.sbk < p.N) : (p.sbk != 1 || p.sbn % 16 || p.sbn < p.K)) ||
       reinterpret_cast<uintptr_t>(p.A) % 16 || reinterpret_cast<uintptr_t>(p.B) % 16 ||
       p.M < 1 || p.N < 1 || p.K < 1 || p.M >= lim || p.N >= lim || p.K >= lim ||
-      !split_ok || (bn != F8_BN_FLAT && bn != F8_BN) ||
+      !split_ok ||
       (b_nmajor && (p.ws == nullptr || (p.K + F8_T_K - 1) / F8_T_K > 65535)) ||
       (p.c_dt != F32 && p.c_dt != BF16 && p.c_dt != F16))
     return static_cast<int>(cudaErrorInvalidValue);
-  return bn == F8_BN_FLAT ? launch_fp8_inst<F8_BN_FLAT>(p, b_nmajor, promote, stream)
-                         : launch_fp8_inst<F8_BN>(p, b_nmajor, promote, stream);
+  return launch_fp8_at(p, b_nmajor, inst, promote, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1896,6 +2010,19 @@ int launch_tile(const TileArgs& p, int inst, cudaStream_t stream) {
 
 }  // namespace
 
+// The compiled tensor-core instances, `cap` at most, as five ints each
+// (family, bm, bn, bk, stages) in TC_INSTANCES' order; returns how many
+// there are. kernels/mmad.py holds them to its mirror when it loads the
+// library.
+extern "C" int mmad_instances(int* out, int cap) {
+  for (int i = 0; i < N_TC_INSTANCES && i < cap; ++i) {
+    const TcInstance& c = TC_INSTANCES[i];
+    const int row[5] = {c.family, c.bm, c.bn, c.bk, c.stages};
+    for (int j = 0; j < 5; ++j) out[5 * i + j] = row[j];
+  }
+  return N_TC_INSTANCES;
+}
+
 extern "C" int mmad_launch(const void* a, const void* b, void* c, void* ws, void* counters,
                            int a_dt, int b_dt, int c_dt, long long M, long long N, long long K,
                            long long sam, long long sak, long long sbk, long long sbn,
@@ -1913,9 +2040,9 @@ extern "C" int mmad_launch(const void* a, const void* b, void* c, void* ws, void
                      M, N, K, sam, sak, sbk, sbn, kps, splits};
   if (variant == 3) {
     if (b_dt == BF16) {
-      err = launch_wgmma<__nv_bfloat16>(p, stream);
+      err = launch_wgmma<__nv_bfloat16>(p, sub, stream);
     } else if (b_dt == F16) {
-      err = launch_wgmma<__half>(p, stream);
+      err = launch_wgmma<__half>(p, sub, stream);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }

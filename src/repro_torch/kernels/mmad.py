@@ -27,9 +27,10 @@ Training (M = 2048 tokens, K = 2048-16384): ~680 FLOP per byte, so the
 GEMMs are bound by operations (989 TFLOPS bf16 dense), which only the
 tensor cores reach. Where both operands are bf16 (or both fp16) and a TMA
 tensor map can describe them (`wgmma_b_major`) — every train GEMM, forward
-and backward — the tensor-core variant runs: 128 x 256 CTA tiles, two
-consumer warpgroups on `wgmma` with fp32 accumulators in registers, a
-producer thread keeping a 4-stage shared-memory ring filled with TMA
+and backward — the tensor-core variant runs: the plan's CTA tile (by
+default 128 x 256), a consumer warpgroup per 64 rows on `wgmma` with fp32
+accumulators in registers, a producer thread keeping a shared-memory ring
+(4 stages at 128 x 256) filled with TMA
 loads, B read in place whether it is a (K, N) weight or `embed.T`, A read
 in place whether it is an activation or the M-contiguous `a.T` of the
 backward's weight gradient, K not split (on the card a split's fp32
@@ -41,8 +42,9 @@ M = 4096 at ~200 FLOP a byte, M = 64 or 128 bound by B's bytes): where both
 operands are fp8 e4m3, M exceeds `STREAM_MAX_M` and a tensor map can
 describe them, A K-contiguous (`wgmma_b_major`), the fp8 tensor-core
 variant runs: `wgmma` on e4m3 at twice the bf16 rate, fed by a TMA ring,
-128 x 128 tiles for one M tile and 128 x 192 ones for more where they
-take fewer waves (`fp8_tile_width`), the tensor cores' sums (about 14
+the plan's tile or, where it names none, 128 x 128 tiles for one M tile
+and 128 x 192 ones for more where they take fewer waves
+(`fp8_tile_width`), the tensor cores' sums (about 14
 bits kept) promoted into fp32 registers every 128 k, K split for the flat
 shapes until one wave fills the SMs and summed in the same launch. fp8
 `wgmma` reads only K-major operands, so a (K, N) weight is first copied
@@ -66,13 +68,16 @@ kernels fix theirs. `tile_geometry` is its pure-Python mirror. The route is
 chosen by `plan_launch` from dtypes, strides and alignment, never by a
 failed launch.
 
-The plan's (bm, bn, bk) block geometry is accepted, power of two or not,
-but no variant reads it: the stream kernels' tile, split and ring, the
-tensor-core kernels' tiles and the SIMT tile route's instance and split
-are their own, so the planner's `InnerKernel` choice does not shape what
-runs on the card. Register accumulators need compile-time shapes, and the
-fp32 contract does not depend on the tiling. Honouring the geometry, or
-pricing this card without the inner-kernel term, is queued in ROADMAP.md.
+The plan's inner kernel runs on the tensor cores: `mmad(a, b,
+block_shape=(bm, bn, bk), stages=s)` launches that tensor-core instance,
+one of `TC_INSTANCES` (the card view's `hw.config.H100_TC_INSTANCES`,
+which a plan priced on that view names), and raises `ValueError` for a
+geometry outside the list or for operands the tensor cores do not take;
+`block_shape=None` runs the route's own geometry. Register accumulators
+need compile-time shapes, so only the listed instances are compiled; the
+stream kernels' tiles, splits and rings and the SIMT tile route's instance
+and split are their own. `geometry_counts()` records which geometry each
+launch ran and whether the caller named it.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch the
 kernel or raise; CPU tensors (which only a caller that chose the CPU holds)
@@ -88,6 +93,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.schedule import ring_bytes
+from repro_torch.hw.config import (H100_STREAM_MAX_M, H100_TC_INSTANCES,
+                                   TensorCoreInstance)
 from repro_torch.kernels import ref
 
 # dtype codes shared with csrc/mmad.cu
@@ -102,7 +110,7 @@ OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # csrc/mmad.cu launch variants
 TILE, ROW_STREAM, COL_STREAM, WGMMA, WGMMA_FP8 = 0, 1, 2, 3, 4
-STREAM_MAX_M = 16        # the stream variants take up to this many rows
+STREAM_MAX_M = H100_STREAM_MAX_M  # the stream variants take up to this many rows
 STREAM_ROWS = 4          # rows of A per stream CTA (SK_MT)
 STREAM_WARPS = 8         # consumer warps per stream CTA (SK_WARPS); +1 producer
 STREAM_COLS = 4          # columns per item of the column stream (SK_COLS)
@@ -113,13 +121,15 @@ ROW_UNIT = 8             # a row-stream split is a whole number of these k
 COL_STAGE_BYTES, COL_STAGES = 8192, 2      # one ring per column-stream warp
 ROW_MAX_KPS, COL_MAX_KPS = 2048, 2048      # A staged once: 16 B per k
 COL_CTAS_PER_SM = 1                        # __launch_bounds__ residency
-# the tensor-core variant (csrc/mmad.cu WG_*): CTA tile, K step, ring
+# the tensor-core instances csrc/mmad.cu compiles, in the order of its
+# TC_INSTANCES table (a launch names one by its index): the card view's
+# list, which `_load` holds the built library's table to
+TC_INSTANCES = H100_TC_INSTANCES
+# the tensor-core variant (csrc/mmad.cu WG_*): the route's own CTA tile,
+# K step and ring, where the caller names no instance
 WGMMA_DTYPES = (torch.bfloat16, torch.float16)
-WGMMA_BM, WGMMA_BN, WGMMA_BK = 128, 256, 64
-WGMMA_STAGES = 4
-WGMMA_STAGE_BYTES = (WGMMA_BM * WGMMA_BK + WGMMA_BK * WGMMA_BN) * 2
-# the ring, 1 KB of slack to align it to 1024 bytes, two barriers a stage
-WGMMA_SMEM = WGMMA_STAGES * WGMMA_STAGE_BYTES + 1024 + 2 * WGMMA_STAGES * 8
+WGMMA_INSTANCE = TC_INSTANCES[0]
+WGMMA_BN, WGMMA_BK = WGMMA_INSTANCE.bn, WGMMA_INSTANCE.bk
 WGMMA_MAX_N_TILES = 65535                  # grid.y
 # the (A, B) majors the kernel is built for: the forward's activation
 # against a (K, N) weight or `embed.T`, the backward's da = g @ b.T (b.T is
@@ -136,7 +146,7 @@ FP8_BM, FP8_BK = 128, 128
 # (on an H100 a 128 x 192 tile's 40 KB stages fed the tensor cores ~1.2x
 # faster than a 128 x 128 tile's 32 KB: tools/mmad_fp8_times.py)
 FP8_BN_FLAT, FP8_BN = 128, 192
-FP8_STAGES = {FP8_BN_FLAT: 6, FP8_BN: 5}
+FP8_STAGES = {i.bn: i.stages for i in TC_INSTANCES if i.family == "e4m3"}
 FP8_BN_RATE = {FP8_BN_FLAT: 1.0, FP8_BN: 1.2}
 FP8_MAJORS = (("k", "n"), ("k", "k"))
 FP8_T_K, FP8_T_N = 128, 128
@@ -151,6 +161,9 @@ TILE_BK = 32
 
 
 _launches = 0
+# (variant, (m, n, k), tensor-core instance or None, named by the caller)
+# -> launches since the last `reset_launch_count()`
+_geometries = {}
 _lib = None
 _sm_count = {}
 _counters = {}           # (device index, stream) -> int32 arrival counters
@@ -162,18 +175,44 @@ def launch_count() -> int:
     return _launches
 
 
+def geometry_counts() -> dict:
+    """Launches since the last `reset_launch_count()` by (variant, (m, n,
+    k), the tensor-core instance it ran or None off the tensor cores,
+    whether the caller named that instance)."""
+    return dict(_geometries)
+
+
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+    _geometries.clear()
+
+
+def compiled_instances(lib: ctypes.CDLL) -> Tuple[TensorCoreInstance, ...]:
+    """The tensor-core instances a loaded csrc/mmad.cu build compiled."""
+    cap = 64
+    out = (ctypes.c_int * (5 * cap))()
+    count = lib.mmad_instances(out, cap)
+    families = ("16bit", "e4m3")
+    return tuple(TensorCoreInstance(families[out[5 * i]],
+                                    *out[5 * i + 1:5 * i + 5])
+                 for i in range(min(count, cap)))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare `mmad_launch`'s C signature on a loaded csrc/mmad.cu build."""
+    """Declare `mmad_launch`'s C signature on a loaded csrc/mmad.cu build,
+    and hold the build's tensor-core instances to `TC_INSTANCES`."""
     fn = lib.mmad_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_longlong] * 8
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.mmad_instances.restype = ctypes.c_int
+    lib.mmad_instances.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    built = compiled_instances(lib)
+    if built != TC_INSTANCES:
+        raise RuntimeError(f"csrc/mmad.cu compiled the tensor-core instances "
+                           f"{built}, not {TC_INSTANCES}")
     return lib
 
 
@@ -257,27 +296,33 @@ def wgmma_b_major(a: torch.Tensor, b: torch.Tensor) -> Optional[str]:
 
 
 class WgmmaGeometry(NamedTuple):
-    """What one tensor-core launch runs: its CTA grid (x: M tiles, y: N
-    tiles), the K steps each CTA walks, and the ring and its dynamic shared
-    memory."""
+    """What one tensor-core launch runs: its instance, its CTA grid (x: M
+    tiles, y: N tiles), the K steps each CTA walks, and the ring and its
+    dynamic shared memory."""
     grid: Tuple[int, int]
     k_steps: int
     stages: int
     stage_bytes: int
     smem_bytes: int
+    instance: TensorCoreInstance = WGMMA_INSTANCE
 
 
-def wgmma_geometry(m: int, n: int, k: int) -> WgmmaGeometry:
-    """Grid and ring of the tensor-core variant, as csrc/mmad.cu lays it
-    out. Pure Python, so the CPU tests pin it.
+def wgmma_geometry(m: int, n: int, k: int,
+                   instance: Optional[TensorCoreInstance] = None
+                   ) -> WgmmaGeometry:
+    """Grid and ring of the tensor-core variant at `instance` (a 16-bit
+    row of `TC_INSTANCES`; None: the route's own, `WGMMA_INSTANCE`), as
+    csrc/mmad.cu lays it out. Pure Python, so the CPU tests pin it.
 
-    One CTA per `WGMMA_BM` x `WGMMA_BN` output tile, walking all of K in
-    `WGMMA_BK`-deep steps through a `WGMMA_STAGES`-stage ring. K is not
-    split: on an H100 the fp32 partials of a split cost more than the idle
-    SMs gave back at every split count tried (csrc/mmad.cu)."""
+    One CTA per bm x bn output tile, walking all of K in bk-deep steps
+    through a ring of the instance's stages. K is not split: on an H100
+    the fp32 partials of a split cost more than the idle SMs gave back at
+    every split count tried (csrc/mmad.cu)."""
+    inst = instance or WGMMA_INSTANCE
     return WgmmaGeometry(
-        (math.ceil(m / WGMMA_BM), math.ceil(n / WGMMA_BN)),
-        math.ceil(k / WGMMA_BK), WGMMA_STAGES, WGMMA_STAGE_BYTES, WGMMA_SMEM)
+        (math.ceil(m / inst.bm), math.ceil(n / inst.bn)),
+        math.ceil(k / inst.bk), inst.stages,
+        (inst.bm * inst.bk + inst.bk * inst.bn) * 2, ring_bytes(inst), inst)
 
 
 class Fp8Geometry(NamedTuple):
@@ -302,10 +347,16 @@ class Fp8Geometry(NamedTuple):
     bt_offset: int
     bt_row: int
     ws_floats: int
+    instance: Optional[TensorCoreInstance] = None
 
     @property
     def ctas(self) -> int:
         return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def fp8_instance(bn: int) -> TensorCoreInstance:
+    """The e4m3 instance of tile width `bn`."""
+    return next(i for i in TC_INSTANCES if i.family == "e4m3" and i.bn == bn)
 
 
 def fp8_tile_width(m: int, n: int, n_sms: int) -> int:
@@ -323,14 +374,17 @@ def fp8_tile_width(m: int, n: int, n_sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def fp8_geometry(m: int, n: int, k: int, b_major: str,
-                 n_sms: int) -> Fp8Geometry:
-    """Grid, split and scratch of the fp8 tensor-core variant, as
-    csrc/mmad.cu lays them out. Pure Python, so the CPU tests pin it.
+def fp8_geometry(m: int, n: int, k: int, b_major: str, n_sms: int,
+                 instance: Optional[TensorCoreInstance] = None
+                 ) -> Fp8Geometry:
+    """Grid, split and scratch of the fp8 tensor-core variant at
+    `instance` (an e4m3 row of `TC_INSTANCES`; None: the route's own, its
+    width as `fp8_tile_width` picks it), as csrc/mmad.cu lays them out.
+    Pure Python, so the CPU tests pin it.
 
-    One CTA per `FP8_BM` x bn output tile (bn as `fp8_tile_width` picks
-    it) walks its K range in `FP8_BK`-deep steps through a ring of
-    `FP8_STAGES[bn]` stages. K splits only where the tiles leave
+    One CTA per `FP8_BM` x bn output tile walks its K range in
+    `FP8_BK`-deep steps through a ring of the instance's stages. K splits
+    only where the tiles leave
     SMs idle (the flat GEMMs: M of 64 or 128 is one M tile), into as many
     splits as one wave of one CTA an SM holds, each a whole number of K
     steps; the last split to arrive at a tile sums the partials in split
@@ -339,7 +393,8 @@ def fp8_geometry(m: int, n: int, k: int, b_major: str,
     if b_major not in ("n", "k"):
         raise ValueError(f"no fp8 tensor-core instance for B major "
                          f"{b_major!r}")
-    bn = fp8_tile_width(m, n, n_sms)
+    inst = instance or fp8_instance(fp8_tile_width(m, n, n_sms))
+    bn = inst.bn
     tiles_m, tiles_n = math.ceil(m / FP8_BM), math.ceil(n / bn)
     tiles = tiles_m * tiles_n
     steps = math.ceil(k / FP8_BK)
@@ -356,14 +411,12 @@ def fp8_geometry(m: int, n: int, k: int, b_major: str,
     transpose = (math.ceil(n / FP8_T_N), math.ceil(k / FP8_T_K))
     nmajor = b_major == "n"
     ws = bt_offset + math.ceil(n * bt_row / 4) if nmajor else part
-    stages, stage_bytes = FP8_STAGES[bn], (FP8_BM + bn) * FP8_BK
-    # the ring, 1 KB of slack to align it to 1024 bytes, two barriers a stage
-    smem = stages * stage_bytes + 1024 + 2 * stages * 8
     return Fp8Geometry(
         bn, (tiles_m, tiles_n, splits), kps, splits,
-        math.ceil(kps / FP8_BK), stages, stage_bytes, smem,
-        transpose if nmajor else None, tiles if splits > 1 else 0,
-        bt_offset if nmajor else 0, bt_row if nmajor else 0, ws)
+        math.ceil(kps / FP8_BK), inst.stages, (FP8_BM + bn) * FP8_BK,
+        ring_bytes(inst), transpose if nmajor else None,
+        tiles if splits > 1 else 0, bt_offset if nmajor else 0,
+        bt_row if nmajor else 0, ws, inst)
 
 
 class StreamGeometry(NamedTuple):
@@ -576,12 +629,48 @@ def tile_geometry(m: int, n: int, k: int, a_bytes: int, b_bytes: int,
         tiles * splits * cfg.bm * cfg.bn if split else 0)
 
 
-def plan_launch(m: int, n: int, k: int, block_shape: Tuple[int, int, int],
+class Launch(tuple):
+    """(variant, k per split, splits) of one launch, with the tensor-core
+    instance it runs as `.instance` (None off the tensor cores)."""
+
+    def __new__(cls, variant: int, kps: int, splits: int,
+                instance: Optional[TensorCoreInstance] = None):
+        launch = super().__new__(cls, (variant, kps, splits))
+        launch.instance = instance
+        return launch
+
+
+def instance_for(elem_bytes: int,
+                         block_shape: Tuple[int, int, int],
+                         stages: Optional[int] = None) -> TensorCoreInstance:
+    """The compiled instance of the operands' family (e4m3 for 1-byte,
+    16-bit for 2-byte elements) at `block_shape` (bm, bn, bk) and `stages`
+    (None: the one instance of that block). Raises `ValueError` naming the
+    geometry when `TC_INSTANCES` has none."""
+    family = "e4m3" if elem_bytes == 1 else "16bit"
+    bm, bn, bk = _check_block(block_shape)
+    found = [i for i in TC_INSTANCES if i.family == family
+             and (i.bm, i.bn, i.bk) == (bm, bn, bk)
+             and stages in (None, i.stages)]
+    if len(found) != 1:
+        raise ValueError(
+            f"no {family} tensor-core instance at {bm} x {bn} x {bk}"
+            + ("" if stages is None else f" with {stages} stages")
+            + f"; csrc/mmad.cu compiles "
+            + ", ".join(f"{i.bm}x{i.bn}x{i.bk}/{i.stages}"
+                        for i in TC_INSTANCES if i.family == family))
+    return found[0]
+
+
+def plan_launch(m: int, n: int, k: int,
+                block_shape: Optional[Tuple[int, int, int]],
                 n_sms: int, layout: Optional[str] = None,
                 elem_bytes: int = 2,
                 wgmma_b: Optional[str] = None,
-                tile_vector: bool = False) -> Tuple[int, int, int]:
-    """(variant, k per split, splits) for one launch.
+                tile_vector: bool = False,
+                stages: Optional[int] = None) -> Launch:
+    """(variant, k per split, splits) for one launch, its tensor-core
+    instance as `.instance`.
 
     Up to `STREAM_MAX_M` rows with a vector-loadable B (`layout`), a stream
     kernel runs, laid out by `stream_geometry`. Otherwise, when the
@@ -589,20 +678,43 @@ def plan_launch(m: int, n: int, k: int, block_shape: Tuple[int, int, int],
     `wgmma_b_major` gives it, for a K- or M-contiguous A), a tensor-core
     variant runs: for 1-byte operands (fp8 e4m3) the fp8 one, laid out by
     `fp8_geometry`, else the bf16 / fp16 one, laid out by
-    `wgmma_geometry`, K unsplit. Otherwise (and by default) the SIMT tile
-    kernel runs, laid out by `tile_geometry`: a vector instance when
-    `tile_vector` (`tile_vectors(a, b)`; the operands' one element size is
-    `elem_bytes`), else the generic one. No variant reads `block_shape`."""
-    if m <= STREAM_MAX_M and layout in ("rows", "cols"):
+    `wgmma_geometry`, K unsplit; at the instance `block_shape` and
+    `stages` name (`instance_for`), or with no `block_shape` at
+    the route's own. Otherwise (and by default) the SIMT tile kernel runs,
+    laid out by `tile_geometry`: a vector instance when `tile_vector`
+    (`tile_vectors(a, b)`; the operands' one element size is
+    `elem_bytes`), else the generic one. A `block_shape` for operands the
+    tensor cores do not take raises `ValueError`: those routes have no
+    geometry to give them."""
+    stream = m <= STREAM_MAX_M and layout in ("rows", "cols")
+    if block_shape is not None and (stream or wgmma_b is None):
+        route = "a stream kernel" if stream else "the SIMT tile route"
+        raise ValueError(f"({m}, {n}, {k}) takes {route}, which runs no "
+                         f"plan geometry; given {tuple(block_shape)}")
+    if stream:
         geo = stream_geometry(m, n, k, layout, elem_bytes, n_sms)
-        return geo.variant, geo.kps, geo.splits
+        return Launch(geo.variant, geo.kps, geo.splits)
+    inst = (None if block_shape is None
+            else instance_for(elem_bytes, block_shape, stages))
+    if inst is not None and math.ceil(n / inst.bn) > WGMMA_MAX_N_TILES:
+        raise ValueError(f"N = {n} takes more than {WGMMA_MAX_N_TILES} "
+                         f"tiles of {inst.bn} columns")
     if wgmma_b is not None and elem_bytes == 1:
-        geo = fp8_geometry(m, n, k, wgmma_b, n_sms)
-        return WGMMA_FP8, geo.kps, geo.splits
+        geo = fp8_geometry(m, n, k, wgmma_b, n_sms, inst)
+        return Launch(WGMMA_FP8, geo.kps, geo.splits, geo.instance)
     if wgmma_b is not None:
-        return WGMMA, k, 1
+        return Launch(WGMMA, k, 1, inst or WGMMA_INSTANCE)
     geo = tile_geometry(m, n, k, elem_bytes, elem_bytes, n_sms, tile_vector)
-    return TILE, geo.kps, geo.splits
+    return Launch(TILE, geo.kps, geo.splits)
+
+
+def takes_tensor_cores(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether `mmad` launches a @ b on a tensor-core variant: as
+    `plan_launch` routes, not a stream kernel's few rows, and operands
+    `wgmma_b_major` admits."""
+    if a.shape[0] <= STREAM_MAX_M and b_layout(b) is not None:
+        return False
+    return wgmma_b_major(a, b) is not None
 
 
 def _check_block(block_shape) -> Tuple[int, int, int]:
@@ -614,14 +726,18 @@ def _check_block(block_shape) -> Tuple[int, int, int]:
 
 
 def mmad(a: torch.Tensor, b: torch.Tensor,
-         block_shape: Tuple[int, int, int] = (128, 128, 128),
-         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+         block_shape: Optional[Tuple[int, int, int]] = None,
+         out_dtype: Optional[torch.dtype] = None,
+         stages: Optional[int] = None) -> torch.Tensor:
     """C = A @ B with a float32 accumulator, A (M, K), B (K, N), any strides.
 
+    `block_shape` (bm, bn, bk) and `stages` name the tensor-core instance
+    a CUDA launch runs (`plan_launch`; None: the route's own geometry).
     Unlike the Pallas kernel, shapes need not divide the block shape: the
     kernel masks the ragged edge itself. CPU operands run the plain
-    version; meta operands (the dry run's shape-only trace) give an empty
-    meta tensor of the product's shape and launch nothing."""
+    version, whatever block they are given; meta operands (the dry run's
+    shape-only trace) give an empty meta tensor of the product's shape and
+    launch nothing."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"mmad takes 2-D operands, got {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -630,7 +746,7 @@ def mmad(a: torch.Tensor, b: torch.Tensor,
     if k != k2:
         raise ValueError(f"inner dims mismatch: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
-    bs = _check_block(block_shape)
+    bs = None if block_shape is None else _check_block(block_shape)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu" and b.device.type == "cpu":
         return ref.mmad_ref(a, b, out_dtype)
@@ -645,7 +761,7 @@ def mmad(a: torch.Tensor, b: torch.Tensor,
                             f"have {sorted(map(str, DTYPE_CODES))}")
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"mmad kernel writes {OUT_DTYPES}, not {out_dtype}")
-    return _launch(a, b, bs, out_dtype)
+    return _launch(a, b, bs, stages, out_dtype)
 
 
 def counter_buffer(device: torch.device, stream: int,
@@ -673,7 +789,8 @@ def workspace(device: torch.device, stream: int, size: int) -> torch.Tensor:
     return buf
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
+def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, stages,
+            out_dtype):
     """Launch on the current stream."""
     global _launches
     m, k = a.shape
@@ -685,11 +802,12 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
     layout = b_layout(b)
     vector = tile_vectors(a, b)
     wgmma_b = wgmma_b_major(a, b)
-    variant, kps, splits = plan_launch(m, n, max(k, 1), block_shape, n_sms,
-                                       layout, b.element_size(), wgmma_b,
-                                       vector)
-    # the stream kernels' grid x, the tile instance, or the fp8 variant's
-    # tile width x 256 + its K steps between promotions
+    launch = plan_launch(m, n, max(k, 1), block_shape, n_sms, layout,
+                         b.element_size(), wgmma_b, vector, stages)
+    variant, kps, splits = launch
+    # the stream kernels' grid x, the tile instance, the tensor-core
+    # instance's index, or the fp8 one's index x 256 + its K steps between
+    # promotions
     sub = 0
     stream = torch.cuda.current_stream(a.device).cuda_stream
     counters = ws = None
@@ -700,9 +818,11 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
         geo = tile_geometry(m, n, max(k, 1), a.element_size(),
                             b.element_size(), n_sms, vector)
         sub = geo.code
+    elif variant == WGMMA:
+        sub = TC_INSTANCES.index(launch.instance)
     elif variant == WGMMA_FP8:
-        geo = fp8_geometry(m, n, k, wgmma_b, n_sms)
-        sub = geo.bn * 256 + FP8_PROMOTE_STEPS
+        geo = fp8_geometry(m, n, k, wgmma_b, n_sms, launch.instance)
+        sub = TC_INSTANCES.index(launch.instance) * 256 + FP8_PROMOTE_STEPS
         if geo.ws_floats:
             # partials and B's K-major copy: one call's scratch, from the
             # stream-ordered caching allocator
@@ -724,4 +844,6 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_shape, out_dtype):
                            f"(M={m} N={n} K={k} variant={variant} "
                            f"sub={sub} splits={splits})")
     _launches += 1
+    key = (variant, (m, n, k), launch.instance, block_shape is not None)
+    _geometries[key] = _geometries.get(key, 0) + 1
     return out

@@ -1,14 +1,18 @@
 """Public wrappers around the `mmad` kernel.
 
-`tile_matmul` is the block-shaped entry point: it picks a block shape when
-the caller gives none and dispatches to `kernels.mmad.mmad`. The reference
+`tile_matmul` is the block-shaped entry point: it dispatches to
+`kernels.mmad.mmad` at the tensor-core instance the caller names, or with
+none at the geometry `mmad`'s route picks (the reference picks a Pallas
+block here, `pick_block_shape`; no CUDA launch reads one). The reference
 pads A and B to block multiples because the Pallas kernel needs divisible
 shapes; the CUDA kernel masks the ragged edge itself, so nothing is padded
-or copied here and the result equals the reference's padded-then-sliced one.
+or copied here and the result equals the reference's padded-then-sliced
+one.
 
 `local_matmul` is the schedule-resolved entry point: the mesh dataflows in
 `core/gemm.py` call it with the lowered plan's `InnerKernel`, so the
-planner's block geometry and compute dtype reach the per-device GEMM. It is
+planner's CTA tile, K step, ring depth and compute dtype reach the
+per-device GEMM. It is
 a `torch.autograd.Function` (the reference's `jax.custom_vjp`) whose backward
 is the two transposed products, and it never *narrows* operands: casting to
 the kernel's dtype happens only when that dtype is at least as wide as the
@@ -38,7 +42,7 @@ import torch
 
 from repro_torch.core.ir import ELEM_BYTES_OF_DTYPE
 from repro_torch.core.schedule import INNER_VMEM_BUDGET, InnerKernel
-from repro_torch.kernels.mmad import mmad
+from repro_torch.kernels.mmad import mmad, takes_tensor_cores
 
 # working-set budget for picking block shapes (bytes), shared with the
 # schedule level so `pick_block_shape` picks what the reference picks
@@ -54,6 +58,7 @@ _TORCH_OF_DTYPE = {
     "float8_e4m3": torch.float8_e4m3fn,
     "int8": torch.int8,
 }
+_NAME_OF_DTYPE = {v: k for k, v in _TORCH_OF_DTYPE.items()}
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -66,7 +71,9 @@ def pick_block_shape(m: int, n: int, k: int, elem_bytes: int = 2
 
     Same rule as the reference: prefer (128, 128, bk) with the largest bk
     that divides the 128-padded K and fits (larger K chunks amortize the
-    accumulator flush)."""
+    accumulator flush). The reference's `tile_matmul` runs its Pallas
+    kernel at this block when given none; no CUDA launch reads it: with no
+    block `mmad`'s route picks its own geometry."""
     bm = min(128, _round_up(m, 8))
     bn = min(128, _round_up(n, 128))
     kp = _round_up(k, 128)
@@ -83,49 +90,76 @@ def pick_block_shape(m: int, n: int, k: int, elem_bytes: int = 2
 
 def tile_matmul(a: torch.Tensor, b: torch.Tensor,
                 block_shape: Optional[Tuple[int, int, int]] = None,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """C = A @ B through the MMAD kernel at `block_shape` (picked when None).
+                out_dtype: Optional[torch.dtype] = None,
+                stages: Optional[int] = None) -> torch.Tensor:
+    """C = A @ B through the MMAD kernel, at the tensor-core instance
+    `block_shape` and `stages` name (None: the route's own geometry).
 
     Any M, N, K: the kernel masks what the reference pads."""
-    m, k = a.shape
-    n = b.shape[1]
-    bs = block_shape or pick_block_shape(m, n, k, a.element_size())
-    return mmad(a, b, block_shape=bs, out_dtype=out_dtype)
+    return mmad(a, b, block_shape=block_shape, out_dtype=out_dtype,
+                stages=stages)
 
 
 # ---------------------------------------------------------------------------
 # Schedule-resolved local matmul (the two-level tuning dispatch point)
 # ---------------------------------------------------------------------------
 
-def _cast_operand(x: torch.Tensor, kernel: InnerKernel) -> torch.Tensor:
-    """Cast to the kernel's compute dtype UNLESS that would narrow the data.
+def _cast_dtype(have: torch.dtype, kernel: InnerKernel) -> torch.dtype:
+    """The kernel's compute dtype, UNLESS casting `have` to it would
+    narrow the data: then `have`.
 
     The planner may pick an fp8 kernel for an fp8-native part; if the model
     actually feeds fp32 activations, quantization is its call to make — the
     dispatch must not silently destroy precision. Widening (bf16 data on an
     fp32 kernel) is always safe."""
     if not kernel.dtype:
-        return x
+        return have
     want = _TORCH_OF_DTYPE.get(kernel.dtype)
     if want is None:
-        return x
-    if ELEM_BYTES_OF_DTYPE[kernel.dtype] < x.element_size():
-        return x
+        return have
+    if ELEM_BYTES_OF_DTYPE[kernel.dtype] < have.itemsize:
+        return have
     # never cross float/int kinds either (int8-kernel on fp8 data would
     # reinterpret values, not widen them)
-    if x.dtype.is_floating_point != want.is_floating_point:
-        return x
-    return x.to(want)
+    if have.is_floating_point != want.is_floating_point:
+        return have
+    return want
 
 
-def block_for(kernel: Optional[InnerKernel], m: int, n: int, k: int,
-              elem_bytes: int) -> Tuple[int, int, int]:
-    """The block `local_matmul` runs an (m, n, k) product at: the inner
-    kernel's geometry, or with no inner kernel the one `pick_block_shape`
-    picks for the operands' element size."""
+def _cast_operand(x: torch.Tensor, kernel: InnerKernel) -> torch.Tensor:
+    """`x` in the dtype `_cast_dtype` gives it (itself when that is its
+    own)."""
+    return x.to(_cast_dtype(x.dtype, kernel))
+
+
+def tensor_core_dtype(kernel: Optional[InnerKernel], a: torch.Tensor,
+                      b: torch.Tensor) -> str:
+    """The dtype name `local_matmul` launches a @ b in on a tensor-core
+    variant under `kernel` (after `_cast_operand`), or "" when the product
+    takes a stream kernel or the SIMT tile route. Lowering on a CUDA mesh
+    demotes an inner kernel whose family this dtype is not. Nothing is
+    cast: an operand the cast would change is judged by an empty meta
+    tensor of its shape, its strides after the cast and the cast dtype
+    (a fresh copy is aligned, as a meta tensor's null base reads)."""
+    def as_cast(x):
+        want = x.dtype if kernel is None else _cast_dtype(x.dtype, kernel)
+        if want == x.dtype:
+            return x
+        return torch.empty_like(x, dtype=want, device="meta")
+    a, b = as_cast(a), as_cast(b)
+    if not takes_tensor_cores(a, b):
+        return ""
+    return _NAME_OF_DTYPE.get(a.dtype, "")
+
+
+def block_for(kernel: Optional[InnerKernel]
+              ) -> Tuple[Optional[Tuple[int, int, int]], Optional[int]]:
+    """The (block, stages) `local_matmul` hands `mmad`: the inner kernel's
+    geometry and its depth as the ring's stages, or (None, None) with no
+    inner kernel, for the route to pick."""
     if kernel is None:
-        return pick_block_shape(m, n, k, elem_bytes)
-    return kernel.geometry()
+        return None, None
+    return kernel.geometry(), kernel.depth
 
 
 def _local_matmul_impl(a: torch.Tensor, b: torch.Tensor,
@@ -133,9 +167,9 @@ def _local_matmul_impl(a: torch.Tensor, b: torch.Tensor,
     if kernel is not None:
         a = _cast_operand(a, kernel)
         b = _cast_operand(b, kernel)
-    bs = block_for(kernel, a.shape[0], b.shape[1], a.shape[1],
-                   a.element_size())
-    return tile_matmul(a, b, block_shape=bs, out_dtype=torch.float32)
+    block, stages = block_for(kernel)
+    return tile_matmul(a, b, block_shape=block, out_dtype=torch.float32,
+                       stages=stages)
 
 
 def tensor_core_backward(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -197,10 +231,9 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor,
                  kernel: Optional[InnerKernel]) -> torch.Tensor:
     """Per-device C = A @ B under a planner-resolved inner kernel, fp32 out.
 
-    CUDA tensors run the `mmad` kernel, given the kernel's block geometry
-    (which its decode-path variants do not read; see `kernels/mmad.py`), or
-    with no inner kernel the block `block_for` picks, in the operands' own
-    dtypes; CPU
+    CUDA tensors run the `mmad` kernel at the inner kernel's tensor-core
+    instance (`block_for`), or with no inner kernel at the geometry its
+    route picks, in the operands' own dtypes; CPU
     tensors run the plain fp32 product (the reference's CPU expression).
     Reverse-differentiable (`backward_products` on the card for bf16 and
     fp16 operands, fp32 matmuls otherwise), so routed training works

@@ -60,12 +60,13 @@ from repro_torch.train.steps import make_serve_step
 
 def warm_plan_cache(cfg, batch: int, prompt_len: int, max_len: int,
                     cache_dir: str, grid, max_candidates: int,
-                    online_tune: bool = True) -> Planner:
-    """Batch-tune the model's (bucketed) GEMM workload into the plan cache:
-    the batched-prefill shapes (M = batch*prompt_len, a real deployment's
+                    online_tune: bool = True, device=None) -> Planner:
+    """Batch-tune the model's (bucketed) GEMM workload into the plan cache,
+    priced on the view of `device` (`deploy.warmup.plan_view`): the
+    batched-prefill shapes (M = batch*prompt_len, a real deployment's
     artifact) and the decode shapes (M = batch) this loop executes."""
     planner = build_planner(cache_dir, grid, max_candidates,
-                            online_tune=online_tune)
+                            online_tune=online_tune, device=device)
     decode = model_workload(cfg, batch, max_len, kind="decode")
     workload = model_workload(cfg, batch, prompt_len, kind="prefill") + decode
     warm_buckets(planner, workload)
@@ -88,12 +89,14 @@ def install_gemm_context(planner: Planner,
     return ctx
 
 
-def load_drift(plan_cache: str, plan_grid) -> Optional[dict]:
-    """Drift of the persisted calibration profile vs its persisted
+def load_drift(plan_cache: str, plan_grid, device=None,
+               mesh=None) -> Optional[dict]:
+    """Drift of the persisted calibration profile of the view the plans
+    were priced on (`deploy.warmup.plan_view`) vs its persisted
     measurement samples, or None when the cache dir carries none."""
-    from repro_torch.hw.config import tpu_pod_as_accelerator
+    from repro_torch.deploy.warmup import plan_view
     from repro_torch.sim import calibrate as cal
-    hw = tpu_pod_as_accelerator(tuple(plan_grid))
+    hw = plan_view(plan_grid, device, mesh)
     profile = cal.load_profile(plan_cache, hw)
     samples = cal.load_samples(plan_cache, hw)
     if profile is None or not samples:
@@ -120,7 +123,8 @@ def build_serve_report(ctx: shard_ctx.GemmContext, cfg, batch: int,
         "extra": [[s.m, s.n, s.k] for s in cov["extra"]],
         "missing": [[s.m, s.n, s.k] for s in cov["missing"]],
     }
-    drift = load_drift(plan_cache, plan_grid) if plan_cache else None
+    drift = (load_drift(plan_cache, plan_grid, mesh=ctx.mesh)
+             if plan_cache else None)
     return build_run_report("serve", stats=stats.to_dict(),
                             workload=workload, drift=drift, tracer=tracer,
                             extra={"arch": cfg.name, "batch": batch,
@@ -226,7 +230,8 @@ def run_traffic(args) -> dict:
 
     planner = build_planner(args.plan_cache, args.plan_grid,
                             args.plan_candidates,
-                            online_tune=not args.no_online_tune)
+                            online_tune=not args.no_online_tune,
+                            device=device)
     warmed = warm_pool(planner, {cfg.name: cfg}, policy,
                        tcfg.max_rows(policy))
     print(f"traffic: warmed {len(warmed)} pool shape(s) "
@@ -339,12 +344,14 @@ def main(argv=None):
         if args.cold_serve:
             planner = build_planner(args.plan_cache, args.plan_grid,
                                     args.plan_candidates,
-                                    online_tune=not args.no_online_tune)
+                                    online_tune=not args.no_online_tune,
+                                    device=device)
         else:
             planner = warm_plan_cache(cfg, args.batch, args.prompt_len,
                                       max_len, args.plan_cache,
                                       args.plan_grid, args.plan_candidates,
-                                      online_tune=not args.no_online_tune)
+                                      online_tune=not args.no_online_tune,
+                                      device=device)
         if not args.no_plan_routing:
             gemm_ctx = install_gemm_context(planner, device)
             tracer = Tracer(process_name=f"serve.{cfg.name}")

@@ -133,8 +133,11 @@ class TrainSetup:
 
 def warm_train_plans(cfg: ModelConfig, batch: int, seq: int, cache_dir: str,
                      grid, max_candidates: int, online_tune: bool = True,
-                     dp: int = 1, pods: int = 1):
-    """Tune the training workload's pow-2 buckets into the plan cache, then
+                     dp: int = 1, pods: int = 1, mesh=None):
+    """Tune the training workload's pow-2 buckets into the plan cache,
+    priced on the view of `mesh`'s device (`deploy.warmup.plan_view`:
+    the card view on a CUDA mesh, the TPU pod view at `grid` otherwise),
+    then
     serve its exact shapes from them (warm hits or cheap bucketed
     transfers, never a second full search). `dp` is the reference's (the
     mesh's `pod` x `data`); with the batch split over `pods` pods each
@@ -145,7 +148,7 @@ def warm_train_plans(cfg: ModelConfig, batch: int, seq: int, cache_dir: str,
     if batch % pods:
         raise ValueError(f"batch {batch} does not split over {pods} pods")
     planner = build_planner(cache_dir, grid, max_candidates,
-                            online_tune=online_tune)
+                            online_tune=online_tune, mesh=mesh)
     workload = model_workload(cfg, batch // pods, seq, kind="train",
                               dp=dp // pods)
     warm_buckets(planner, workload)
@@ -187,14 +190,13 @@ def setup(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
     shard_ctx.set_mesh(mesh, pod_batch=True)
     planner = gemm_ctx = tracer = None
     if not args.skip_plan_warmup:
+        route_mesh = mesh or host_mesh or make_host_mesh(device)
         planner = warm_train_plans(cfg, args.batch, args.seq,
                                    args.plan_cache, args.plan_grid,
                                    args.plan_candidates,
                                    online_tune=not args.no_online_tune,
-                                   dp=dp, pods=pods)
-        gemm_ctx = shard_ctx.GemmContext(
-            mesh=mesh or host_mesh or make_host_mesh(device),
-            planner=planner)
+                                   dp=dp, pods=pods, mesh=route_mesh)
+        gemm_ctx = shard_ctx.GemmContext(mesh=route_mesh, planner=planner)
         shard_ctx.set_gemm_context(gemm_ctx)
         tracer = Tracer(process_name=f"train.{cfg.name}")
         set_tracer(tracer)
@@ -243,7 +245,8 @@ def main(argv=None) -> Optional[dict]:
     report = None
     if s.gemm_ctx is not None and s.rank == 0:
         from repro_torch.launch.serve import load_drift
-        drift = load_drift(args.plan_cache, args.plan_grid)
+        drift = load_drift(args.plan_cache, args.plan_grid,
+                           mesh=s.gemm_ctx.mesh)
         report = build_run_report(
             "train", stats=s.gemm_ctx.stats.to_dict(), drift=drift,
             tracer=s.tracer,

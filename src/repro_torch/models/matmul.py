@@ -102,8 +102,10 @@ def _plan_provenance(plan, prov: dict, tracer) -> None:
         prov["calibration_digest"] = getattr(plan, "calibration_digest", "")
 
 
-def _resolve_routed(ctx, shape: GEMMShape, prov: dict, tracer):
-    """Plan consult -> lowering -> stats, once per (tag, shape). Returns the
+def _resolve_routed(ctx, shape: GEMMShape, prov: dict, tracer,
+                    x: torch.Tensor, w: torch.Tensor):
+    """Plan consult -> lowering -> stats, once per (tag, shape), lowered
+    for the first call's operands x (..., K) and w (K, N). Returns the
     `ExecPlan`, or `_FALLBACK` when no plan resolved (auto dataflow)."""
     plan, kind = _consult(ctx, shape, prov, tracer, "pmm.plan_resolve_us")
     if plan is None:
@@ -113,9 +115,10 @@ def _resolve_routed(ctx, shape: GEMMShape, prov: dict, tracer):
         prov.update(provenance="fallback", mode="auto",
                     inner_kernel=None, overlap=False)
         return _FALLBACK
-    from repro_torch.core.lower import lower_schedule
-    exec_plan = lower_schedule(getattr(plan, "schedule", plan), ctx.mesh,
-                               ctx.row_axis, ctx.col_axis, shape=shape)
+    from repro_torch.core.gemm import lower_for
+    exec_plan = lower_for(getattr(plan, "schedule", plan), ctx.mesh,
+                          x.reshape(-1, x.shape[-1]), w, ctx.row_axis,
+                          ctx.col_axis)
     ctx.stats.record_lowering(exec_plan)
     prov.update(provenance=kind, mode=exec_plan.mode,
                 reasons=list(exec_plan.reasons()),
@@ -173,7 +176,8 @@ def pmm(x: torch.Tensor, w: torch.Tensor, tag: str = "") -> torch.Tensor:
             tracer.metrics.counter("pmm.provenance.unrouted").inc()
         return x @ w
     if tracer is None:
-        resolved = ctx.resolved[key] = _resolve_routed(ctx, shape, {}, None)
+        resolved = ctx.resolved[key] = _resolve_routed(ctx, shape, {}, None,
+                                                       x, w)
         return _dispatch_routed(ctx, x, w, resolved)
     # the span covers resolution plus the first dispatch, as the
     # reference's covers plan consult + lowering + tracing
@@ -181,7 +185,7 @@ def pmm(x: torch.Tensor, w: torch.Tensor, tag: str = "") -> torch.Tensor:
     with tracer.span(f"pmm.{tag or 'untagged'}", cat=obs_trace.CAT_PMM,
                      tag=tag, shape=[shape.m, shape.n, shape.k]) as prov:
         resolved = ctx.resolved[key] = _resolve_routed(ctx, shape, prov,
-                                                       tracer)
+                                                       tracer, x, w)
         out = _dispatch_routed(ctx, x, w, resolved)
     dispatch_us = (time.perf_counter() - t0) * 1e6
     tracer.metrics.counter(f"pmm.provenance.{prov['provenance']}").inc()

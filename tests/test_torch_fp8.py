@@ -127,7 +127,7 @@ def test_fp8_route_by_dtype_rows_and_strides(route):
     n = b.shape[1]
     assert mmad_mod.wgmma_b_major(a, b) == major
     vector = mmad_mod.tile_vectors(a, b)
-    got = mmad_mod.plan_launch(m, n, k, (64, 66, 224), N_SMS,
+    got = mmad_mod.plan_launch(m, n, k, None, N_SMS,
                                mmad_mod.b_layout(b), b.element_size(),
                                mmad_mod.wgmma_b_major(a, b), vector)
     assert got[0] == variant
@@ -225,17 +225,16 @@ def test_fp8_geometry_mirrors_the_cuda_constants():
         return int(re.search(rf"\b{name} = (\d+)", src).group(1))
     assert (const("F8_BM"), const("F8_BK")) == (mmad_mod.FP8_BM,
                                                 mmad_mod.FP8_BK)
-    assert re.search(r"F8_BN_FLAT = (\d+), F8_BN = (\d+)", src).groups() \
-        == (str(mmad_mod.FP8_BN_FLAT), str(mmad_mod.FP8_BN))
-    assert re.search(r"STAGES = BN == F8_BN_FLAT \? (\d+) : (\d+)",
-                     src).groups() == tuple(
-        str(mmad_mod.FP8_STAGES[bn])
-        for bn in (mmad_mod.FP8_BN_FLAT, mmad_mod.FP8_BN))
+    # the e4m3 rows of TC_INSTANCES: (bm, bn, bk, stages), the tile widths
+    # fp8_tile_width picks from and their rings
+    rows = re.findall(r"\{TC_E4M3, (\d+), (\d+), (\d+), (\d+)\}", src)
+    assert [tuple(map(int, r)) for r in rows] == [
+        (mmad_mod.FP8_BM, bn, mmad_mod.FP8_BK, mmad_mod.FP8_STAGES[bn])
+        for bn in (mmad_mod.FP8_BN, mmad_mod.FP8_BN_FLAT)]
     assert re.search(r"F8_T_K = (\d+), F8_T_N = (\d+)", src).groups() == (
         str(mmad_mod.FP8_T_K), str(mmad_mod.FP8_T_N))
     assert "(part + 63) / 64 * 64" in src
-    assert "bn == F8_BN_FLAT ? launch_fp8_inst<F8_BN_FLAT>" in src
-    assert "const int bn = sub >> 8, promote = sub & 255;" in src
+    assert "const int inst = sub >> 8, promote = sub & 255;" in src
 
 
 def test_fp8_promotion_default():

@@ -41,15 +41,16 @@ def cuda():
 
 DTYPES = ["float32", "bfloat16", "float16", "float8_e4m3fn", "int8"]
 GEOMETRIES = [
-    # (m, k, n, block, transposed B)
-    (4, 2048, 2048, (4, 128, 256), False),      # row stream, split K
-    (4, 2048, 256, (4, 256, 128), False),
-    (4, 4096, 512, (4, 128, 512), False),
-    (4, 2048, 3000, (4, 512, 256), True),       # column stream
-    (2, 256, 384, (2, 128, 128), False),
-    (48, 120, 192, (24, 96, 40), False),        # tile kernel from here on
-    (5, 130, 7, (8, 128, 128), False),
-    (200, 300, 260, (128, 128, 128), True),
+    # (m, k, n, block, transposed B): the stream kernels and the SIMT tile
+    # route run their own geometry, so no block is named
+    (4, 2048, 2048, None, False),           # row stream, split K
+    (4, 2048, 256, None, False),
+    (4, 4096, 512, None, False),
+    (4, 2048, 3000, None, True),            # column stream
+    (2, 256, 384, None, False),
+    (48, 120, 192, None, False),            # tile kernel from here on
+    (5, 130, 7, None, False),
+    (200, 300, 260, None, True),
 ]
 
 
@@ -117,13 +118,13 @@ def test_stream_kernels_write_c_directly_when_unsplit(cuda, dtype_name,
     b = _draw((n, k), dtype, g, cuda).T if transposed else _draw((k, n), dtype,
                                                               g, cuda)
     variant, _, splits = mmad_mod.plan_launch(
-        m, n, k, (4, 512, 256), mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
+        m, n, k, None, mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
         b.element_size())
     assert splits == 1
     assert variant == (mmad_mod.COL_STREAM if transposed
                        else mmad_mod.ROW_STREAM)
     for out_dtype in (torch.float32, torch.bfloat16):
-        got = mmad_mod.mmad(a, b, (4, 512, 256), out_dtype)
+        got = mmad_mod.mmad(a, b, None, out_dtype)
         _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype)
 
 
@@ -147,13 +148,13 @@ def test_split_launches_are_repeatable_and_leave_counters_zero(cuda, shape):
     b = (_draw((n, k), torch.bfloat16, g, cuda).T if tb
          else _draw((k, n), torch.bfloat16, g, cuda))
     variant, _, splits = mmad_mod.plan_launch(
-        m, n, k, (4, 128, 256), mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
+        m, n, k, None, mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
         b.element_size())
     assert variant != mmad_mod.TILE and splits > 1
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    first = mmad_mod.mmad(a, b, (4, 128, 256), torch.float32)
+    first = mmad_mod.mmad(a, b, None, torch.float32)
     for _ in range(3):
-        again = mmad_mod.mmad(a, b, (4, 128, 256), torch.float32)
+        again = mmad_mod.mmad(a, b, None, torch.float32)
         torch.cuda.synchronize()
         assert torch.equal(first, again)
         assert int(mmad_mod.counter_buffer(cuda, stream).abs().sum()) == 0
@@ -173,13 +174,13 @@ def test_stream_kernels_fix_up_split_k_in_the_launch(cuda, dtype_name,
     b = _draw((n, k), dtype, g, cuda).T if transposed else _draw((k, n), dtype,
                                                               g, cuda)
     variant, _, splits = mmad_mod.plan_launch(
-        m, n, k, (4, 512, 256), mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
+        m, n, k, None, mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
         b.element_size())
     assert splits > 1
     assert variant == (mmad_mod.COL_STREAM if transposed
                        else mmad_mod.ROW_STREAM)
     for out_dtype in (torch.float32, torch.bfloat16):
-        got = mmad_mod.mmad(a, b, (4, 512, 256), out_dtype)
+        got = mmad_mod.mmad(a, b, None, out_dtype)
         _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype)
 
 
@@ -189,7 +190,7 @@ def test_kernel_output_dtypes(cuda, out_name):
     g = torch.Generator(device=cuda).manual_seed(1)
     a = _draw((4, 1024), torch.bfloat16, g, cuda)
     b = _draw((1024, 640), torch.bfloat16, g, cuda)
-    got = mmad_mod.mmad(a, b, (4, 128, 256), out_dtype=out_dtype)
+    got = mmad_mod.mmad(a, b, None, out_dtype=out_dtype)
     assert got.dtype == out_dtype
     _assert_close(got, ref.mmad_ref(a, b, out_dtype), 1024, out_dtype)
 
@@ -200,7 +201,7 @@ def test_mixed_operand_dtypes(cuda):
     g = torch.Generator(device=cuda).manual_seed(2)
     a = _draw((4, 512), torch.float32, g, cuda)
     b = _draw((512, 256), torch.bfloat16, g, cuda)
-    _assert_close(mmad_mod.mmad(a, b, (4, 128, 128), torch.float32),
+    _assert_close(mmad_mod.mmad(a, b, None, torch.float32),
                   ref.mmad_ref(a, b, torch.float32), 512)
 
 
@@ -208,9 +209,10 @@ def test_local_matmul_runs_the_kernel_with_grads(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     a = _draw((8, 256), torch.float32, g, cuda).requires_grad_(True)
     b = _draw((256, 96), torch.float32, g, cuda).requires_grad_(True)
-    kernel = InnerKernel(8, 64, 128, dtype="float32")
+    # no inner kernel: lowering leaves none on a product the stream
+    # kernels take, and `mmad` refuses a geometry for one
     before = mmad_mod.launch_count()
-    out = ops.local_matmul(a, b, kernel)
+    out = ops.local_matmul(a, b, None)
     assert mmad_mod.launch_count() == before + 1
     out.sum().backward()
     ones = torch.ones_like(out)
@@ -267,7 +269,7 @@ def test_tile_kernel_on_embed_T_at_a_loss_chunk(cuda):
     g = torch.Generator(device=cuda).manual_seed(4)
     a = _draw((1024, 2048), torch.bfloat16, g, cuda)
     embed = _draw((256000, 2048), torch.bfloat16, g, cuda)
-    block = (512, 128, 512)
+    block = None
     variant, _, _ = mmad_mod.plan_launch(
         1024, 256000, 2048, block, mmad_mod._num_sms(cuda),
         mmad_mod.b_layout(embed.T), 2, mmad_mod.wgmma_b_major(a, embed.T))
@@ -282,14 +284,15 @@ def test_tile_kernel_on_embed_T_at_a_loss_chunk(cuda):
 # the tensor-core variant (wgmma + TMA)
 # ---------------------------------------------------------------------------
 
-# (m, k, n, block): gemma-2b's train GEMMs at batch 2 x seq 1024 and their
-# plans' block geometry (chip_smoke.TRAIN_CASES)
+# (m, k, n, block): gemma-2b's train GEMMs at batch 2 x seq 1024, at the
+# route's own tile (the card view's plans name the same one:
+# tests/test_torch_inner_kernel.py)
 TRAIN_SHAPES = [
-    (2048, 2048, 2048, (512, 512, 512)),      # q, o
-    (2048, 2048, 256, (128, 256, 512)),       # k, v: split K
-    (2048, 2048, 16384, (512, 512, 512)),     # gate, up
-    (2048, 16384, 2048, (512, 512, 512)),     # down
-    (1024, 2048, 256000, (512, 128, 512)),    # lm_head chunk
+    (2048, 2048, 2048, None),                 # q, o
+    (2048, 2048, 256, None),                  # k, v
+    (2048, 2048, 16384, None),                # gate, up
+    (2048, 16384, 2048, None),                # down
+    (1024, 2048, 256000, None),               # lm_head chunk
 ]
 
 
@@ -369,9 +372,10 @@ def test_local_matmul_backward_runs_on_the_tensor_cores(cuda):
     """bf16 operands on the card: the forward and both backward products
     are `mmad` launches (three), and the grads match the fp32 products of
     the same bf16 values; fp32 operands keep the fp32 backward (one
-    launch)."""
+    launch, with no inner kernel: lowering demotes a bf16 one for fp32
+    operands)."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    kernel = InnerKernel(128, 128, 64, dtype="bfloat16")
+    kernel = InnerKernel(128, 128, 64, depth=6, dtype="bfloat16")
     a = _draw((256, 512), torch.bfloat16, g, cuda).requires_grad_(True)
     b = _draw((512, 384), torch.bfloat16, g, cuda).requires_grad_(True)
     grad = _draw((256, 384), torch.bfloat16, g, cuda)
@@ -385,7 +389,7 @@ def test_local_matmul_backward_runs_on_the_tensor_cores(cuda):
                   torch.bfloat16, tensor_cores=True)
     x = a.detach().float().requires_grad_(True)
     before = mmad_mod.launch_count()
-    ops.local_matmul(x, b.detach().float(), kernel).sum().backward()
+    ops.local_matmul(x, b.detach().float(), None).sum().backward()
     assert mmad_mod.launch_count() == before + 1
 
 
@@ -459,9 +463,9 @@ def test_wgmma_ragged_edges(cuda, shape, b_major, dtype_name):
 
 @pytest.mark.parametrize("b_major", ["n", "k"])
 @pytest.mark.parametrize("mkn,block", [
-    ((2048, 2048, 256), (128, 256, 512)),     # k, v: 16 tiles
+    ((2048, 2048, 256), None),                # k, v: 16 tiles
     ((256, 4096, 512), (128, 128, 64)),       # 4 tiles, 64 K steps
-    ((200, 3000, 304), (128, 128, 40)),       # ragged, bk not a K step
+    ((200, 3000, 304), (64, 64, 64)),         # ragged
 ])
 def test_wgmma_few_tiles_walk_all_of_k_repeatably(cuda, mkn, block, b_major):
     """Few tiles do not split K: one launch per call, one CTA per tile
@@ -500,8 +504,8 @@ def test_simt_tile_kernel_keeps_what_wgmma_does_not_take(cuda, a_dtype,
                       _draw((130, 384), torch.bfloat16, g, cuda)))
     for x, y in cases:
         assert mmad_mod.wgmma_b_major(x, y) is None
-        assert _plan(x, y, (128, 128, 128), cuda)[0] == mmad_mod.TILE
-        got = mmad_mod.mmad(x, y, (128, 128, 128), torch.float32)
+        assert _plan(x, y, None, cuda)[0] == mmad_mod.TILE
+        got = mmad_mod.mmad(x, y, None, torch.float32)
         torch.cuda.synchronize()
         _assert_close(got, ref.mmad_ref(x, y, torch.float32), x.shape[1])
 
@@ -514,10 +518,11 @@ def test_a_refused_wgmma_launch_raises(cuda, monkeypatch):
     a = _draw((256, 512), torch.float32, g, cuda)
     b = _draw((512, 384), torch.float32, g, cuda)
     monkeypatch.setattr(mmad_mod, "plan_launch",
-                        lambda *args, **kw: (mmad_mod.WGMMA, 512, 1))
+                        lambda *args, **kw: mmad_mod.Launch(
+                            mmad_mod.WGMMA, 512, 1, mmad_mod.WGMMA_INSTANCE))
     before = mmad_mod.launch_count()
     with pytest.raises(RuntimeError, match="mmad launch failed"):
-        mmad_mod.mmad(a, b, (128, 128, 512), torch.float32)
+        mmad_mod.mmad(a, b, None, torch.float32)
     assert mmad_mod.launch_count() == before
 
 
@@ -662,7 +667,7 @@ def test_fp32_router_route_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(11)
     a = _draw((4, 2048), torch.float32, g, cuda)
     b = _draw((2048, 64), torch.float32, g, cuda)
-    block = (4, 256, 64)
+    block = None
     variant, _, _ = mmad_mod.plan_launch(
         4, 64, 2048, block, torch.cuda.get_device_properties(cuda)
         .multi_processor_count, mmad_mod.b_layout(b), 4,
@@ -767,7 +772,7 @@ def test_kernel_at_the_deepseek_v2_decode_shapes(cuda, shape):
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     a, b = _draw((m, k), dtype, g, cuda), _draw((k, n), dtype, g, cuda)
-    block = (4, 256, 128)
+    block = None
     assert _plan(a, b, block, cuda)[0] == mmad_mod.ROW_STREAM
     got = mmad_mod.mmad(a, b, block, torch.float32)
     torch.cuda.synchronize()
@@ -783,7 +788,7 @@ def test_wgmma_at_the_deepseek_v2_prefill_shapes(cuda, mkn):
     m, k, n = mkn
     g = torch.Generator(device=cuda).manual_seed(k + n)
     a, b = _wgmma_operands(m, k, n, "n", torch.bfloat16, g, cuda)
-    block = (128, 128, 128)
+    block = None
     assert _plan(a, b, block, cuda)[0] == mmad_mod.WGMMA
     for out_dtype in (torch.float32, torch.bfloat16):
         got = mmad_mod.mmad(a, b, block, out_dtype)
@@ -802,7 +807,7 @@ def test_fp32_router_at_the_moe_train_shape_takes_the_simt_tile_kernel(cuda):
     g = torch.Generator(device=cuda).manual_seed(13)
     a = _draw((2048, 2048), torch.float32, g, cuda)
     b = _draw((2048, 64), torch.float32, g, cuda)
-    block = (128, 64, 128)
+    block = None
     variant, _, splits = _plan(a, b, block, cuda)
     assert variant == mmad_mod.TILE and splits > 1
     got = mmad_mod.mmad(a, b, block, torch.float32)
@@ -884,7 +889,7 @@ def test_kernel_at_the_ssm_decode_shapes(cuda, shape):
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     a, b = _draw((m, k), dtype, g, cuda), _draw((k, n), dtype, g, cuda)
-    block = (4, 256, 128)
+    block = None
     assert _plan(a, b, block, cuda)[0] == mmad_mod.ROW_STREAM
     got = mmad_mod.mmad(a, b, block, torch.float32)
     torch.cuda.synchronize()
@@ -899,7 +904,7 @@ def test_fp32_gates_at_the_forward_shape_take_the_simt_tile_kernel(cuda):
     g = torch.Generator(device=cuda).manual_seed(14)
     a = _draw((512, 2048), torch.float32, g, cuda)
     b = _draw((2048, 8), torch.float32, g, cuda)
-    block = (32, 8, 128)
+    block = None
     assert _plan(a, b, block, cuda)[0] == mmad_mod.TILE
     got = mmad_mod.mmad(a, b, block, torch.float32)
     torch.cuda.synchronize()
@@ -980,7 +985,7 @@ def test_simt_tile_route_matches_plain(cuda, case, out_name):
     a, b = _tile_operands(case, g, cuda)
     m, k = a.shape
     n = b.shape[1]
-    assert _plan(a, b, (128, 128, 128), cuda)[0] == mmad_mod.TILE
+    assert _plan(a, b, None, cuda)[0] == mmad_mod.TILE
     geo = mmad_mod.tile_geometry(m, n, k, a.element_size(), b.element_size(),
                                  mmad_mod._num_sms(cuda),
                                  mmad_mod.tile_vectors(a, b))
@@ -990,11 +995,11 @@ def test_simt_tile_route_matches_plain(cuda, case, out_name):
     elif case[0] in ("router", "gates", "bf16 K = 130"):
         assert geo.splits > 1
     before = mmad_mod.launch_count()
-    got = mmad_mod.mmad(a, b, (128, 128, 128), out_dtype)
+    got = mmad_mod.mmad(a, b, None, out_dtype)
     torch.cuda.synchronize()
     assert mmad_mod.launch_count() == before + 1
     _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype)
-    assert torch.equal(mmad_mod.mmad(a, b, (128, 128, 128), out_dtype), got)
+    assert torch.equal(mmad_mod.mmad(a, b, None, out_dtype), got)
     torch.cuda.synchronize()
     assert all(int(c.abs().sum()) == 0 for c in mmad_mod._counters.values())
 
@@ -1006,13 +1011,13 @@ def test_simt_tile_route_is_one_kernel_a_call(cuda):
     g = torch.Generator(device=cuda).manual_seed(15)
     a = _draw((2048, 2048), torch.float32, g, cuda)
     b = _draw((2048, 64), torch.float32, g, cuda)
-    assert _plan(a, b, (128, 64, 128), cuda)[2] > 1
-    mmad_mod.mmad(a, b, (128, 64, 128), torch.float32)
+    assert _plan(a, b, None, cuda)[2] > 1
+    mmad_mod.mmad(a, b, None, torch.float32)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        mmad_mod.mmad(a, b, (128, 64, 128), torch.float32)
+        mmad_mod.mmad(a, b, None, torch.float32)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1031,7 +1036,7 @@ def test_a_refused_tile_launch_raises(cuda, monkeypatch):
     monkeypatch.setattr(mmad_mod, "tile_vectors", lambda *_: True)
     before = mmad_mod.launch_count()
     with pytest.raises(RuntimeError, match="mmad launch failed"):
-        mmad_mod.mmad(a, b, (128, 128, 128), torch.float32)
+        mmad_mod.mmad(a, b, None, torch.float32)
     assert mmad_mod.launch_count() == before
 
 
@@ -1042,7 +1047,7 @@ def test_wgmma_at_the_ragged_mamba_in_forward_shape(cuda):
     bf16 out."""
     g = torch.Generator(device=cuda).manual_seed(15)
     a, b = _wgmma_operands(512, 2048, 8384, "n", torch.bfloat16, g, cuda)
-    block = (128, 128, 128)
+    block = None
     assert _plan(a, b, block, cuda)[0] == mmad_mod.WGMMA
     for out_dtype in (torch.float32, torch.bfloat16):
         got = mmad_mod.mmad(a, b, block, out_dtype)
@@ -1132,7 +1137,7 @@ def test_kernel_at_the_frontend_model_shapes(cuda, shape):
     a = _draw((m, k), torch.bfloat16, g, cuda)
     b = (_draw((k, n), torch.bfloat16, g, cuda) if b_major == "n"
          else _draw((n, k), torch.bfloat16, g, cuda).T)
-    block = (min(m, 128), 128, 128)
+    block = None
     assert _plan(a, b, block, cuda)[0] == variant
     tensor_cores = variant == mmad_mod.WGMMA
     for out_dtype in (torch.float32, torch.bfloat16):
@@ -1233,7 +1238,7 @@ def test_backward_products_at_the_other_families_train_shapes(cuda, shape,
     real = ops.mmad
 
     def recorder(x, y, *args, **kw):
-        routes.append(_plan(x, y, (128, 128, 128), cuda)[0])
+        routes.append(_plan(x, y, None, cuda)[0])
         return real(x, y, *args, **kw)
 
     monkeypatch.setattr(ops, "mmad", recorder)
@@ -1338,16 +1343,16 @@ def test_fp8_route_matches_plain(cuda, case, out_name):
     out_dtype = getattr(torch, out_name)
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     a, b = _fp8_operands(m, k, n, major, g, cuda)
-    variant, _, splits = _plan(a, b, (128, 128, 128), cuda)
+    variant, _, splits = _plan(a, b, None, cuda)
     assert variant == mmad_mod.WGMMA_FP8
     assert mmad_mod.wgmma_b_major(a, b) == major
     assert (splits > 1) is split
     before = mmad_mod.launch_count()
-    got = mmad_mod.mmad(a, b, (128, 128, 128), out_dtype)
+    got = mmad_mod.mmad(a, b, None, out_dtype)
     torch.cuda.synchronize()
     assert mmad_mod.launch_count() == before + 1
     _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype, fp8=True)
-    assert torch.equal(mmad_mod.mmad(a, b, (128, 128, 128), out_dtype), got)
+    assert torch.equal(mmad_mod.mmad(a, b, None, out_dtype), got)
     torch.cuda.synchronize()
     assert all(int(c.abs().sum()) == 0 for c in mmad_mod._counters.values())
 
@@ -1377,11 +1382,12 @@ def test_a_refused_fp8_launch_raises(cuda, monkeypatch, operands):
     a, b = operands(g, cuda)
     monkeypatch.setattr(mmad_mod, "wgmma_b_major", lambda a, b: "n")
     monkeypatch.setattr(mmad_mod, "plan_launch",
-                        lambda *args, **kw: (mmad_mod.WGMMA_FP8, a.shape[1],
-                                             1))
+                        lambda *args, **kw: mmad_mod.Launch(
+                            mmad_mod.WGMMA_FP8, a.shape[1], 1,
+                            mmad_mod.fp8_instance(mmad_mod.FP8_BN_FLAT)))
     before = mmad_mod.launch_count()
     with pytest.raises(RuntimeError, match="mmad launch failed"):
-        mmad_mod.mmad(a, b, (128, 128, 128), torch.float32)
+        mmad_mod.mmad(a, b, None, torch.float32)
     torch.cuda.synchronize()
     assert mmad_mod.launch_count() == before
 
@@ -1392,7 +1398,7 @@ def test_fp8_call_kernels(cuda, major):
     K-major B the fp8 kernel alone; neither a split-K reduce kernel."""
     g = torch.Generator(device=cuda).manual_seed(8)
     a, b = _fp8_operands(64, 7168, 2112, major, g, cuda)
-    mmad_mod.mmad(a, b, (128, 128, 128), torch.float32)
+    mmad_mod.mmad(a, b, None, torch.float32)
     torch.cuda.synchronize()
     # a profile can lose a window's first and last kernels: the call sits
     # between a host pause and spin kernels at each edge, as
@@ -1403,7 +1409,7 @@ def test_fp8_call_kernels(cuda, major):
         time.sleep(0.25)
         for _ in range(200):
             torch.cuda._sleep(100)
-        mmad_mod.mmad(a, b, (128, 128, 128), torch.float32)
+        mmad_mod.mmad(a, b, None, torch.float32)
         for _ in range(200):
             torch.cuda._sleep(100)
         torch.cuda.synchronize()
@@ -1418,3 +1424,98 @@ def test_fp8_call_kernels(cuda, major):
             else ["mmad_fp8_kernel<"])
     assert len(names) == len(want), names
     assert all(w in name for w, name in zip(want, names)), names
+
+
+# ---------------------------------------------------------------------------
+# every compiled tensor-core instance: the geometries a card-view plan names
+# ---------------------------------------------------------------------------
+
+TC16 = [i for i in mmad_mod.TC_INSTANCES if i.family == "16bit"]
+TCF8 = [i for i in mmad_mod.TC_INSTANCES if i.family == "e4m3"]
+
+
+def _instance_id(inst):
+    return f"{inst.bm}x{inst.bn}x{inst.bk}s{inst.stages}"
+
+
+def _held_at(a, b, inst, fp8, cuda):
+    """`mmad` at instance `inst`, fp32 and bf16 out: the route it plans is
+    that instance's, each launch is recorded as named by the caller, a
+    second launch is bitwise the first, and C is the plain version's
+    within the tensor cores' tolerance."""
+    m, k = a.shape
+    n = b.shape[1]
+    block = (inst.bm, inst.bn, inst.bk)
+    launch = mmad_mod.plan_launch(
+        m, n, k, block, mmad_mod._num_sms(cuda), mmad_mod.b_layout(b),
+        b.element_size(), mmad_mod.wgmma_b_major(a, b),
+        mmad_mod.tile_vectors(a, b), inst.stages)
+    assert launch.instance == inst
+    variant = mmad_mod.WGMMA_FP8 if fp8 else mmad_mod.WGMMA
+    assert launch[0] == variant
+    for out_dtype in (torch.float32, torch.bfloat16):
+        mmad_mod.reset_launch_count()
+        got = mmad_mod.mmad(a, b, block, out_dtype, inst.stages)
+        again = mmad_mod.mmad(a, b, block, out_dtype, inst.stages)
+        torch.cuda.synchronize()
+        assert mmad_mod.geometry_counts() == {
+            (variant, (m, n, k), inst, True): 2}
+        assert torch.equal(got, again)
+        _assert_close(got, ref.mmad_ref(a, b, out_dtype), k, out_dtype,
+                      tensor_cores=not fp8, fp8=fp8)
+
+
+@pytest.mark.parametrize("majors", mmad_mod.WGMMA_MAJORS,
+                         ids=[f"A{a}B{b}" for a, b in mmad_mod.WGMMA_MAJORS])
+@pytest.mark.parametrize("dtype_name", ["bfloat16", "float16"])
+@pytest.mark.parametrize("inst", TC16, ids=[_instance_id(i) for i in TC16])
+def test_every_16bit_instance_matches_plain(cuda, inst, dtype_name, majors):
+    """Each 16-bit instance on M, N and K that are multiples of none of its
+    tile edges or its K step (296 x 520 x 1000: partial tiles on both
+    edges, a ring wrapped several times; each a multiple of 8, so a tensor
+    map describes either major), A K- or M-contiguous, B N- or
+    K-contiguous, in the (A, B) majors the kernel is built for."""
+    dtype = getattr(torch, dtype_name)
+    m, k, n = 296, 1000, 520
+    g = torch.Generator(device=cuda).manual_seed(m + TC16.index(inst))
+    a = _draw((m, k), dtype, g, cuda) if majors[0] == "k" \
+        else _draw((k, m), dtype, g, cuda).T
+    b = _draw((k, n), dtype, g, cuda) if majors[1] == "n" \
+        else _draw((n, k), dtype, g, cuda).T
+    assert (mmad_mod.wgmma_a_major(a), mmad_mod.wgmma_b_major(a, b)) == majors
+    _held_at(a, b, inst, False, cuda)
+
+
+@pytest.mark.parametrize("mkn", [(300, 1000, 520), (2048, 1000, 2100)],
+                         ids=["split", "unsplit"])
+@pytest.mark.parametrize("major", ["n", "k"])
+@pytest.mark.parametrize("inst", TCF8, ids=[_instance_id(i) for i in TCF8])
+def test_every_fp8_instance_matches_plain(cuda, inst, major, mkn):
+    """Each e4m3 instance, B N-major (transposed in the call) or K-major,
+    on ragged shapes whose tiles split K (few tiles) or do not, against
+    the plain version within `fp8_tensor_core_atol`."""
+    m, k, n = mkn
+    g = torch.Generator(device=cuda).manual_seed(m + n + TCF8.index(inst))
+    a, b = _fp8_operands(m, k, n, major, g, cuda)
+    _held_at(a, b, inst, True, cuda)
+
+
+@pytest.mark.parametrize("block,stages,dtype_name", [
+    ((128, 128, 128), None, "bfloat16"),     # no 16-bit K step of 128
+    ((128, 256, 64), 6, "bfloat16"),         # the tile, not its ring depth
+    ((128, 256, 64), None, "float32"),       # the SIMT tile route
+    ((64, 128, 128), None, "float8_e4m3fn"),  # no 64-row fp8 tile
+], ids=["bf16-bk128", "bf16-6-stages", "fp32", "fp8-bm64"])
+def test_a_geometry_outside_the_instances_raises(cuda, block, stages,
+                                                 dtype_name):
+    """A geometry the card does not compile, or one given to operands the
+    tensor cores do not take, raises `ValueError` naming it, and nothing
+    launches: the launch never runs another geometry in its place."""
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a = _draw((256, 512), dtype, g, cuda)
+    b = _draw((512, 384), dtype, g, cuda)
+    mmad_mod.reset_launch_count()
+    with pytest.raises(ValueError, match=r"\d+"):
+        mmad_mod.mmad(a, b, block, torch.float32, stages)
+    assert mmad_mod.launch_count() == 0 and not mmad_mod.geometry_counts()

@@ -8,7 +8,8 @@ Inputs are made with numpy from fixed seeds and fed to both packages:
   geometries, power of two or not;
 - `tile_matmul` on ragged shapes and a transposed-B view vs the
   reference's padded-then-sliced result;
-- `pick_block_shape` and the `_cast_operand` rules, case by case;
+- `pick_block_shape`, `block_for` and the `_cast_operand` rules, case by
+  case;
 - `local_matmul` forward and grads vs the reference's `local_matmul`.
 
 Tolerances: both sides accumulate fp32 products of identical fp32-exact
@@ -182,16 +183,17 @@ def test_plan_launch_tiles_split_k_in_whole_blocks(m, n, k, block, vector,
                                                    expect):
     """Operands the stream kernels cannot vector-load take the tile kernel,
     its K split in whole 32-deep stages chosen from the shape and the SM
-    count: the splits cover K exactly, none is empty, and the plan's block
-    (its bk included) changes nothing."""
-    got = tmmad_mod.plan_launch(m, n, k, block, n_sms=132, elem_bytes=4,
+    count: the splits cover K exactly, none is empty; a plan's block (its
+    bk included) is refused, since the tile route runs no plan geometry."""
+    got = tmmad_mod.plan_launch(m, n, k, None, n_sms=132, elem_bytes=4,
                                 tile_vector=vector)
     assert got == expect
     variant, kps, splits = got
     assert splits == 1 or kps % tmmad_mod.TILE_BK == 0
     assert (splits - 1) * kps < k <= splits * kps
-    assert tmmad_mod.plan_launch(m, n, k, (1, 1, 1), n_sms=132, elem_bytes=4,
-                                 tile_vector=vector) == got
+    with pytest.raises(ValueError, match="SIMT tile route"):
+        tmmad_mod.plan_launch(m, n, k, block, n_sms=132, elem_bytes=4,
+                              tile_vector=vector)
 
 
 @pytest.mark.parametrize("m,n,k,layout,expect", [
@@ -208,7 +210,7 @@ def test_plan_launch_tiles_split_k_in_whole_blocks(m, n, k, block, vector,
                                                 # (generic: no tile_vector)
 ])
 def test_plan_launch_streams_decode_shapes(m, n, k, layout, expect):
-    got = tmmad_mod.plan_launch(m, n, k, (4, 128, 256), n_sms=132,
+    got = tmmad_mod.plan_launch(m, n, k, None, n_sms=132,
                                 layout=layout, elem_bytes=2)
     assert got == expect
     variant, kps, splits = got
@@ -285,7 +287,7 @@ def test_b_layout_picks_the_vector_loadable_dim():
 
 
 # ---------------------------------------------------------------------------
-# tile_matmul / pick_block_shape / _cast_operand
+# tile_matmul / pick_block_shape / block_for / _cast_operand
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("m,k,n", [(5, 130, 7), (100, 128, 128), (33, 257, 65)])
@@ -323,16 +325,21 @@ def test_pick_block_shape_matches_reference(m, n, k, eb):
 
 
 @pytest.mark.parametrize("kernel", [None, InnerKernel(8, 128, 32),
-                                    InnerKernel(128, 256, 64, dtype="float32")],
+                                    InnerKernel(128, 256, 64, depth=4,
+                                                dtype="float32")],
                          ids=["no-kernel", "8x128x32", "128x256x64-fp32"])
 def test_block_for_is_the_kernels_geometry_or_the_picked_block(kernel):
-    """The one rule for the block `local_matmul` runs at: a plan's inner
-    kernel's geometry, else `pick_block_shape` for the operands' size."""
-    for m, n, k, eb in [(4, 256206, 1024, 2), (3840, 1024, 1024, 2),
-                        (7, 1000, 5000, 4)]:
-        want = (kernel.geometry() if kernel is not None
-                else jops.pick_block_shape(m, n, k, eb))
-        assert tops.block_for(kernel, m, n, k, eb) == want
+    """The one rule for the block `local_matmul` hands `mmad`: a plan's
+    inner kernel's geometry with its depth as the ring's stages, else none,
+    for `mmad`'s route to pick (the reference's `pick_block_shape` picks a
+    Pallas block there, which no CUDA launch reads)."""
+    if kernel is None:
+        assert tops.block_for(kernel) == (None, None)
+        return
+    jkernel = JInnerKernel(kernel.bm, kernel.bn, kernel.bk,
+                           depth=kernel.depth, dtype=kernel.dtype)
+    # the block the reference's local_matmul runs its Pallas kernel at
+    assert tops.block_for(kernel) == (jkernel.geometry(), jkernel.depth)
 
 
 CAST_CASES = [(have, want) for have in sorted(DTYPES)

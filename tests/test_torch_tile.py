@@ -73,7 +73,7 @@ def test_tile_geometry_at_the_path_and_record_shapes(shape):
         assert geo.ws_floats == tiles * geo.splits * cfg.bm * cfg.bn
     else:
         assert geo.counters == geo.ws_floats == 0
-    assert mmad_mod.plan_launch(m, n, k, (128, 128, 128), N_SMS, None, size,
+    assert mmad_mod.plan_launch(m, n, k, None, N_SMS, None, size,
                                 None, True) == (mmad_mod.TILE, geo.kps,
                                                 geo.splits)
 

@@ -129,15 +129,20 @@ def test_wgmma_geometry_at_the_train_shapes(shape, grid):
     (128, 256, 100000, 96),
 ])
 def test_wgmma_does_not_split_k(m, n, k, bk):
-    """Whatever the plan's bk and however few the tiles, the tensor-core
-    variant walks all of K in one CTA per tile (a split's fp32 partials
-    measured slower than the SMs it would fill), while the SIMT tile
-    kernel splits by its own geometry, whatever bk is: whole 32-deep
-    stages, covering K, none empty."""
-    assert mmad_mod.plan_launch(m, n, k, (128, 128, bk), N_SMS, None, 2,
-                                "k") == (mmad_mod.WGMMA, k, 1)
-    variant, kps, splits = mmad_mod.plan_launch(m, n, k, (128, 128, bk),
-                                                N_SMS)
+    """However few the tiles, the tensor-core variant walks all of K in one
+    CTA per tile at every 16-bit instance (a split's fp32 partials measured
+    slower than the SMs it would fill), and a plan's bk that no instance
+    has is refused; the SIMT tile kernel splits by its own geometry: whole
+    32-deep stages, covering K, none empty."""
+    for inst in [None] + [i for i in mmad_mod.TC_INSTANCES
+                          if i.family == "16bit"]:
+        block = None if inst is None else (inst.bm, inst.bn, inst.bk)
+        assert mmad_mod.plan_launch(m, n, k, block, N_SMS, None, 2,
+                                    "k") == (mmad_mod.WGMMA, k, 1)
+    if bk != mmad_mod.WGMMA_BK:
+        with pytest.raises(ValueError, match="no 16bit tensor-core"):
+            mmad_mod.plan_launch(m, n, k, (128, 128, bk), N_SMS, None, 2, "k")
+    variant, kps, splits = mmad_mod.plan_launch(m, n, k, None, N_SMS)
     geo = mmad_mod.tile_geometry(m, n, k, 2, 2, N_SMS, False)
     assert (variant, kps, splits) == (mmad_mod.TILE, geo.kps, geo.splits)
     assert splits == 1 or kps % mmad_mod.TILE_BK == 0
@@ -196,7 +201,7 @@ def test_plan_launch_routes_by_dtype_and_strides(route):
     n = b.shape[1]
     vector = mmad_mod.tile_vectors(a, b)
     variant, kps, splits = mmad_mod.plan_launch(
-        m, n, k, (128, 128, 128), N_SMS, mmad_mod.b_layout(b),
+        m, n, k, None, N_SMS, mmad_mod.b_layout(b),
         b.element_size(), mmad_mod.wgmma_b_major(a, b), vector)
     assert variant == want
     assert (splits - 1) * kps < k <= splits * kps
@@ -214,19 +219,23 @@ def test_plan_launch_routes_by_dtype_and_strides(route):
 def test_plan_launch_defaults_to_the_simt_tile_kernel(m, n, k, block):
     """Without the routing arguments a caller gets the SIMT tile kernel's
     generic instance; with `tile_vector` the same route, split by the
-    vector instance's own tiles; neither reads the block. The tensor-core
-    major still takes precedence."""
-    old = mmad_mod.plan_launch(m, n, k, block, N_SMS)
-    assert old == mmad_mod.plan_launch(m, n, k, block, N_SMS, None, 2, None,
+    vector instance's own tiles; both refuse a block, which they have no
+    geometry to run. The tensor-core major still takes precedence."""
+    old = mmad_mod.plan_launch(m, n, k, None, N_SMS)
+    assert old == mmad_mod.plan_launch(m, n, k, None, N_SMS, None, 2, None,
                                        False)
     geo = mmad_mod.tile_geometry(m, n, k, 2, 2, N_SMS, False)
     assert geo.instance == "generic"
     assert old == (mmad_mod.TILE, geo.kps, geo.splits)
-    vec = mmad_mod.plan_launch(m, n, k, block, N_SMS, None, 2, None, True)
+    vec = mmad_mod.plan_launch(m, n, k, None, N_SMS, None, 2, None, True)
     geo = mmad_mod.tile_geometry(m, n, k, 2, 2, N_SMS, True)
     assert geo.instance != "generic"
     assert vec == (mmad_mod.TILE, geo.kps, geo.splits)
-    assert mmad_mod.plan_launch(m, n, k, block, N_SMS, None, 2, "n")[0] == (
+    for vector in (False, True):
+        with pytest.raises(ValueError, match="SIMT tile route"):
+            mmad_mod.plan_launch(m, n, k, block, N_SMS, None, 2, None,
+                                 vector)
+    assert mmad_mod.plan_launch(m, n, k, None, N_SMS, None, 2, "n")[0] == (
         mmad_mod.WGMMA)
 
 
@@ -263,19 +272,21 @@ def test_every_routed_train_gemm_qualifies_for_the_tensor_cores(tmp_path,
     seen = []
     real = ops.mmad
 
-    def recorder(a, b, block_shape=(128, 128, 128), out_dtype=None):
+    def recorder(a, b, block_shape=None, out_dtype=None, stages=None):
         m, k = a.shape
         n = b.shape[1]
         major = mmad_mod.wgmma_b_major(a, b)
+        # the route's own geometry: on a CUDA mesh lowering demotes these
+        # TPU-view plans' inner kernels (`inner_kernel_no_instance`)
         route = mmad_mod.plan_launch(
-            m, n, k, block_shape, N_SMS, mmad_mod.b_layout(b),
+            m, n, k, None, N_SMS, mmad_mod.b_layout(b),
             b.element_size(), major)[0]
         seen.append({"shape": (m, n, k), "dtypes": (a.dtype, b.dtype),
                      "strides": (a.stride(), b.stride()),
                      "offsets": (a.storage_offset() * a.element_size() % 16,
                                  b.storage_offset() * b.element_size() % 16),
                      "major": major, "route": route})
-        return real(a, b, block_shape, out_dtype)
+        return real(a, b, block_shape, out_dtype, stages)
 
     monkeypatch.setattr(ops, "mmad", recorder)
     ctx = shard_ctx.GemmContext(mesh=mesh.make_host_mesh("cpu"),
@@ -345,7 +356,7 @@ def test_every_backward_product_qualifies_for_the_tensor_cores(
     real_mmad, real_products = ops.mmad, ops.backward_products
     state = {"backward": False}
 
-    def recorder(a, b, block_shape=(128, 128, 128), out_dtype=None):
+    def recorder(a, b, block_shape=None, out_dtype=None, stages=None):
         if state["backward"]:
             m, k = a.shape
             n = b.shape[1]
@@ -356,8 +367,8 @@ def test_every_backward_product_qualifies_for_the_tensor_cores(
                 "out": out_dtype,
                 "route": mmad_mod.plan_launch(
                     m, n, k, block_shape, N_SMS, mmad_mod.b_layout(b),
-                    b.element_size(), major)[0]})
-        return real_mmad(a, b, block_shape, out_dtype)
+                    b.element_size(), major, stages=stages)[0]})
+        return real_mmad(a, b, block_shape, out_dtype, stages)
 
     def products(g, a, b):
         grads.append(bool(torch.equal(g, g.bfloat16().float())))

@@ -63,12 +63,12 @@ def main() -> int:
             it["i"] = (it["i"] + 1) % copies
             return ws[it["i"]]
 
-        got = mm.mmad(a, ws[0], block, torch.float32)
+        got = mm.mmad(a, ws[0], out_dtype=torch.float32)
         ratio = cs.tolerance_ratio(torch, got, ref.mmad_ref(a, ws[0],
                                                              torch.float32),
                                    k, torch.float32)
         kernel = [1e3 * cs.device_ms(
-            torch, lambda: mm.mmad(a, nxt(), block, torch.float32))
+            torch, lambda: mm.mmad(a, nxt(), out_dtype=torch.float32))
             for _ in range(args.repeats)]
         library = [1e3 * cs.device_ms(torch, lambda: torch.matmul(a, nxt()))
                    for _ in range(args.repeats)]

@@ -77,13 +77,13 @@ def errors(torch, cs, mm, ref, dev) -> None:
             want = ref.mmad_ref(a, b, torch.float32)
             row = {"errors": True, "m": ERROR_MN, "n": ERROR_MN, "k": k,
                    "variant": mm.plan_launch(
-                       ERROR_MN, ERROR_MN, k, (128, 128, 128),
+                       ERROR_MN, ERROR_MN, k, None,
                        mm._num_sms(dev), mm.b_layout(b), 1,
                        mm.wgmma_b_major(a, b))[:3],
                    "max_abs_want": float(want.abs().max())}
             for steps in PROMOTIONS:
                 mm.FP8_PROMOTE_STEPS = steps
-                got = mm.mmad(a, b, (128, 128, 128), torch.float32)
+                got = mm.mmad(a, b, out_dtype=torch.float32)
                 err = (got - want).abs()
                 row[f"promote_{steps}"] = {
                     "max_abs_err": float(err.max()),
@@ -126,8 +126,7 @@ def split_sweep(torch, cs, mm, dev, repeats: int) -> None:
 
                 def call():
                     it["i"] = (it["i"] + 1) % copies
-                    return mm.mmad(a, ws[it["i"]], (128, 128, 128),
-                                   torch.float32)
+                    return mm.mmad(a, ws[it["i"]], out_dtype=torch.float32)
                 tiles = -(-n // mm.FP8_BN_FLAT)
                 steps = -(-k // mm.FP8_BK)
                 row = {"split_sweep": [m, n, k]}

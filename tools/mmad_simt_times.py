@@ -98,7 +98,7 @@ def main() -> int:
             it["i"] = (it["i"] + 1) % copies
             return ws[it["i"]]
 
-        route = [m, n, k, block, n_sms, mm.b_layout(ws[0]), size,
+        route = [m, n, k, None, n_sms, mm.b_layout(ws[0]), size,
                  mm.wgmma_b_major(a, ws[0])]
         row = {"root": str(args.root), "name": name, "shape": [m, n, k],
                "dtype": dtype_name, "launches_per_step": count}
@@ -108,9 +108,9 @@ def main() -> int:
             geo = mm.tile_geometry(m, n, k, size, size, n_sms, vector)
             row.update(instance=geo.instance, grid=list(geo.grid))
         row["variant"], row["kps"], row["splits"] = mm.plan_launch(*route)
-        got = mm.mmad(a, ws[0], block, torch.float32)
+        got = mm.mmad(a, ws[0], out_dtype=torch.float32)
         want = ref.mmad_ref(a, ws[0], torch.float32)
-        repeats = all(torch.equal(mm.mmad(a, ws[0], block, torch.float32),
+        repeats = all(torch.equal(mm.mmad(a, ws[0], out_dtype=torch.float32),
                                   got) for _ in range(2))
         torch.cuda.synchronize()
         counters = [int(buf.abs().sum()) for buf in mm._counters.values()]
@@ -118,7 +118,7 @@ def main() -> int:
         def times(fn):
             return [1e3 * cs.device_ms(torch, fn) for _ in range(args.repeats)]
 
-        kernel = times(lambda: mm.mmad(a, nxt(), block, torch.float32))
+        kernel = times(lambda: mm.mmad(a, nxt(), out_dtype=torch.float32))
         if dtype == torch.float8_e4m3fn:
             one = torch.ones((), device=dev)
             cols = [w.T.contiguous().T for w in ws]     # B column-major

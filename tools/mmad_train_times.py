@@ -102,11 +102,11 @@ def main() -> int:
             it["i"] = (it["i"] + 1) % copies
             return ws[it["i"]]
 
-        variant = mm.plan_launch(m, n, k, block, n_sms, mm.b_layout(ws[0]),
+        variant = mm.plan_launch(m, n, k, None, n_sms, mm.b_layout(ws[0]),
                                  2, mm.wgmma_b_major(a, ws[0]))[0]
-        got = mm.mmad(a, ws[0], block, torch.float32)
+        got = mm.mmad(a, ws[0], out_dtype=torch.float32)
         want = ref.mmad_ref(a, ws[0], torch.float32)
-        repeats = all(torch.equal(mm.mmad(a, ws[0], block, torch.float32),
+        repeats = all(torch.equal(mm.mmad(a, ws[0], out_dtype=torch.float32),
                                   got) for _ in range(2))
         iters, warmup = (5, 1) if m * n * k > 1e11 else (20, 3)
 
@@ -114,7 +114,7 @@ def main() -> int:
             return [1e3 * cs.device_ms(torch, fn, iters=iters, warmup=warmup)
                     for _ in range(args.repeats)]
 
-        kernel = times(lambda: mm.mmad(a, nxt(), block, torch.float32))
+        kernel = times(lambda: mm.mmad(a, nxt(), out_dtype=torch.float32))
         flops = 2 * m * n * k
         t_bytes = (m * k * 2 + k * n * 2 + m * n * 4) / cs.H100_BYTES_PER_S
         t_ops = flops / cs.H100_BF16_FLOPS
@@ -141,7 +141,7 @@ def main() -> int:
             real = mm.wgmma_b_major
             mm.wgmma_b_major = lambda *_: None
             try:
-                simt = times(lambda: mm.mmad(a, nxt(), block, torch.float32))
+                simt = times(lambda: mm.mmad(a, nxt(), out_dtype=torch.float32))
             finally:
                 mm.wgmma_b_major = real
             row["simt_tile_us"] = statistics.median(simt)
