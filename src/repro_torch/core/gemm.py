@@ -38,7 +38,6 @@ which resolves the tuned dataflow + logical grid into an `ExecPlan`;
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
@@ -49,6 +48,8 @@ from repro_torch.core.collectives import (all_gather, axis_index,
                                           psum_scatter, shard, unshard)
 from repro_torch.core.lower import ExecPlan, lower_schedule, on_cuda
 from repro_torch.core.schedule import InnerKernel
+from repro_torch.kernels.ops import cast_c, local_matmul
+from repro_torch.obs.trace import profile_scope
 
 MODES = ("auto", "summa", "cannon", "splitk", "allgather")
 
@@ -65,7 +66,6 @@ def _tile_dot(a: torch.Tensor, b: torch.Tensor,
     route picks (the tensor cores' own tile, a stream kernel or the SIMT
     tile route), and CPU tensors take the same fp32 product as the
     reference's `jnp.dot`."""
-    from repro_torch.kernels.ops import local_matmul
     return local_matmul(a, b, kernel)
 
 
@@ -94,17 +94,6 @@ def _skew(x: torch.Tensor, mesh, axis: str, by: int, d: int) -> torch.Tensor:
     for s in range(d - 1):
         x = pick(by > s, ppermute(x, mesh, axis, _ring(d)), x)
     return x
-
-
-def _mode_scope(mode: str):
-    """Name every mode's dispatch for the profiler (`dit_gemm.<mode>`).
-
-    A `record_function` costs host time on every dispatch even with no
-    profiler running (the reference's named scopes cost nothing per step:
-    they are traced once), so the scope is entered only while one is."""
-    if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(f"dit_gemm.{mode}")
-    return contextlib.nullcontext()
 
 
 def _sharded(body, a: torch.Tensor, b: torch.Tensor, mesh, a_spec, b_spec,
@@ -155,8 +144,8 @@ def summa_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
         raise ValueError(f"K={k} must divide by {panels} SUMMA panels")
 
     def body(a_loc, b_loc):
-        return _summa_acc(a_loc, b_loc, mesh, row_axis, col_axis, dm, dn,
-                          kernel).to(a.dtype)
+        return cast_c(_summa_acc(a_loc, b_loc, mesh, row_axis, col_axis,
+                                 dm, dn, kernel), a.dtype)
 
     spec = (row_axis, col_axis)
     return _sharded(body, a, b, mesh, spec, spec, spec)
@@ -206,8 +195,8 @@ def cannon_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
         raise ValueError(f"cannon needs a square mesh, got {dm}x{dn}")
 
     def body(a_loc, b_loc):
-        return _cannon_acc(a_loc, b_loc, mesh, row_axis, col_axis, dm,
-                           kernel, overlap).to(a.dtype)
+        return cast_c(_cannon_acc(a_loc, b_loc, mesh, row_axis, col_axis,
+                                  dm, kernel, overlap), a.dtype)
 
     spec = (row_axis, col_axis)
     return _sharded(body, a, b, mesh, spec, spec, spec)
@@ -237,8 +226,8 @@ def splitk_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
         raise ValueError(f"M={m} must divide by k-axis size {dk} for scatter")
 
     def body(a_loc, b_loc):
-        return _reduce_k(_tile_dot(a_loc, b_loc, kernel), mesh, k_axis,
-                         scatter).to(a.dtype)
+        return cast_c(_reduce_k(_tile_dot(a_loc, b_loc, kernel), mesh,
+                                k_axis, scatter), a.dtype)
 
     return _sharded(body, a, b, mesh, (None, k_axis), (k_axis, None),
                     (k_axis, None) if scatter else (None, None))
@@ -263,7 +252,7 @@ def splitk_summa_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
     def body(a_loc, b_loc):
         acc = _summa_acc(a_loc, b_loc, mesh, row_axis, col_axis, rm, rn,
                          kernel)
-        return _reduce_k(acc, mesh, k_axis, scatter).to(a.dtype)
+        return cast_c(_reduce_k(acc, mesh, k_axis, scatter), a.dtype)
 
     return _sharded(body, a, b, mesh, (row_axis, (k_axis, col_axis)),
                     ((k_axis, row_axis), col_axis),
@@ -310,7 +299,7 @@ def hierarchical_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
                                 oi == p // on), mesh, row_axis)
             acc = _acc(acc, _cannon_acc(a_pan, b_pan, mesh, inner_row,
                                         inner_col, ih, kernel, overlap))
-        return acc.to(a.dtype)
+        return cast_c(acc, a.dtype)
 
     spec = ((row_axis, inner_row), (col_axis, inner_col))
     return _sharded(body, a, b, mesh, spec, spec, spec)
@@ -361,7 +350,7 @@ def outer_systolic_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
                 if not last:
                     a_cur = ppermute(a_cur, mesh, col_axis, _ring(d))  # west
                     b_cur = ppermute(b_cur, mesh, row_axis, _ring(d))  # north
-        return acc.to(a.dtype)
+        return cast_c(acc, a.dtype)
 
     spec = ((row_axis, inner_row), (col_axis, inner_col))
     return _sharded(body, a, b, mesh, spec, spec, spec)
@@ -378,7 +367,7 @@ def allgather_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
     def body(a_loc, b_loc):
         a_full = all_gather(a_loc, mesh, col_axis, 1)
         b_full = all_gather(b_loc, mesh, row_axis, 0)
-        return _tile_dot(a_full, b_full, kernel).to(a.dtype)
+        return cast_c(_tile_dot(a_full, b_full, kernel), a.dtype)
 
     spec = (row_axis, col_axis)
     return _sharded(body, a, b, mesh, spec, spec, spec)
@@ -388,7 +377,7 @@ def auto_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
               row_axis: str = "data", col_axis: str = "model") -> torch.Tensor:
     """Plain fp32-accumulated product: the reference's XLA einsum. Every
     rank holds the operands whole, so each computes C whole."""
-    return torch.matmul(a.float(), b.float()).to(a.dtype)
+    return cast_c(torch.matmul(a.float(), b.float()), a.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -404,7 +393,7 @@ def exec_plan_gemm(a: torch.Tensor, b: torch.Tensor, mesh,
     mode = exec_plan.mode
     ik = exec_plan.inner_kernel
     ov = exec_plan.overlap
-    with _mode_scope(mode):
+    with profile_scope(f"dit_gemm.{mode}"):
         if mode == "auto":
             return auto_gemm(a, b, mesh, ax["row"], ax["col"])
         if mode == "summa":
@@ -472,18 +461,21 @@ def dit_gemm(a: torch.Tensor, b: torch.Tensor, mesh, mode: str = "auto",
     lead = a.shape[:-1]
     if a.dim() != 2:
         a = a.reshape(-1, a.shape[-1])
-    if planner is not None and plan is None:
-        from repro_torch.core.schedule import GEMMShape
-        plan = planner.plan(GEMMShape(a.shape[0], b.shape[1], a.shape[1]))
-    if exec_plan is None and plan is not None:
-        exec_plan = lower_for(getattr(plan, "schedule", plan), mesh, a, b,
-                              row_axis, col_axis, overrides=kw)
+    if planner is not None or plan is not None:
+        with profile_scope("gemm.resolve"):
+            if planner is not None and plan is None:
+                from repro_torch.core.schedule import GEMMShape
+                plan = planner.plan(GEMMShape(a.shape[0], b.shape[1],
+                                              a.shape[1]))
+            if exec_plan is None and plan is not None:
+                exec_plan = lower_for(getattr(plan, "schedule", plan), mesh,
+                                      a, b, row_axis, col_axis, overrides=kw)
     if exec_plan is not None:
         out = exec_plan_gemm(a, b, mesh, exec_plan)
     elif mode not in MODES:
         raise KeyError(f"unknown mode {mode!r}; have {MODES}")
     else:
-        with _mode_scope(mode):
+        with profile_scope(f"dit_gemm.{mode}"):
             if mode == "auto":
                 out = auto_gemm(a, b, mesh, row_axis, col_axis)
             elif mode == "summa":

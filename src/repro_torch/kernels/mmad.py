@@ -97,6 +97,7 @@ from repro_torch.core.schedule import ring_bytes
 from repro_torch.hw.config import (H100_STREAM_MAX_M, H100_TC_INSTANCES,
                                    TensorCoreInstance)
 from repro_torch.kernels import ref
+from repro_torch.obs.trace import profile_scope
 
 # dtype codes shared with csrc/mmad.cu
 DTYPE_CODES = {
@@ -737,31 +738,36 @@ def mmad(a: torch.Tensor, b: torch.Tensor,
     kernel masks the ragged edge itself. CPU operands run the plain
     version, whatever block they are given; meta operands (the dry run's
     shape-only trace) give an empty meta tensor of the product's shape and
-    launch nothing."""
-    if a.dim() != 2 or b.dim() != 2:
-        raise ValueError(f"mmad takes 2-D operands, got {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
-    m, k = a.shape
-    k2, n = b.shape
-    if k != k2:
-        raise ValueError(f"inner dims mismatch: {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
-    bs = None if block_shape is None else _check_block(block_shape)
-    out_dtype = out_dtype or a.dtype
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return ref.mmad_ref(a, b, out_dtype)
-    if a.device.type == "meta" and b.device.type == "meta":
-        return torch.empty((m, n), dtype=out_dtype, device=a.device)
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"mmad operands must both be on one CUDA device or "
-                         f"both on the CPU, got {a.device} and {b.device}")
-    for name, t in (("A", a), ("B", b)):
-        if t.dtype not in DTYPE_CODES:
-            raise TypeError(f"mmad kernel does not take {name} dtype {t.dtype}; "
-                            f"have {sorted(map(str, DTYPE_CODES))}")
-    if out_dtype not in OUT_DTYPES:
-        raise TypeError(f"mmad kernel writes {OUT_DTYPES}, not {out_dtype}")
-    return _launch(a, b, bs, stages, out_dtype)
+    launch nothing. The whole call, checks and plain version included, is
+    named `mmad.launch` for the profiler."""
+    with profile_scope("mmad.launch"):
+        if a.dim() != 2 or b.dim() != 2:
+            raise ValueError(f"mmad takes 2-D operands, got "
+                             f"{tuple(a.shape)} @ {tuple(b.shape)}")
+        m, k = a.shape
+        k2, n = b.shape
+        if k != k2:
+            raise ValueError(f"inner dims mismatch: {tuple(a.shape)} @ "
+                             f"{tuple(b.shape)}")
+        bs = None if block_shape is None else _check_block(block_shape)
+        out_dtype = out_dtype or a.dtype
+        if a.device.type == "cpu" and b.device.type == "cpu":
+            return ref.mmad_ref(a, b, out_dtype)
+        if a.device.type == "meta" and b.device.type == "meta":
+            return torch.empty((m, n), dtype=out_dtype, device=a.device)
+        if a.device.type != "cuda" or b.device != a.device:
+            raise ValueError(f"mmad operands must both be on one CUDA "
+                             f"device or both on the CPU, got {a.device} "
+                             f"and {b.device}")
+        for name, t in (("A", a), ("B", b)):
+            if t.dtype not in DTYPE_CODES:
+                raise TypeError(f"mmad kernel does not take {name} dtype "
+                                f"{t.dtype}; have "
+                                f"{sorted(map(str, DTYPE_CODES))}")
+        if out_dtype not in OUT_DTYPES:
+            raise TypeError(f"mmad kernel writes {OUT_DTYPES}, not "
+                            f"{out_dtype}")
+        return _launch(a, b, bs, stages, out_dtype)
 
 
 def counter_buffer(device: torch.device, stream: int,

@@ -43,6 +43,7 @@ import torch
 from repro_torch.core.ir import ELEM_BYTES_OF_DTYPE
 from repro_torch.core.schedule import INNER_VMEM_BUDGET, InnerKernel
 from repro_torch.kernels.mmad import mmad, takes_tensor_cores
+from repro_torch.obs.trace import profile_scope
 
 # working-set budget for picking block shapes (bytes), shared with the
 # schedule level so `pick_block_shape` picks what the reference picks
@@ -196,6 +197,14 @@ def padded_rows(g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
+def cast_c(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An fp32 product C in its operands' `dtype`: the one place a routed
+    GEMM's C is cast (every mode body of `core/gemm.py` and
+    `backward_products`), named `gemm.cast` for the profiler."""
+    with profile_scope("gemm.cast"):
+        return c.to(dtype)
+
+
 def backward_products(g: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """da = g @ b.T and db = a.T @ g on `mmad`, g rounded to the operand
@@ -205,8 +214,8 @@ def backward_products(g: torch.Tensor, a: torch.Tensor,
     in place; g's rows are padded to whole 16 bytes where its width needs
     it, so the tensor-core variant reads it too."""
     g = padded_rows(g, a.dtype)
-    da = mmad(g, b.T, out_dtype=torch.float32).to(a.dtype)
-    db = mmad(a.T, g, out_dtype=torch.float32).to(b.dtype)
+    da = cast_c(mmad(g, b.T, out_dtype=torch.float32), a.dtype)
+    db = cast_c(mmad(a.T, g, out_dtype=torch.float32), b.dtype)
     return da, db
 
 
@@ -222,8 +231,8 @@ class _LocalMatmul(torch.autograd.Function):
         if tensor_core_backward(a, b):
             return (*backward_products(g, a, b), None)
         g32 = g.float()
-        da = torch.matmul(g32, b.float().T).to(a.dtype)
-        db = torch.matmul(a.float().T, g32).to(b.dtype)
+        da = cast_c(torch.matmul(g32, b.float().T), a.dtype)
+        db = cast_c(torch.matmul(a.float().T, g32), b.dtype)
         return da, db, None
 
 

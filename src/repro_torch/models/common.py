@@ -8,7 +8,6 @@ Layers are plain functions on tensors, as in the reference.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Any, Optional, Tuple
@@ -88,15 +87,6 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
-
-def profile_scope(name: str):
-    """Name a region of the model for the profiler (`moe.einsums`, the SSM
-    state updates), entered only while one runs: a `record_function` costs
-    host time even with none (as `core.gemm._mode_scope`)."""
-    if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
-
 
 def normal(generator: Optional[torch.Generator], shape: Tuple[int, ...],
            device) -> torch.Tensor:

@@ -181,18 +181,12 @@ def pmm(x: torch.Tensor, w: torch.Tensor, tag: str = "") -> torch.Tensor:
         return _dispatch_routed(ctx, x, w, resolved)
     # the span covers resolution plus the first dispatch, as the
     # reference's covers plan consult + lowering + tracing
-    t0 = time.perf_counter()
     with tracer.span(f"pmm.{tag or 'untagged'}", cat=obs_trace.CAT_PMM,
                      tag=tag, shape=[shape.m, shape.n, shape.k]) as prov:
         resolved = ctx.resolved[key] = _resolve_routed(ctx, shape, prov,
                                                        tracer, x, w)
         out = _dispatch_routed(ctx, x, w, resolved)
-    dispatch_us = (time.perf_counter() - t0) * 1e6
     tracer.metrics.counter(f"pmm.provenance.{prov['provenance']}").inc()
-    tracer.metrics.observe(
-        f"pmm.dispatch_us.mode.{prov.get('mode', 'auto')}", dispatch_us)
-    tracer.metrics.observe(
-        f"pmm.dispatch_us.tag.{tag or 'untagged'}", dispatch_us)
     return out
 
 
@@ -277,17 +271,10 @@ def pattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, unfused,
     if tracer is None:
         resolved = ctx.resolved[key] = _resolve_attn(ctx, shape, {}, None)
         return _dispatch_attn(ctx, q, k, v, resolved, *args)
-    t0 = time.perf_counter()
     with tracer.span(f"pattn.{tag or 'untagged'}", cat=obs_trace.CAT_PMM,
                      tag=tag, shape=[shape.b, shape.sq, shape.skv, shape.h,
                                      shape.hkv, shape.d, shape.dv]) as prov:
         resolved = ctx.resolved[key] = _resolve_attn(ctx, shape, prov, tracer)
         out = _dispatch_attn(ctx, q, k, v, resolved, *args)
-    dispatch_us = (time.perf_counter() - t0) * 1e6
     tracer.metrics.counter(f"pattn.provenance.{prov['provenance']}").inc()
-    tracer.metrics.observe(
-        f"pattn.dispatch_us.mode.{prov.get('mode', 'unfused_attn')}",
-        dispatch_us)
-    tracer.metrics.observe(
-        f"pattn.dispatch_us.tag.{tag or 'untagged'}", dispatch_us)
     return out

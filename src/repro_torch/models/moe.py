@@ -26,8 +26,9 @@ from torch import nn
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import shard_ctx
 from repro_torch.models.common import (ModelConfig, activation, dense_init,
-                                       mlp_params, normal, profile_scope)
+                                       mlp_params, normal)
 from repro_torch.models.matmul import pmm, record_gemm
+from repro_torch.obs.trace import get_tracer, profile_scope, profiling
 
 
 class Experts(nn.Module):
@@ -143,6 +144,18 @@ def dispatch_slots(topi: torch.Tensor, e: int, cap: int
     return onehot, within, torch.clamp(pos_tk, 0, cap - 1)
 
 
+def _count_drops(within: torch.Tensor) -> None:
+    """While a profiler runs, add to the installed tracer's `moe.pairs` the
+    (token, choice) pairs routed and to `moe.dropped` those past their
+    expert's capacity (`within` false), the latter as a 0-d device tensor,
+    so nothing is read back to the host during the step."""
+    tracer = get_tracer()
+    if tracer is None or not profiling():
+        return
+    tracer.metrics.counter("moe.pairs").inc(within.numel())
+    tracer.metrics.counter("moe.dropped").inc((~within).sum())
+
+
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D)."""
     b, s, d = x.shape
@@ -155,6 +168,7 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     topv, topi = route(p, xt, cfg)
     onehot, within, pos_c = dispatch_slots(topi, e, cap)
+    _count_drops(within)
 
     # one-hot einsum dispatch (the reference's: every op a dense
     # contraction, so it stays SPMD-friendly across an expert axis); expert

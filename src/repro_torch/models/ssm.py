@@ -41,9 +41,9 @@ from torch import nn
 
 from repro_torch.launch.mesh import resolve_device
 from repro_torch.models import accounting
-from repro_torch.models.common import (ModelConfig, dense_init, normal,
-                                       profile_scope, silu)
+from repro_torch.models.common import ModelConfig, dense_init, normal, silu
 from repro_torch.models.matmul import pmm
+from repro_torch.obs.trace import profile_scope
 
 CHUNK = 128
 NEG_STAB = -1e30              # mLSTM / sLSTM initial stabiliser

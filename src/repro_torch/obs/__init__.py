@@ -1,12 +1,13 @@
 """Runtime observability: structured dispatch tracing, Chrome trace-event
-(Perfetto) export, a metrics registry, predicted-vs-measured drift
-monitoring, and versioned run reports.
+(Perfetto) export, the profiler scopes, a metrics registry,
+predicted-vs-measured drift monitoring, and versioned run reports.
 
-The whole package is importable without jax — only the dispatch path that
-*feeds* it (models/matmul.py, core/gemm.py) touches jax. A launcher
+The routing path (models/matmul.py, core/gemm.py) feeds it. A launcher
 installs a `Tracer` via `set_tracer` exactly like it installs the
 `GemmContext`; with no tracer installed the hooks are a global read + None
-check. See docs/observability.md.
+check. `trace.profile_scope` names a region on `torch.profiler`'s clock
+while one runs and costs an attribute read otherwise. See
+docs/observability.md.
 """
 from repro_torch.obs.drift import DRIFT_STALE_THRESHOLD, DriftMonitor
 from repro_torch.obs.metrics import MetricsRegistry

@@ -4,7 +4,9 @@ Counters and histograms the tracer (and anything else on the routing path)
 accumulates into; `MetricsRegistry.to_dict()` is the snapshot the run
 report embeds. Deliberately tiny and deterministic:
 
-- counters are plain ints;
+- counters are plain ints, or 0-d device tensors where a count is taken
+  on the device without a host read (`moe.dropped`), read as ints when
+  the snapshot is taken;
 - histograms keep running count/sum/min/max plus the FIRST `max_samples`
   observations (a deterministic cap, not a random reservoir — two runs of
   the same program produce identical snapshots), from which the snapshot
@@ -26,8 +28,13 @@ class Counter:
     def __init__(self) -> None:
         self.value = 0
 
-    def inc(self, n: int = 1) -> None:
-        self.value += n
+    def inc(self, n=1) -> None:
+        """Add `n`, an int or a 0-d tensor (summed out of place, so the
+        caller's tensor is never written)."""
+        self.value = self.value + n
+
+    def to_dict(self) -> int:
+        return int(self.value)
 
 
 class Histogram:
@@ -96,7 +103,7 @@ class MetricsRegistry:
 
     def to_dict(self) -> Dict[str, object]:
         return {
-            "counters": {k: c.value
+            "counters": {k: c.to_dict()
                          for k, c in sorted(self._counters.items())},
             "histograms": {k: h.to_dict()
                            for k, h in sorted(self._histograms.items())},

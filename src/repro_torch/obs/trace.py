@@ -1,19 +1,27 @@
-"""Structured dispatch tracer with Chrome trace-event export (jax-free).
+"""Dispatch tracer with Chrome trace-event export, and the port's one
+profiler scope helper (jax-free).
 
-One `Tracer` per run, installed by a launcher via `set_tracer` the same way
-`shard_ctx.set_gemm_context` installs the routing context. `pmm` consults
-`get_tracer()` per dispatch: with no tracer installed the dispatch path
-pays one global read and a None check — cheap enough to leave the hooks in
-permanently (benchmarks/tracing_bench.py asserts the bound).
+Two clocks. `profile_scope` names a region for `torch.profiler`: a
+`record_function` range on the profiler's own clock, so the kernels
+launched inside it can be attributed to it (`dit_gemm.<mode>`,
+`gemm.resolve`, `gemm.cast`, `mmad.launch`, `moe.einsums`, the SSM state
+loops, `train.step`, `train.forward`, `train.loss`, `train.backward`,
+`optim.adamw`, `optim.clip`). It is entered only while a profiler runs:
+with none it is a `nullcontext` and costs one attribute read.
 
-Spans are *host-side trace-time* measurements: GEMM shapes are static
-under jit, so a `pmm` span covers the plan consult + schedule lowering +
-shard_map tracing of one callsite, not the per-step device execution
-(device-side segmentation is `core.gemm`'s `jax.named_scope` wrapping —
-see docs/observability.md). Each span carries the dispatch provenance
-(`tag`, shape, hit/bucketed/fallback, plan + calibration digests, resolved
-mode, fallback reasons, predicted cost), which is also what
-`obs.report.dispatch_provenance` lifts into the run report.
+`Tracer` records what the routing path decided. One per run, installed by
+a launcher via `set_tracer` the same way `shard_ctx.set_gemm_context`
+installs the routing context. `pmm` and `pattn` consult `get_tracer()` on
+the first call of each (tag, shape), which they resolve and memoize: with
+no tracer installed that costs one global read and a None check. A `pmm`
+span covers that first call (plan consult, lowering and the first
+dispatch) and carries its provenance (`tag`, shape, hit/bucketed/fallback,
+plan and calibration digests, resolved mode, fallback reasons, predicted
+cost), which `obs.report.dispatch_provenance` lifts into the run report
+(`dispatches[].dur_us` is the span's own time). Spans run on the
+Tracer's `perf_counter` clock, which starts at its construction; each
+also enters `profile_scope`, so under a profiler it lands on the
+profiler's timeline beside its kernels.
 
 Export is the Chrome trace-event JSON format, loadable directly at
 https://ui.perfetto.dev: complete events (`ph: "X"`, microsecond `ts`/
@@ -28,11 +36,27 @@ import tempfile
 import time
 from typing import Any, Dict, Iterator, List, Optional
 
+import torch
+
 from repro_torch.obs.metrics import MetricsRegistry
 
 # span categories used by the dispatch path ("cat" in the trace events)
 CAT_PMM = "pmm"
 CAT_STEP = "step"
+
+
+def profiling() -> bool:
+    """Whether a `torch.profiler` (or autograd profiler) is running."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def profile_scope(name: str):
+    """A `record_function` range named `name` while a profiler runs, else
+    a `nullcontext`: a `record_function` costs host time on every entry
+    even with no profiler running."""
+    if profiling():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 class Tracer:
@@ -59,21 +83,23 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, cat: str = CAT_PMM,
              **args: Any) -> Iterator[Dict[str, Any]]:
-        """A complete ("X") trace event around the block.
+        """A complete ("X") trace event around the block, which is also a
+        `profile_scope` of the same name.
 
         Yields the event's mutable `args` dict so callers can attach
         provenance discovered mid-span (resolved mode, plan digest, ...).
         """
         span_args: Dict[str, Any] = dict(args)
-        t0 = self._now_us()
-        try:
-            yield span_args
-        finally:
-            dur = self._now_us() - t0
-            span_args["dur_us"] = round(dur, 1)
-            self._emit({"name": name, "cat": cat, "ph": "X",
-                        "ts": round(t0, 1), "dur": round(dur, 1),
-                        "pid": 0, "tid": 0, "args": span_args})
+        with profile_scope(name):
+            t0 = self._now_us()
+            try:
+                yield span_args
+            finally:
+                dur = self._now_us() - t0
+                span_args["dur_us"] = round(dur, 1)
+                self._emit({"name": name, "cat": cat, "ph": "X",
+                            "ts": round(t0, 1), "dur": round(dur, 1),
+                            "pid": 0, "tid": 0, "args": span_args})
 
     def instant(self, name: str, cat: str = CAT_PMM, **args: Any) -> None:
         """A zero-duration ("i") event — markers like unrouted dispatches."""

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import collectives
+from repro_torch.obs.trace import profile_scope
 from repro_torch.parallel import sharded
 
 Params = Union[nn.Module, Mapping[str, torch.Tensor]]
@@ -114,9 +115,11 @@ def global_norm(tree: Mapping[str, torch.Tensor], layout=None
 def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float,
                         layout=None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    norm = global_norm(tree, layout)
-    factor = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return {k: (g.float() * factor).to(g.dtype) for k, g in tree.items()}, norm
+    with profile_scope("optim.clip"):
+        norm = global_norm(tree, layout)
+        factor = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+        return ({k: (g.float() * factor).to(g.dtype)
+                 for k, g in tree.items()}, norm)
 
 
 def init(params: Params) -> AdamWState:
@@ -134,25 +137,27 @@ def init(params: Params) -> AdamWState:
 def apply(cfg: AdamWConfig, params: Params,
           grads: Mapping[str, torch.Tensor], state: AdamWState
           ) -> Tuple[Params, AdamWState, dict]:
-    """One AdamW step, in place. Returns (params, state, metrics) with
-    metrics `lr` and, when clipping, `grad_norm` (before clipping)."""
-    metrics = {}
-    if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm,
-                                           sharded.layout_of(params))
-        metrics["grad_norm"] = gnorm
-    step = state.step + 1
-    lr = lr_at(cfg, step)
-    metrics["lr"] = lr
-    b1c = 1 - cfg.b1 ** step.float()
-    b2c = 1 - cfg.b2 ** step.float()
-    for name, p in named(params).items():
-        gf = grads[name].float()
-        m = state.mu[name].mul_(cfg.b1).add_((1 - cfg.b1) * gf)
-        v = state.nu[name].mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
-        mhat = m / b1c
-        vhat = v / b2c
-        pf = p.float()
-        p.copy_(pf - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                           + cfg.weight_decay * pf))
-    return params, AdamWState(step=step, mu=state.mu, nu=state.nu), metrics
+    """One AdamW step, in place, named `optim.adamw` for the profiler.
+    Returns (params, state, metrics) with metrics `lr` and, when clipping,
+    `grad_norm` (before clipping)."""
+    with profile_scope("optim.adamw"):
+        metrics = {}
+        if cfg.clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm,
+                                               sharded.layout_of(params))
+            metrics["grad_norm"] = gnorm
+        step = state.step + 1
+        lr = lr_at(cfg, step)
+        metrics["lr"] = lr
+        b1c = 1 - cfg.b1 ** step.float()
+        b2c = 1 - cfg.b2 ** step.float()
+        for name, p in named(params).items():
+            gf = grads[name].float()
+            m = state.mu[name].mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+            v = state.nu[name].mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
+            mhat = m / b1c
+            vhat = v / b2c
+            pf = p.float()
+            p.copy_(pf - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
+                               + cfg.weight_decay * pf))
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu), metrics

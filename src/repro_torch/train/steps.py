@@ -29,6 +29,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.matmul import pmm
 from repro_torch.models.model import (decode_step, forward, lm_head_weight,
                                       remat_call)
+from repro_torch.obs.trace import profile_scope
 from repro_torch.optim import adamw, compress
 from repro_torch.parallel import sharded
 
@@ -61,15 +62,17 @@ def chunked_xent(hidden: torch.Tensor, head_w: torch.Tensor,
     c = min(chunk, s)
     while s % c:
         c -= 1
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in range(s // c):
-        h_c, t_c = hidden[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c]
-        if torch.is_grad_enabled():
-            part = remat_call(_xent_chunk, h_c, head_w, t_c, vocab)
-        else:
-            part = _xent_chunk(h_c, head_w, t_c, vocab)
-        total = total + part
-    return total / (b * s)
+    with profile_scope("train.loss"):
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(s // c):
+            h_c = hidden[:, i * c:(i + 1) * c]
+            t_c = targets[:, i * c:(i + 1) * c]
+            if torch.is_grad_enabled():
+                part = remat_call(_xent_chunk, h_c, head_w, t_c, vocab)
+            else:
+                part = _xent_chunk(h_c, head_w, t_c, vocab)
+            total = total + part
+        return total / (b * s)
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -95,10 +98,14 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                    remat: bool = True
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, name -> grad) of `loss_fn`, the reference's
-    `jax.value_and_grad`; grads come in each parameter's dtype."""
+    `jax.value_and_grad`; grads come in each parameter's dtype. The
+    profiler sees `train.forward` (forward and loss) and `train.backward`
+    (the backward, the remat recomputation inside it)."""
     ps = adamw.named(params)
-    loss = loss_fn(params, batch, cfg, remat=remat)
-    grads = torch.autograd.grad(loss, list(ps.values()))
+    with profile_scope("train.forward"):
+        loss = loss_fn(params, batch, cfg, remat=remat)
+    with profile_scope("train.backward"):
+        grads = torch.autograd.grad(loss, list(ps.values()))
     return loss.detach(), dict(zip(ps, grads))
 
 
@@ -110,9 +117,14 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
     (params, opt_state, comp_state, metrics), metrics `loss`, `lr` and
     `grad_norm`. With microbatches the batch splits along its leading axis
     and the grads are summed in fp32 and averaged, as the reference's scan
-    does (so they reach the optimizer in fp32)."""
+    does (so they reach the optimizer in fp32). The profiler sees the whole
+    step as `train.step`."""
 
     def train_step(params, opt_state, comp_state, batch):
+        with profile_scope("train.step"):
+            return _step(params, opt_state, comp_state, batch)
+
+    def _step(params, opt_state, comp_state, batch):
         layout = sharded.layout_of(params)
 
         def share(b):
